@@ -1,0 +1,335 @@
+"""Plan / bind / execute: the one call surface for every LSTM backend.
+
+    plan = plan_stack(cfgs, impl="fused_stack", weight_dtype="int8")  # once, memoised
+    ex = plan.bind(params_list)                  # packs weights exactly once
+    h_seq, finals = ex(xs)                       # full-sequence execution
+    state = ex.zero_state(batch)                 # streaming serving loop:
+    state = ex.step(chunk, state)                #   native-layout hot path
+
+``plan_stack`` resolves backend legality (the rules live in
+``core.backends``), weight storage and the step-kernel threshold once; the
+executor never re-checks them per call and never re-packs.
+
+Backends ported so far (see ``core.backends.BACKENDS``):
+
+    naive / split   layer by layer, plain PyTorch
+    fused_stack     whole segment in ONE wavefront kernel launch
+    fused_step      fused_stack + the step kernel for chunks with
+                    T <= plan.chunk_len (the streaming serving default)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import torch
+
+from .backends import (
+    BackendSpec,
+    DEFAULT_CHUNK_LEN,
+    IDENTITY,
+    check_weight_storage,
+    get_backend,
+    register_backend,
+    requested_weight_storage,
+)
+from .lstm import LstmConfig, lstm_forward, zero_state as layer_zero_state
+from .quant import ACT_BITS
+
+Params = dict[str, Any]
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    """A fully resolved execution plan for one LSTM segment.
+
+    ``cfgs`` already carry the resolved ``weight_dtype``.
+    """
+
+    cfgs: tuple[LstmConfig, ...]
+    impl: str
+    #: resolved weight storage ("fp32" | "bf16" | "int8") for packed
+    #: backends; None for layer-by-layer backends (native storage)
+    weight_dtype: str | None = None
+    #: chunked-step backends only: chunks with T <= chunk_len run the step
+    #: kernel instead of the wavefront kernel
+    chunk_len: int | None = None
+    #: batch rows per CTA of the fused kernels (None = 1)
+    block_b: int | None = None
+    #: in-kernel activation fake-quant on the layer hand-off; None = off
+    act_bits: int | None = None
+
+    @property
+    def backend(self) -> BackendSpec:
+        return get_backend(self.impl)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.cfgs)
+
+    @property
+    def hidden(self) -> tuple[int, ...]:
+        return tuple(c.hidden for c in self.cfgs)
+
+    def bind(self, params_list: Sequence[Params], *,
+             packed: Any = None) -> "StackExecutor":
+        """Bind parameters: pack weights exactly once, return the executor.
+
+        Packing goes through ``pack_stack_cached`` (identity-keyed); an
+        explicitly supplied ``packed`` is validated against the plan here.
+        """
+        params = tuple(params_list)
+        if packed is not None and not self.backend.packs:
+            raise ValueError(
+                f"packed weights only apply to packing backends (impl={self.impl!r})"
+            )
+        if self.backend.packs and self.cfgs:
+            from repro_torch.kernels.lstm_stack.ops import (
+                check_packed_matches_cfgs,
+                pack_stack_cached,
+            )
+
+            if packed is None:
+                packed = pack_stack_cached(list(params), list(self.cfgs))
+            else:
+                check_packed_matches_cfgs(packed, self.cfgs)
+        return StackExecutor(self, params, packed)
+
+    def describe(self) -> str:
+        """One-line human summary."""
+        dims = "->".join(str(c.hidden) for c in self.cfgs) or "(identity)"
+        knobs = "".join(
+            f" {k}={getattr(self, k)}" for k in ("chunk_len", "block_b", "act_bits")
+            if getattr(self, k) is not None
+        )
+        return (f"impl={self.impl} layers={self.n_layers} [{dims}] "
+                f"weight_dtype={self.weight_dtype or 'native'}{knobs}")
+
+
+@functools.lru_cache(maxsize=128)
+def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
+                       weight_dtype: str | None, chunk_len: int | None,
+                       block_b: int | None, act_bits: int | None) -> StackPlan:
+    spec = get_backend(impl)  # raises for unknown impl, even on empty segments
+    if not cfgs:
+        return StackPlan(cfgs=(), impl=IDENTITY)
+    if block_b is not None:
+        if "block_b" not in spec.knobs:
+            raise ValueError(
+                f"block_b only applies to the fused kernel backends; got impl={impl!r}"
+            )
+        if block_b < 1:
+            raise ValueError(f"block_b must be >= 1, got {block_b}")
+    if act_bits is not None:
+        if not spec.act_quant:
+            raise ValueError(
+                f"act_bits only applies to backends with in-kernel activation "
+                f"quantization (the fused kernels); got impl={impl!r}"
+            )
+        if act_bits not in ACT_BITS:
+            raise ValueError(f"act_bits={act_bits!r} unsupported; choose from {ACT_BITS}")
+    if chunk_len is not None and not spec.chunked_step:
+        raise ValueError(
+            f"chunk_len only applies to chunked-step backends (impl='fused_step'); "
+            f"got impl={impl!r}"
+        )
+    if spec.chunked_step:
+        from repro_torch.kernels.lstm_stack.step import MAX_STEP_UNROLL
+
+        if chunk_len is None:
+            chunk_len = max(1, min(DEFAULT_CHUNK_LEN, MAX_STEP_UNROLL // len(cfgs)))
+        if chunk_len < 1:
+            raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+        if chunk_len * len(cfgs) > MAX_STEP_UNROLL:
+            raise ValueError(
+                f"chunk_len={chunk_len} x {len(cfgs)} layers exceeds the step "
+                f"kernel's {MAX_STEP_UNROLL} sequential-cell ceiling; long "
+                "chunks belong to the wavefront kernel"
+            )
+    if weight_dtype is not None:
+        cfgs = tuple(dataclasses.replace(c, weight_dtype=weight_dtype) for c in cfgs)
+    check_weight_storage(requested_weight_storage(cfgs), impl)
+    resolved_wd = None
+    if spec.packs:
+        from repro_torch.kernels.lstm_stack.ops import (
+            _check_homogeneous,
+            resolve_weight_dtype,
+        )
+
+        _check_homogeneous(cfgs)
+        resolved_wd = resolve_weight_dtype(cfgs[0])
+    return StackPlan(cfgs=cfgs, impl=impl, weight_dtype=resolved_wd,
+                     chunk_len=chunk_len, block_b=block_b, act_bits=act_bits)
+
+
+def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
+               weight_dtype: str | None = None, chunk_len: int | None = None,
+               block_b: int | None = None, act_bits: int | None = None,
+               fuse_gates: bool | None = None,
+               tune: str = "default") -> StackPlan:
+    """Resolve an execution plan for a stacked LSTM segment, exactly once.
+
+    All impl-dependent legality is checked here: unknown backends,
+    quantized storage on a non-fused backend, storage wider than compute,
+    heterogeneous fused segments, ``act_bits`` on a backend without
+    in-kernel activation quant, and a knob on a backend that does not take
+    it.  Plans are memoised on their full argument tuple.
+
+    ``fuse_gates`` and ``tune`` exist so that reference call sites fail
+    loudly: both belong to later slices of the port.
+    """
+    if fuse_gates is not None:
+        raise ValueError(
+            "fuse_gates (the step kernel's single [x;h] @ [W_x;W_h] product) is "
+            "not ported yet; it comes with a later slice of the port (ROADMAP "
+            "queue 1, items 5 and 9)"
+        )
+    if tune != "default":
+        raise ValueError(
+            f"tune={tune!r} is not ported yet; the autotuner and the balanced "
+            "mixed split come with later slices of the port (ROADMAP queue 1, "
+            "items 8 and 9)"
+        )
+    return _plan_stack_cached(tuple(cfgs), impl, weight_dtype, chunk_len,
+                              block_b, act_bits)
+
+
+class StackExecutor:
+    """A plan bound to parameters: the only call-time surface.  Construct
+    via ``StackPlan.bind``."""
+
+    __slots__ = ("plan", "params", "packed")
+
+    def __init__(self, plan: StackPlan, params: tuple, packed: Any = None) -> None:
+        self.plan = plan
+        self.params = params
+        self.packed = packed
+
+    def __call__(self, xs: torch.Tensor, initial_state=None, *,
+                 return_state: bool = True):
+        """Run the segment. xs: (B, T, in_dim) -> (B, T, hidden[-1]).
+
+        ``initial_state``/finals are the portable per-layer ``[(h, c), ...]``
+        at real widths, identical across backends.
+        """
+        h_seq, finals = self.plan.backend.forward(self, xs, initial_state)
+        return (h_seq, finals) if return_state else h_seq
+
+    @property
+    def device(self) -> torch.device:
+        if self.packed is not None:
+            return self.packed.device
+        return self.params[0]["w_h"].device
+
+    def zero_state(self, batch: int):
+        """Backend-native zero state: the packed (L, B, W) pair for packed
+        backends, per-layer [(h, c), ...] at real widths otherwise."""
+        plan = self.plan
+        if plan.impl == IDENTITY:
+            return []
+        if plan.backend.state_layout == "packed":
+            return self.packed.zero_state(batch)
+        return [layer_zero_state(batch, c, self.device) for c in plan.cfgs]
+
+    def step_with_output(self, xs: torch.Tensor, state):
+        """Advance native state by one chunk: (h_seq (B, T, hidden[-1]),
+        new native state).  Packed backends route by the plan's chunk_len."""
+        plan = self.plan
+        if plan.impl == IDENTITY:
+            return xs, state
+        if plan.backend.state_layout == "packed":
+            hs, h_f, c_f = _fused_seq_call(self, xs, state)
+            return hs[..., : plan.hidden[-1]], (h_f, c_f)
+        return plan.backend.forward(self, xs, state)
+
+    def step(self, xs: torch.Tensor, state):
+        """Advance native state by one chunk; returns only the new state
+        (the streaming engines' per-push call)."""
+        return self.step_with_output(xs, state)[1]
+
+    def last_hidden(self, state) -> torch.Tensor:
+        """Last layer's current hidden at real width: the latent the GW
+        autoencoder's RepeatVector bridge consumes."""
+        plan = self.plan
+        if plan.impl == IDENTITY:
+            raise ValueError("identity executor has no hidden state")
+        if plan.backend.state_layout == "packed":
+            return state[0][-1, :, : plan.hidden[-1]]
+        return state[-1][0]
+
+    def update_params(self, params_list: Sequence[Params]) -> "StackExecutor":
+        """Re-bind on new parameters and evict this executor's superseded
+        pack from the identity cache."""
+        new = self.plan.bind(params_list)
+        if self.packed is not None and self.packed is not new.packed:
+            from repro_torch.kernels.lstm_stack.ops import pack_cache_evict
+
+            pack_cache_evict(self.packed)
+        return new
+
+    @property
+    def packed_bytes(self) -> int:
+        """Bytes the bound pack occupies (0 for non-packing backends)."""
+        return 0 if self.packed is None else self.packed.packed_bytes
+
+    def __repr__(self) -> str:
+        return f"StackExecutor({self.plan.describe()})"
+
+
+# ---------------------------------------------------------------------------
+# backend implementations
+# ---------------------------------------------------------------------------
+
+def _forward_identity(ex: StackExecutor, xs, state):
+    return xs, (state if state is not None else [])
+
+
+def _forward_layerwise(ex: StackExecutor, xs, state):
+    h_seq, finals = xs, []
+    for i, (p, cfg) in enumerate(zip(ex.params, ex.plan.cfgs)):
+        s = None if state is None else state[i]
+        h_seq, final = lstm_forward(p, h_seq, cfg, s, impl=ex.plan.impl)
+        finals.append(final)
+    return h_seq, finals
+
+
+def _forward_fused(ex: StackExecutor, xs, state):
+    from repro_torch.kernels.lstm_stack.ops import lstm_stack_forward_fused
+
+    return lstm_stack_forward_fused(
+        list(ex.params), xs, list(ex.plan.cfgs), state, packed=ex.packed,
+        block_b=ex.plan.block_b, act_bits=ex.plan.act_bits,
+    )
+
+
+def _fused_seq_call(ex: StackExecutor, xs, state):
+    """The plan-routed fused kernel call on packed state: (hs (B, T, W
+    padded), h_f, c_f).  Chunked-step plans send T <= chunk_len to the step
+    kernel and longer chunks to the wavefront kernel."""
+    plan, packed = ex.plan, ex.packed
+    h, c = state
+    kw = dict(acts=packed.acts, weight_dtype=packed.weight_dtype,
+              block_b=plan.block_b, act_bits=plan.act_bits)
+    if plan.backend.chunked_step and xs.shape[1] <= plan.chunk_len:
+        from repro_torch.kernels.lstm_stack.step import lstm_stack_step_op
+
+        return lstm_stack_step_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
+    from repro_torch.kernels.lstm_stack.ops import lstm_stack_op
+
+    return lstm_stack_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
+
+
+register_backend(BackendSpec(name=IDENTITY, forward=_forward_identity))
+register_backend(BackendSpec(name="naive", forward=_forward_layerwise))
+register_backend(BackendSpec(name="split", forward=_forward_layerwise))
+register_backend(BackendSpec(
+    name="fused_stack", packs=True, quantized=True, kernel_acts=True,
+    state_layout="packed", act_quant=True, knobs=("block_b",),
+    forward=_forward_fused))
+register_backend(BackendSpec(
+    name="fused_step", packs=True, quantized=True, kernel_acts=True,
+    state_layout="packed", chunked_step=True, act_quant=True,
+    knobs=("chunk_len", "block_b"), forward=_forward_fused))

@@ -1,0 +1,347 @@
+// Fused L-layer LSTM stack kernels for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of the reference package:
+//   * lstm_stack_wavefront  <- repro/kernels/lstm_stack/lstm_stack.py
+//     `lstm_stack` (body `_lstm_stack_kernel`): the window-scale kernel.
+//     Layer 0's gate stream xw0 = x @ W_x[0] (+ scales, + bias) arrives
+//     precomputed, time-major (T, B, 4W).
+//   * lstm_stack_step       <- repro/kernels/lstm_stack/step.py
+//     `lstm_stack_step` (body `_lstm_stack_step_kernel`): the chunk-scale
+//     kernel.  It takes the raw chunk (B, T, W) and computes layer 0's
+//     projection in-kernel, rounded to the compute dtype as the reference's
+//     hoisted `(x @ W_x[0]).astype(f32)` is.
+// Both run one shared cell body and differ only in where layer 0's gate
+// input comes from.
+//
+// What bounds them on this card.  At the GW nominal shapes (L=2, W=32,
+// T=100, B <= 64) a call moves a few MB and does ~0.2 GFLOP: the bytes and
+// FLOP bounds are a few microseconds.  The kernels are bound instead by
+// the dependency chain of T*L cells, each of which needs the previous
+// cell's h, and, at B=1 and T=1, by launch latency.  Per cell a thread
+// runs two W-long chains of dependent fp32 adds, two block barriers and
+// the transcendental tail.
+//
+// What the design does about it.
+//   * One CTA per block of `rows` batch rows (default 1) runs the whole
+//     time loop, layers ascending inside each timestep: the TPU's
+//     sequential grid axis becomes a loop inside the CTA.  Independent rows
+//     are independent chains on different SMs.
+//   * All L layers' W_x/W_h sit in dynamic shared memory at their storage
+//     dtype (fp32, bf16 or int8 codes), loaded once per CTA and cast on
+//     use; h (rounded to the compute dtype) and the fp32 cell c of every
+//     layer stay in shared memory.  Nothing recurrent touches device
+//     memory.
+//   * blockDim = 4W: one thread per gate column computes that column's
+//     dot products in a fixed sequential order over k.  After a barrier,
+//     threads take the sigma/tanh tail element by element.
+//   * Every operation is a single IEEE fp32 operation (__fmul_rn and
+//     __fadd_rn never contract into FMAs) in the order of the plain
+//     PyTorch versions (ref.py, step.py), so kernel and plain version agree
+//     bit for bit; a row's result does not depend on the batch size or on
+//     how rows are grouped into CTAs.
+// wgmma, TMA and persistent scheduling are left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum Act { kExact = 0, kHard = 1, kPaperHwKernel = 2 };
+
+struct Args {
+  const void* x;        // wavefront: xw0 (T, B, 4W) fp32; step: xs (B, T, W) compute dtype
+  const void* w_x;      // (L, W, 4W) storage dtype
+  const void* w_h;      // (L, W, 4W) storage dtype
+  const float* b;       // (L, 4W)
+  const float* scales;  // (L, 2, 4) per-gate [s_x, s_h]; nullptr = all ones
+  const void* h0;       // (L, B, W) compute dtype
+  const float* c0;      // (L, B, W)
+  void* hs;             // wavefront: (T, B, W); step: (B, T, W); compute dtype
+  void* h_f;            // (L, B, W) compute dtype
+  float* c_f;           // (L, B, W)
+  int T, B, L, W, rows, act, act_bits;
+};
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Byte offsets of the dynamic shared-memory carve-up.
+struct Layout {
+  size_t wx, wh, b, scales, h, c, gates, total;
+};
+
+__host__ __device__ inline Layout smem_layout(int L, int W, int rows, int w_bytes) {
+  Layout s;
+  const size_t w = align16(size_t(L) * W * 4 * W * w_bytes);
+  s.wx = 0;
+  s.wh = w;
+  s.b = 2 * w;
+  s.scales = s.b + align16(size_t(L) * 4 * W * sizeof(float));
+  s.h = s.scales + align16(size_t(L) * 8 * sizeof(float));
+  s.c = s.h + align16(size_t(L) * rows * W * sizeof(float));
+  s.gates = s.c + align16(size_t(L) * rows * W * sizeof(float));
+  s.total = s.gates + align16(size_t(rows) * 4 * W * sizeof(float));
+  return s;
+}
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Round an fp32 value to the compute dtype and back (exact for fp32).
+template <typename CT> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<CT>(v));
+}
+
+// Piecewise-linear tanh: sum of clipped ramps times sign(x).  The constants
+// are double literals cast to float, the rounding PyTorch applies to the
+// Python floats of core/quant.py.
+__device__ float tanh_pwl(float x) {
+  const float knots[6] = {0.0f, 0.5f, 1.0f, 1.5f, 2.0f, 2.5f};
+  const float slopes[6] = {(float)0.92423, (float)0.58891, (float)0.28699,
+                           (float)0.11786, (float)0.04513, (float)0.01702};
+  const float ax = fabsf(x);
+  float y = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    y = add(y, mul(slopes[i], clip(__fsub_rn(ax, knots[i]), 0.0f, 0.5f)));
+  }
+  const float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  return mul(sgn, y);
+}
+
+__device__ __forceinline__ float sigma(float x, int act) {
+  if (act == kExact) return __fdiv_rn(1.0f, add(1.0f, expf(-x)));
+  if (act == kHard) return clip(add(mul(x, 0.25f), 0.5f), 0.0f, 1.0f);
+  return add(mul(0.5f, tanh_pwl(mul(0.5f, x))), 0.5f);
+}
+
+__device__ __forceinline__ float tanh_act(float x, int act) {
+  return act == kExact ? tanhf(x) : tanh_pwl(x);
+}
+
+// Fake-quant onto the <bits, bits/2> fixed-point grid: round half to even
+// (rintf, not roundf), saturate.
+__device__ __forceinline__ float act_quant(float x, int bits) {
+  const float scale = float(1 << (bits / 2));
+  const float lo = -float(1 << (bits - 1)) / scale;
+  const float hi = float((1 << (bits - 1)) - 1) / scale;
+  return clip(__fdiv_rn(rintf(mul(x, scale)), scale), lo, hi);
+}
+
+__device__ void copy_to_smem(void* dst, const void* src, size_t bytes) {
+  if (bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const uint4* s = static_cast<const uint4*>(src);
+    uint4* d = static_cast<uint4*>(dst);
+    for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
+  } else {  // every array the kernels load is a whole number of 4-byte words
+    const uint32_t* s = static_cast<const uint32_t*>(src);
+    uint32_t* d = static_cast<uint32_t*>(dst);
+    for (size_t i = threadIdx.x; i < bytes / 4; i += blockDim.x) d[i] = s[i];
+  }
+}
+
+// CT: compute dtype of h and of the step kernel's input (float or bf16).
+// WT: weight storage dtype (float, bf16 or int8 codes).
+// kStep: false = wavefront kernel (xw0 input), true = step kernel (raw chunk).
+template <typename CT, typename WT, bool kStep>
+__global__ void __launch_bounds__(1024) lstm_stack_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = a.L, W = a.W, W4 = 4 * a.W, R = a.rows, T = a.T, B = a.B;
+  const Layout lay = smem_layout(L, W, R, sizeof(WT));
+  WT* wx_s = reinterpret_cast<WT*>(smem + lay.wx);
+  WT* wh_s = reinterpret_cast<WT*>(smem + lay.wh);
+  float* b_s = reinterpret_cast<float*>(smem + lay.b);
+  float* sc_s = reinterpret_cast<float*>(smem + lay.scales);
+  float* h_s = reinterpret_cast<float*>(smem + lay.h);      // [L][R][W]
+  float* c_s = reinterpret_cast<float*>(smem + lay.c);      // [L][R][W]
+  float* g_s = reinterpret_cast<float*>(smem + lay.gates);  // [R][4W]
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, B - row0);
+
+  const size_t w_bytes = size_t(L) * W * W4 * sizeof(WT);
+  copy_to_smem(wx_s, a.w_x, w_bytes);
+  copy_to_smem(wh_s, a.w_h, w_bytes);
+  copy_to_smem(b_s, a.b, size_t(L) * W4 * sizeof(float));
+  if (a.scales != nullptr) {
+    copy_to_smem(sc_s, a.scales, size_t(L) * 8 * sizeof(float));
+  } else {  // unquantized packs: x * 1.0f is exact, one code path for all
+    for (int i = tid; i < L * 8; i += blockDim.x) sc_s[i] = 1.0f;
+  }
+  const CT* h0 = static_cast<const CT*>(a.h0);
+  for (int i = tid; i < L * nrows * W; i += blockDim.x) {
+    const int l = i / (nrows * W), r = (i / W) % nrows, k = i % W;
+    const size_t g = (size_t(l) * B + row0 + r) * W + k;
+    h_s[(l * R + r) * W + k] = to_f(h0[g]);
+    c_s[(l * R + r) * W + k] = a.c0[g];
+  }
+  __syncthreads();
+
+  const int j = tid;  // the gate column this thread owns in phase 1
+  const int gate = j / W;
+  CT* hs = static_cast<CT*>(a.hs);
+  for (int t = 0; t < T; ++t) {
+    for (int l = 0; l < L; ++l) {
+      // phase 1: gate pre-activations, one column per thread
+      const WT* wx_col = wx_s + size_t(l) * W * W4 + j;
+      const WT* wh_col = wh_s + size_t(l) * W * W4 + j;
+      const float s_x = sc_s[l * 8 + gate];
+      const float s_h = sc_s[l * 8 + 4 + gate];
+      const float bias = b_s[l * W4 + j];
+      for (int r = 0; r < nrows; ++r) {
+        const float* h_own = h_s + (l * R + r) * W;
+        float gx = 0.0f, hh = 0.0f;
+        if (!kStep && l == 0) {
+          // streamed mvm_x: scales and bias were applied outside
+          for (int k = 0; k < W; ++k) hh = add(hh, mul(h_own[k], to_f(wh_col[k * W4])));
+          gx = static_cast<const float*>(a.x)[(size_t(t) * B + row0 + r) * W4 + j];
+          g_s[r * W4 + j] = add(gx, mul(hh, s_h));
+          continue;
+        }
+        if (l == 0) {
+          const CT* x_row = static_cast<const CT*>(a.x) + (size_t(row0 + r) * T + t) * W;
+          for (int k = 0; k < W; ++k) {
+            gx = add(gx, mul(to_f(x_row[k]), to_f(wx_col[k * W4])));
+            hh = add(hh, mul(h_own[k], to_f(wh_col[k * W4])));
+          }
+          gx = round_to<CT>(gx);
+        } else {
+          const float* h_in = h_s + ((l - 1) * R + r) * W;
+          for (int k = 0; k < W; ++k) {
+            gx = add(gx, mul(h_in[k], to_f(wx_col[k * W4])));
+            hh = add(hh, mul(h_own[k], to_f(wh_col[k * W4])));
+          }
+        }
+        // per-gate tail order of both reference kernels: (gx*s_x + b) + hh*s_h
+        g_s[r * W4 + j] = add(add(mul(gx, s_x), bias), mul(hh, s_h));
+      }
+      __syncthreads();
+      // phase 2: activations and the fp32 cell, one element per thread
+      for (int i = tid; i < nrows * W; i += blockDim.x) {
+        const int r = i / W, k = i % W;
+        const float* g = g_s + r * W4;
+        const float ig = sigma(g[k], a.act);
+        const float fg = sigma(g[W + k], a.act);
+        const float gg = tanh_act(g[2 * W + k], a.act);
+        const float og = sigma(g[3 * W + k], a.act);
+        float* cp = c_s + (l * R + r) * W + k;
+        const float c = add(mul(fg, *cp), mul(ig, gg));
+        float h = mul(og, tanh_act(c, a.act));
+        if (a.act_bits) h = act_quant(h, a.act_bits);
+        h = round_to<CT>(h);
+        *cp = c;
+        h_s[(l * R + r) * W + k] = h;
+        if (l == L - 1) {
+          const size_t o = kStep ? (size_t(row0 + r) * T + t) * W + k
+                                 : (size_t(t) * B + row0 + r) * W + k;
+          hs[o] = from_f<CT>(h);
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  CT* h_f = static_cast<CT*>(a.h_f);
+  for (int i = tid; i < L * nrows * W; i += blockDim.x) {
+    const int l = i / (nrows * W), r = (i / W) % nrows, k = i % W;
+    const size_t g = (size_t(l) * B + row0 + r) * W + k;
+    h_f[g] = from_f<CT>(h_s[(l * R + r) * W + k]);
+    a.c_f[g] = c_s[(l * R + r) * W + k];
+  }
+}
+
+template <typename CT, typename WT, bool kStep>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_layout(a.L, a.W, a.rows, sizeof(WT)).total;
+  auto kernel = lstm_stack_kernel<CT, WT, kStep>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.B + a.rows - 1) / a.rows);
+  kernel<<<grid, 4 * a.W, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kStep>
+int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compute_dtype == kF32) {
+    if (weight_dtype == kF32) return launch<float, float, kStep>(a, s);
+    if (weight_dtype == kBF16) return launch<float, __nv_bfloat16, kStep>(a, s);
+    if (weight_dtype == kI8) return launch<float, int8_t, kStep>(a, s);
+  } else if (compute_dtype == kBF16) {
+    // fp32 storage under bf16 compute is refused before the launch
+    if (weight_dtype == kBF16) return launch<__nv_bfloat16, __nv_bfloat16, kStep>(a, s);
+    if (weight_dtype == kI8) return launch<__nv_bfloat16, int8_t, kStep>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
+               const void* scales, const void* h0, const void* c0, void* hs,
+               void* h_f, void* c_f, int T, int B, int L, int W, int rows,
+               int act, int act_bits) {
+  Args a;
+  a.x = x;
+  a.w_x = w_x;
+  a.w_h = w_h;
+  a.b = static_cast<const float*>(b);
+  a.scales = static_cast<const float*>(scales);
+  a.h0 = h0;
+  a.c0 = static_cast<const float*>(c0);
+  a.hs = hs;
+  a.h_f = h_f;
+  a.c_f = static_cast<float*>(c_f);
+  a.T = T;
+  a.B = B;
+  a.L = L;
+  a.W = W;
+  a.rows = rows;
+  a.act = act;
+  a.act_bits = act_bits;
+  return a;
+}
+
+}  // namespace
+
+// Each entry returns cudaGetLastError() of its launch (0 on success).
+extern "C" int lstm_stack_wavefront(
+    const void* xw0, const void* w_x, const void* w_h, const void* b,
+    const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
+    void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
+    int weight_dtype, int act, int act_bits, void* stream) {
+  const Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
+                           L, W, rows, act, act_bits);
+  return dispatch<false>(a, compute_dtype, weight_dtype, stream);
+}
+
+extern "C" int lstm_stack_step(
+    const void* xs, const void* w_x, const void* w_h, const void* b,
+    const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
+    void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
+    int weight_dtype, int act, int act_bits, void* stream) {
+  const Args a = make_args(xs, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
+                           L, W, rows, act, act_bits);
+  return dispatch<true>(a, compute_dtype, weight_dtype, stream);
+}
+
+// Dynamic shared memory one CTA of either kernel needs.
+extern "C" long long lstm_stack_smem_bytes(int L, int W, int rows, int weight_dtype) {
+  const int w_bytes = weight_dtype == kF32 ? 4 : (weight_dtype == kBF16 ? 2 : 1);
+  return static_cast<long long>(smem_layout(L, W, rows, w_bytes).total);
+}

@@ -1,0 +1,189 @@
+"""Fused multi-layer wavefront LSTM stack: one CUDA launch for L layers.
+
+The paper's coarse-grained pipeline (Sec. III-B/III-D) as one kernel: all L
+layers' W_x and W_h stay resident in shared memory, every layer's h and c
+stay on chip for the whole window, only layer 0's precomputed gate stream
+``xw0`` streams in and only the last layer's hidden sequence streams out.
+Inner layers compute ``h_{l-1} @ W_x[l]`` in-kernel.  The kernel source and
+its design notes are in ``csrc/lstm_stack.cu``; the plain PyTorch version
+of the same function is ``ref.lstm_stack_ref``.
+
+``lstm_stack`` runs the plain version for CPU tensors and launches the
+kernel for CUDA tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.quant import (
+    ActivationSet,
+    EXACT,
+    PAPER_HW_KERNEL,
+    HARD,
+    make_act_quant,
+)
+
+from .ref import lstm_stack_ref, normalize_scales
+
+SOURCE = Path(__file__).parent / "csrc" / "lstm_stack.cu"
+
+#: Hopper's per-block shared-memory ceiling (227 KB, opt-in above 48 KB)
+MAX_SMEM_BYTES = 232_448
+
+_COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
+_WEIGHT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ACT_IDS = {EXACT.name: 0, HARD.name: 1, PAPER_HW_KERNEL.name: 2}
+
+
+@functools.lru_cache(maxsize=1)
+def library():
+    """Build (at first use) and load the kernel library; returns ``Built``."""
+    from repro_torch.kernels._build import build
+
+    built = build(SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("lstm_stack_wavefront", "lstm_stack_step"):
+        fn = getattr(built.lib, name)
+        fn.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+        fn.restype = i32
+    built.lib.lstm_stack_smem_bytes.argtypes = [i32] * 4
+    built.lib.lstm_stack_smem_bytes.restype = ctypes.c_longlong
+    return built
+
+
+def check_operands(name: str, w_x, w_h, b, h0, c0, scales, width: int,
+                   batch: int) -> None:
+    """Shape/dtype/device checks shared by both kernel wrappers."""
+    n_layers = w_h.shape[0]
+    w4 = 4 * width
+    shapes = {
+        "w_x": (w_x, (n_layers, width, w4)), "w_h": (w_h, (n_layers, width, w4)),
+        "b": (b, (n_layers, w4)), "h0": (h0, (n_layers, batch, width)),
+        "c0": (c0, (n_layers, batch, width)),
+    }
+    for arg, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, want {want}")
+    if w_x.dtype != w_h.dtype or w_h.dtype not in _WEIGHT:
+        raise ValueError(
+            f"{name}: weights must share one storage dtype of "
+            f"{sorted(map(str, _WEIGHT))}; got {w_x.dtype}/{w_h.dtype}"
+        )
+    if h0.dtype not in _COMPUTE:
+        raise ValueError(f"{name}: unsupported compute dtype {h0.dtype}")
+    if w_h.dtype == torch.float32 and h0.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: fp32 weight storage is wider than compute dtype "
+            f"{h0.dtype}"
+        )
+    if b.dtype != torch.float32 or c0.dtype != torch.float32:
+        raise ValueError(f"{name}: b and c0 must be fp32")
+    if w_h.dtype == torch.int8 and scales is None:
+        raise ValueError(
+            f"{name}: int8 weights need per-layer dequant `scales`; pack them "
+            "with pack_stack(weight_dtype='int8') instead of casting"
+        )
+
+
+def kernel_act_id(acts: ActivationSet) -> int:
+    if acts.name not in _ACT_IDS:
+        raise ValueError(
+            f"activation set {acts.name!r} has no kernel form; pass its "
+            "kernel_safe() twin"
+        )
+    return _ACT_IDS[acts.name]
+
+
+def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
+           t_len: int, acts: ActivationSet, act_bits: int | None,
+           block_b: int | None) -> None:
+    """Launch one of the two kernels on the current stream; raise if the
+    launch is refused (``cudaGetLastError`` of the launch is non-zero)."""
+    n_layers, width, batch = w_h.shape[0], w_h.shape[1], h0.shape[1]
+    if 4 * width > 1024:
+        raise ValueError(f"width {width} needs {4 * width} threads per block (> 1024)")
+    rows = 1 if block_b is None else int(block_b)
+    if rows < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
+    built = library()
+    smem = built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype])
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{entry}: L={n_layers}, W={width} at {w_h.dtype} storage needs "
+            f"{smem} B of shared memory per block (> {MAX_SMEM_BYTES}); use "
+            "narrower weight storage or a smaller block_b"
+        )
+    ops = [x, w_x, w_h, b, scales, h0, c0]  # scales None: the kernel uses ones
+    for t in ops:
+        if t is not None and t.device != h0.device:
+            raise ValueError(f"{entry}: operands on {t.device} and {h0.device}")
+    # the kernel reads whole 4-byte words, so every operand is contiguous
+    # and 16-byte aligned (a fresh allocation is; an offset view is copied)
+    ops = [t if t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0)
+           else t.clone(memory_format=torch.contiguous_format) for t in ops]
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream(h0.device).cuda_stream
+        err = getattr(built.lib, entry)(
+            *[None if t is None else t.data_ptr() for t in ops],
+            hs.data_ptr(), h_f.data_ptr(), c_f.data_ptr(),
+            t_len, batch, n_layers, width, rows, _COMPUTE[h0.dtype],
+            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def lstm_stack(
+    xw0: torch.Tensor,    # (T, B, 4W) fp32: layer 0 mvm_x output + bias, time-major
+    w_x: torch.Tensor,    # (L, W, 4W) packed input projections
+    w_h: torch.Tensor,    # (L, W, 4W) packed recurrent weights
+    b: torch.Tensor,      # (L, 4W) fp32 packed biases
+    h0: torch.Tensor,     # (L, B, W) compute dtype
+    c0: torch.Tensor,     # (L, B, W) fp32
+    *,
+    scales: torch.Tensor | None = None,  # (L, 2) or (L, 2, 4) fp32, int8 only
+    acts: ActivationSet = EXACT,
+    act_bits: int | None = None,
+    block_b: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the fused L-layer stack over a window.
+
+    Returns (hs of the last layer (T, B, W), h_final (L, B, W), c_final
+    fp32 (L, B, W)), freshly allocated; the initial state is not written.
+    ``block_b`` is the number of batch rows one CTA runs (default 1).
+    Weight storage may be narrower than the compute dtype; int8 codes need
+    ``scales``, applied per gate to the fp32 accumulators.
+    """
+    t_len, batch, w4 = xw0.shape
+    width = w4 // 4
+    check_operands("lstm_stack", w_x, w_h, b, h0, c0, scales, width, batch)
+    if xw0.dtype != torch.float32:
+        raise ValueError(f"lstm_stack: xw0 must be fp32, got {xw0.dtype}")
+    kernel_act_id(acts)  # both paths take only activation sets with a kernel form
+    if scales is not None:
+        scales = normalize_scales(scales, w_h.shape[0])
+    if xw0.device.type == "cpu":
+        return lstm_stack_ref(
+            xw0, w_x, w_h, b, h0, c0, scales=scales, sigma=acts.sigma,
+            tanh=acts.tanh,
+            act_quant=make_act_quant(act_bits) if act_bits is not None else None,
+        )
+    if xw0.device.type != "cuda":
+        raise ValueError(f"lstm_stack: unsupported device {xw0.device}")
+    hs = torch.empty(t_len, batch, width, dtype=h0.dtype, device=h0.device)
+    h_f = torch.empty_like(h0)
+    c_f = torch.empty_like(c0)
+    launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, hs, h_f,
+           c_f, t_len=t_len, acts=acts, act_bits=act_bits, block_b=block_b)
+    lstm_stack.launches += 1
+    return hs, h_f, c_f
+
+
+#: kernel launches since the count was last set to 0 (plain-version calls
+#: on CPU tensors do not count)
+lstm_stack.launches = 0

@@ -1,0 +1,130 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test skips with a reason where
+``torch.cuda.is_available()`` is False (the decision is made inside the
+``cuda`` fixture, never at import).  On a GPU machine run them with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Kernel and plain version perform the same fp32 operations in the same
+order, so they are held at rtol/atol 1e-5 (they normally agree exactly).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.gw import GW_MODELS
+from repro_torch.core.autoencoder import decoder_layers, encoder_layers, init_autoencoder
+from repro_torch.core.quant import EXACT, PAPER_HW_KERNEL, make_act_quant
+from repro_torch.kernels.lstm_stack import lstm_stack, lstm_stack_step
+from repro_torch.kernels.lstm_stack.ops import pack_stack
+from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
+from repro_torch.kernels.lstm_stack.step import lstm_stack_step_plain
+from repro_torch.serve.engine import StreamingAnomalyEngine
+
+pytestmark = pytest.mark.gpu
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def _packs(device, wd):
+    cfg = dataclasses.replace(GW_MODELS["gw_nominal"], weight_dtype=wd)
+    params = init_autoencoder(cfg, seed=1, device=device)
+    return (pack_stack(*encoder_layers(params, cfg)),
+            pack_stack(*decoder_layers(params, cfg)))
+
+
+def _state(pk, batch, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    shape = (pk.n_layers, batch, pk.width_p)
+    return ((torch.randn(shape, generator=g) * 0.3).to(device),
+            (torch.randn(shape, generator=g) * 0.3).to(device))
+
+
+CASES = [("fp32", EXACT, None), ("bf16", PAPER_HW_KERNEL, 16), ("int8", EXACT, 16),
+         ("int8", PAPER_HW_KERNEL, None)]
+
+
+def _plain_kw(pk, acts, act_bits):
+    return dict(scales=pk.stacked.get("scales"), sigma=acts.sigma, tanh=acts.tanh,
+                act_quant=make_act_quant(act_bits) if act_bits else None)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+@pytest.mark.parametrize("wd,acts,act_bits", CASES)
+def test_wavefront_kernel_matches_plain(cuda, wd, acts, act_bits, batch):
+    for pk in _packs(cuda, wd):
+        s = pk.stacked
+        g = torch.Generator().manual_seed(batch)
+        xw0 = torch.randn(100, batch, 4 * pk.width_p, generator=g).to(cuda)
+        h0, c0 = _state(pk, batch, cuda, 7)
+        got = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0, scales=s.get("scales"),
+                         acts=acts, act_bits=act_bits)
+        want = lstm_stack_ref(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
+                              **_plain_kw(pk, acts, act_bits))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.parametrize("t_len,batch", [(1, 1), (25, 8), (32, 64)])
+@pytest.mark.parametrize("wd,acts,act_bits", CASES)
+def test_step_kernel_matches_plain(cuda, wd, acts, act_bits, t_len, batch):
+    for pk in _packs(cuda, wd):
+        s = pk.stacked
+        g = torch.Generator().manual_seed(t_len)
+        xs = torch.randn(batch, t_len, pk.width_p, generator=g).to(cuda)
+        h0, c0 = _state(pk, batch, cuda, 3)
+        got = lstm_stack_step(xs, s["w_x"], s["w_h"], s["b"], h0, c0,
+                              scales=s.get("scales"), acts=acts, act_bits=act_bits)
+        want = lstm_stack_step_plain(xs, s["w_x"], s["w_h"], s["b"], h0, c0,
+                                     **_plain_kw(pk, acts, act_bits))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)
+
+
+def test_rows_are_independent_of_batch_grouping(cuda):
+    enc, _ = _packs(cuda, "fp32")
+    s = enc.stacked
+    xs = torch.randn(16, 5, enc.width_p, generator=torch.Generator().manual_seed(0)).to(cuda)
+    h0, c0 = _state(enc, 16, cuda, 1)
+    whole = lstm_stack_step(xs, s["w_x"], s["w_h"], s["b"], h0, c0, block_b=4)
+    for i in (0, 7, 15):
+        row = lstm_stack_step(xs[i : i + 1], s["w_x"], s["w_h"], s["b"],
+                              h0[:, i : i + 1].contiguous(), c0[:, i : i + 1].contiguous())
+        assert torch.equal(row[0], whole[0][i : i + 1])
+        assert torch.equal(row[2], whole[2][:, i : i + 1])
+
+
+def test_engine_runs_both_kernels_and_push_many_is_bit_equal(cuda):
+    cfg = GW_MODELS["gw_nominal"]
+    params = init_autoencoder(cfg, seed=2, device=cuda)
+    x = np.random.RandomState(0).randn(8, 2 * cfg.timesteps, 1).astype(np.float32)
+    eng = StreamingAnomalyEngine(params, cfg)
+    seq = StreamingAnomalyEngine(params, cfg)
+    assert eng.effective_impl == "fused_step"
+    lstm_stack.launches = lstm_stack_step.launches = 0
+    ids = [f"s{i}" for i in range(8)]
+    got = {sid: [] for sid in ids}
+    for a, b in ((0, 5), (5, 11), (11, 16), (16, 200)):
+        for sid, scores in eng.push_many(ids, x[:, a:b]).items():
+            got[sid] += scores
+    assert lstm_stack.launches > 0 and lstm_stack_step.launches > 0
+    for i, sid in enumerate(ids):
+        seq.reset()
+        want = []
+        for a, b in ((0, 5), (5, 11), (11, 16), (16, 200)):
+            want += seq.push(x[i : i + 1, a:b])
+        assert len(got[sid]) == len(want) == 2
+        for g, w in zip(got[sid], want):
+            np.testing.assert_array_equal(g, w)

@@ -1,0 +1,49 @@
+"""The port stands alone: it never imports jax nor anything of ``repro``.
+
+A subprocess imports ``repro_torch`` and every submodule and reports which
+modules got loaded; a static scan of the sources backs it up (an import
+inside a function body would not show in the subprocess).
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
+             or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_import_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    for name in ("repro_torch.serve.engine", "repro_torch.kernels.lstm_stack.step",
+                 "repro_torch.convert", "repro_torch.configs.gw"):
+        assert name in report["modules"]
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
+def test_source_has_no_jax_or_reference_import(path):
+    assert not _FORBIDDEN.findall(path.read_text())
