@@ -3,12 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the fused LSTM-stack kernels from ``src/repro_torch``, holds each
-kernel against its plain PyTorch version at the GW nominal shapes, drives
-the serving path (batch scoring, streaming pushes, push_many) at the full
-``gw_nominal`` width with weights from the golden fixture
-(``tests/data/torch_port_gw_nominal.npz``, produced by the JAX reference),
-checks the scores against the reference's, and times the kernels beside
+Builds the kernels of ``src/repro_torch`` (the fused LSTM-stack kernels K1
+and K2 and the per-layer scan kernel K3, one ``nvcc`` per source, started
+together), holds each kernel against its plain PyTorch version at the GW
+nominal shapes in fp32 and bf16 compute, and drives two serving paths at
+the full ``gw_nominal`` width with weights from the golden fixtures
+(``tests/data/torch_port_gw_nominal.npz`` and ``torch_port_gw_server.npz``,
+produced by the JAX reference):
+
+* the engines on their defaults (batch scoring, streaming pushes,
+  push_many), through K1 and K2;
+* the engines on ``impl="kernel"`` (K3 per layer) and the ``StreamServer``
+  over a ``fused_step`` and a ``kernel`` engine: the reference's server
+  script, a fake-clock run of 32 streams against sequential replays,
+  checkpoint and restore, the health screen, and a threaded run.
+
+It checks the scores against the reference's and times the kernels beside
 their plain versions, their bound and cuDNN's LSTM.  Every phase raises on
 failure; the last line is ``{"ok": true, "device": {...}}``.  Needs one
 CUDA card; without one it exits non-zero and prints no result.
@@ -16,11 +26,14 @@ CUDA card; without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +41,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_nominal.npz"
+SERVER_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_server.npz"
 TOL = dict(rtol=1e-5, atol=1e-5)            # kernel outputs and engine scores
 STREAM_TOL = dict(rtol=1e-6, atol=1e-7)     # chunked streaming vs one-shot
 
@@ -100,6 +114,272 @@ def bound(step: bool, L: int, W: int, T: int, B: int, w_bytes: int) -> tuple[flo
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_push_many(make_engine, windows: np.ndarray, T: int) -> int:
+    """``push_many`` over 8 streams at ragged fill levels must be bit-equal
+    to pushing each stream's chunks alone; returns the stream count."""
+    n_streams = 8
+    rng = np.random.RandomState(0)
+    x = np.concatenate([windows[:n_streams], windows[n_streams : 2 * n_streams]], axis=1)
+    x = x + rng.randn(*x.shape).astype(np.float32) * 0.01
+    ids = [f"det{i}" for i in range(n_streams)]
+    lead = 3  # three streams start 7 samples ahead: ragged fill levels
+    pool = make_engine()
+    pool.push_many(ids[:lead], x[:lead, :7])
+    got = {sid: [] for sid in ids}
+    starts = [7 if i < lead else 0 for i in range(n_streams)]
+    for a, b in ((0, 1), (1, 26), (26, 50), (50, 2 * T - 7)):
+        res = pool.push_many(ids, np.stack([x[i, s + a : s + b] for i, s in enumerate(starts)]))
+        for sid in ids:
+            got[sid] += res[sid]
+    seq = make_engine()
+    for i, sid in enumerate(ids):
+        seq.reset()  # the same chunks, pushed by one stream alone
+        cuts = ([0] if starts[i] else []) + [starts[i] + a for a in (0, 1, 26, 50, 2 * T - 7)]
+        want = [sc for a, b in zip(cuts, cuts[1:]) for sc in seq.push(x[i : i + 1, a:b])]
+        assert len(got[sid]) == len(want) >= 1, (sid, len(got[sid]), len(want))
+        for g, w in zip(got[sid], want):
+            np.testing.assert_array_equal(g, w, err_msg="push_many vs sequential pushes")
+    return n_streams
+
+
+def scan_bound(H: int, T: int, B: int, IN: int = 0) -> tuple[float, str]:
+    """Least time the card needs for one K3 call: bytes (xw, or x, W_x and
+    b when IN > 0; W_h, h0, c0 read once; hs, h_f, c_f written once) over
+    the memory rate vs fp32 operations (2 per multiply-add of x @ W_x and
+    h @ W_h, 1 per add of b and of the input term, 10 per cell element)
+    over the fp32 peak; returns (ms, "bytes"|"operations")."""
+    h4 = 4 * H
+    inputs = (T * B * IN + IN * h4 + h4) if IN else T * B * h4
+    n_bytes = (inputs + H * h4 + 2 * B * H + T * B * H + 2 * B * H) * 4
+    ops = T * B * (2 * (IN + H) * h4 + (2 if IN else 1) * h4 + 10 * H)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: op kinds of the golden server script (tests/test_torch_golden_server.py)
+SUBMIT, ADVANCE, TICK, DRAIN, CLOSE = range(5)
+
+
+class FakeClock:
+    """Injectable server clock (seconds), advanced by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def replay_script(server, clock, ops, data) -> np.ndarray:
+    """Play the golden script's op table; returns the tick/drain/close
+    results in order (the replay of tests/test_torch_golden_server.py)."""
+    results = []
+    for kind, s, a, b in ops.tolist():
+        if kind == SUBMIT:
+            server.submit("s2" if s == data.shape[0] - 1 else f"s{s}", data[s, a:b])
+        elif kind == ADVANCE:
+            clock.t += a * 1e-6
+        elif kind == TICK:
+            results.append(server.tick(force=bool(a)))
+        elif kind == DRAIN:
+            results.append(server.drain())
+        else:
+            results.append(server.close_stream(f"s{s}"))
+    return np.asarray(results, dtype=np.int64)
+
+
+def sequential_scores(engine, chunk_lists: dict) -> dict:
+    """Ground truth: each stream's chunks pushed alone through ``engine``."""
+    out = {}
+    for sid, chunks in chunk_lists.items():
+        engine.reset()
+        out[sid] = [sc for c in chunks for sc in engine.push(c[None])]
+    return out
+
+
+def assert_bit_equal(got: dict, want: dict, what: str) -> int:
+    """Per-stream scores equal bit for bit; returns the window count."""
+    want = {k: v for k, v in want.items() if v}
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: streams {sorted(got)} != {sorted(want)}")
+    for sid in want:
+        if len(got[sid]) != len(want[sid]):
+            raise AssertionError(f"{what}: {sid} has {len(got[sid])} scores, want "
+                                 f"{len(want[sid])}")
+        for g, w in zip(got[sid], want[sid]):
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}: {sid}")
+    return sum(len(v) for v in want.values())
+
+
+def ragged_chunks(rng, x: np.ndarray, sizes=(1, 25)) -> list:
+    """Cut one stream's samples into chunks of randomly chosen sizes."""
+    out, pos = [], 0
+    while pos < len(x):
+        t = min(int(rng.choice(sizes)), len(x) - pos)
+        out.append(x[pos : pos + t])
+        pos += t
+    return out
+
+
+def server_phases(impl: str, make_engine, sgold: dict, T: int) -> dict:
+    """The StreamServer over one engine (``impl``) on the card: the golden
+    script against the reference, a fake-clock run of 32 streams against
+    sequential replays, checkpoint and restore, the health screen, and a
+    threaded run.  Raises on any failure; returns what it measured."""
+    from repro_torch.serve.health import ChunkRejectedError, HealthConfig
+    from repro_torch.serve.server import AdaptiveConfig, ServerConfig, StreamServer
+
+    seq = make_engine()
+    errors = 0
+
+    # (a) the reference's fake-clock script: same decisions, same counters
+    clock = FakeClock()
+    srv = StreamServer(make_engine(), ServerConfig(
+        max_coalesce=8, adaptive=AdaptiveConfig(max_deadline_us=600.0)), clock=clock)
+    results = replay_script(srv, clock, sgold["server/ops"], sgold["server/data"])
+    np.testing.assert_array_equal(results, sgold["server/results"],
+                                  err_msg=f"{impl} server: tick results vs reference")
+    summary = json.loads(json.dumps(srv.stats.summary()))
+    if summary != json.loads(bytes(sgold["server/summary"])):
+        raise AssertionError(f"{impl} server: stats {summary} differ from the reference's")
+    for sid, scores in srv.pop_scores().items():
+        np.testing.assert_allclose(np.concatenate(scores), sgold[f"server/scores/{sid}"],
+                                   **TOL, err_msg=f"{impl} server: {sid} vs reference")
+    errors += srv.stats.engine_errors
+
+    # (b) 32 streams, ragged T=1 and T=25 chunks, late joins, a close and
+    # a rejoin, the adaptive policy: bit-equal to sequential replays
+    rng = np.random.RandomState(1)
+    n = 32
+    data = rng.randn(n + 1, 2 * T, 1).astype(np.float32)
+    chunk_lists = {f"s{i}": ragged_chunks(rng, data[i]) for i in range(n)}
+    pending = {sid: list(c) for sid, c in chunk_lists.items()}
+    late = {f"s{i}" for i in range(24, n)}
+    total, submitted = sum(map(len, pending.values())), 0
+    clock = FakeClock()
+    srv = StreamServer(make_engine(), ServerConfig(adaptive=True), clock=clock)
+    want_extra = None
+    while any(pending.values()):
+        ready = [sid for sid, q in pending.items()
+                 if q and (sid not in late or submitted > total // 3)]
+        sid = ready[int(rng.randint(len(ready)))]
+        srv.submit(sid, pending[sid].pop(0))
+        submitted += 1
+        clock.t += int(rng.randint(0, 300)) * 1e-6
+        if rng.rand() < 0.5:
+            srv.tick(force=bool(rng.rand() < 0.1))
+        done = len(chunk_lists["s5"]) - len(pending["s5"])
+        if sid == "s5" and want_extra is None and done == 6:
+            srv.drain()
+            srv.close_stream("s5")  # leaves mid-window, rejoins with fresh data
+            kept, fresh = chunk_lists["s5"][:6], ragged_chunks(rng, data[n])
+            chunk_lists["s5"], want_extra = kept, fresh
+            pending["s5"] = list(fresh)
+    srv.drain()
+    want = sequential_scores(seq, chunk_lists)
+    want["s5"] += sequential_scores(seq, {"s5": want_extra})["s5"]
+    windows_b = assert_bit_equal(srv.pop_scores(), want, f"{impl} server, 32 streams")
+    stats_b = srv.stats.summary()
+    errors += srv.stats.engine_errors
+
+    # (c) checkpoint mid-run, restart_from on a fresh engine: bit-equal to
+    # the run that never stopped, and to sequential replays
+    sizes = [25, 25, 13, 1, 24, 12, 25, 25, 25, 25]
+    cuts = np.cumsum([0] + sizes)
+    ck_data = {f"c{i}": rng.randn(2 * T, 1).astype(np.float32) for i in range(8)}
+    srv = StreamServer(make_engine(), ServerConfig(deadline_us=1e9))
+    for j in range(4):
+        for sid, x in ck_data.items():
+            srv.submit(sid, x[cuts[j] : cuts[j + 1]])
+        srv.drain()
+    mid = srv.pop_scores()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = srv.checkpoint(str(Path(tmp) / "server.npz"))
+        restarted = StreamServer.restart_from(path, make_engine(),
+                                              ServerConfig(deadline_us=1e9))
+    for j in range(4, len(sizes)):
+        for sid, x in ck_data.items():
+            srv.submit(sid, x[cuts[j] : cuts[j + 1]])
+            restarted.submit(sid, x[cuts[j] : cuts[j + 1]])
+        srv.drain()
+        restarted.drain()
+    tail = srv.pop_scores()
+    assert_bit_equal(restarted.pop_scores(), tail, f"{impl} server, restart_from")
+    whole = {sid: mid.get(sid, []) + tail.get(sid, []) for sid in ck_data}
+    assert_bit_equal(whole, sequential_scores(seq, {
+        sid: [x[cuts[j] : cuts[j + 1]] for j in range(len(sizes))]
+        for sid, x in ck_data.items()}), f"{impl} server, checkpointed lineage")
+    errors += srv.stats.engine_errors + restarted.stats.engine_errors
+
+    # (d) health: NaN chunks of one stream are rejected at submit; every
+    # stream, that one included, scores its accepted chunks unchanged
+    srv = StreamServer(make_engine(), ServerConfig(
+        deadline_us=1e9, health=HealthConfig(sanitize="reject")))
+    h_data = {f"h{i}": [rng.randn(25, 1).astype(np.float32) for _ in range(8)]
+              for i in range(4)}
+    rejected = 0
+    for j in range(8):
+        for sid, chunks in h_data.items():
+            srv.submit(sid, chunks[j])
+        try:
+            srv.submit("h0", np.full((25, 1), np.nan, np.float32))
+        except ChunkRejectedError:
+            rejected += 1
+        srv.drain()
+    if rejected != 8 or srv.stats.rejected != 8:
+        raise AssertionError(f"{impl} server: {rejected} NaN chunks rejected, want 8")
+    assert_bit_equal(srv.pop_scores(), sequential_scores(seq, h_data),
+                     f"{impl} server, health screen")
+    errors += srv.stats.engine_errors
+
+    # (e) threaded, real clock: four producers submit T=1 chunks for 32
+    # streams at a fixed rate; stop(drain=True) must finish in time and
+    # every completed window must be scored
+    n, rate = 32, 1000.0  # chunks per second per producer
+    r_data = rng.randn(n, 2 * T, 1).astype(np.float32)
+    srv = StreamServer(make_engine(), ServerConfig(deadline_us=200.0))
+
+    def produce(first: int) -> None:
+        ids = range(first, first + n // 4)
+        t_next = time.perf_counter()
+        for t in range(2 * T):
+            for i in ids:
+                srv.submit(f"r{i}", r_data[i, t : t + 1])
+            t_next += len(ids) / rate
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+
+    srv.start()
+    producers = [threading.Thread(target=produce, args=(k * n // 4,)) for k in range(4)]
+    t0 = time.perf_counter()
+    for p in producers:
+        p.start()
+    for p in producers:
+        p.join(300.0)
+        if p.is_alive():
+            raise AssertionError(f"{impl} server: a producer thread did not finish")
+    if not srv.stop(drain=True, deadline_s=120.0):
+        raise AssertionError(f"{impl} server: stop(drain=True) missed its deadline")
+    wall = time.perf_counter() - t0
+    scores = srv.pop_scores()
+    n_windows = sum(len(v) for v in scores.values())
+    st = srv.stats
+    if n_windows != 2 * n or not st.processed == st.submitted == 2 * T * n:
+        raise AssertionError(f"{impl} server: {n_windows} windows scored of {2 * n}, "
+                             f"{st.processed} of {st.submitted} chunks")
+    assert_bit_equal({k: scores[f"r{k}"] for k in range(4)}, sequential_scores(
+        seq, {k: [r_data[k, t : t + 1] for t in range(2 * T)] for k in range(4)}),
+        f"{impl} server, threaded")
+    errors += st.engine_errors
+    if errors:
+        raise AssertionError(f"{impl} server: {errors} engine-step errors")
+    lat = st.latency
+    return {"threaded": {"summary": st.summary(), "p50_us": lat.percentile(50),
+                         "p99_us": lat.percentile(99), "max_us": lat.max_us,
+                         "wall_s": wall, "chunks_per_s": st.processed / wall},
+            "fake_clock_32_streams": {"windows": windows_b, "summary": stats_b},
+            "rejected": rejected}
+
+
 def main() -> int:
     import torch
 
@@ -111,17 +391,25 @@ def main() -> int:
     from repro_torch.configs.gw import GW_MODELS
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.autoencoder import decoder_layers, encoder_layers
-    from repro_torch.core.quant import EXACT, PAPER_HW_KERNEL, make_act_quant
+    from repro_torch.core.quant import EXACT, HARD, PAPER_HW_KERNEL, make_act_quant
     from repro_torch.device import resolve_device
+    from repro_torch.kernels.lstm_scan import (
+        lstm_scan,
+        lstm_scan_layer,
+        lstm_scan_layer_ref,
+        lstm_scan_ref,
+    )
     from repro_torch.kernels.lstm_stack.lstm_stack import library, lstm_stack
     from repro_torch.kernels.lstm_stack.ops import pack_stack, project_layer0
     from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
     from repro_torch.kernels.lstm_stack.step import lstm_stack_step, lstm_stack_step_plain
     from repro_torch.serve.engine import AnomalyStreamEngine, StreamingAnomalyEngine
 
-    # the wrapper modules, whose plain-version references phase 5 blocks
+    # the wrapper modules, whose plain-version references the serving
+    # phases block
     k1_mod = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
     k2_mod = sys.modules["repro_torch.kernels.lstm_stack.step"]
+    k3_mod = sys.modules["repro_torch.kernels.lstm_scan.lstm_scan"]
 
     # -- phase 1: environment ----------------------------------------------
     dev = resolve_device("cuda")  # also switches TF32 off for matmul and cuDNN
@@ -133,14 +421,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # -- phase 2: build ----------------------------------------------------
+    # -- phase 2: build, one nvcc per source, started together --------------
     t0 = time.perf_counter()
-    built = library()
-    log(f"phase 2 build ok: {built.path.name}, nvcc {built.seconds:.1f} s, "
-        f"load {time.perf_counter() - t0:.1f} s")
-    for line in built.log.splitlines():
-        if "registers" in line:
-            log("  ptxas: " + line.strip())
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda build: build(), (library, k3_mod.library)))
+    for built in libs:
+        log(f"phase 2 build ok: {built.path.name}, nvcc {built.seconds:.1f} s")
+        for line in built.log.splitlines():
+            if "registers" in line:
+                log("  ptxas: " + line.strip())
+    log(f"phase 2 build wall {time.perf_counter() - t0:.1f} s")
 
     with np.load(FIXTURE) as data:
         golden = {k: data[k] for k in data.files}
@@ -153,8 +443,8 @@ def main() -> int:
     cfg = GW_MODELS["gw_nominal"]
     T = cfg.timesteps
 
-    def packs(wd):
-        c = dataclasses.replace(cfg, weight_dtype=wd)
+    def packs(wd, dtype=torch.float32):
+        c = dataclasses.replace(cfg, weight_dtype=wd, dtype=dtype)
         return {"enc": pack_stack(*encoder_layers(params, c)),
                 "dec": pack_stack(*decoder_layers(params, c))}
 
@@ -172,7 +462,7 @@ def main() -> int:
 
     def state(pk, batch):
         shape = (pk.n_layers, batch, pk.width_p)
-        return ((torch.randn(shape, generator=gen) * 0.3).to(dev),
+        return ((torch.randn(shape, generator=gen) * 0.3).to(pk.dtype).to(dev),
                 (torch.randn(shape, generator=gen) * 0.3).to(dev))
 
     def plain_kw(pk, acts, act_bits):
@@ -186,32 +476,36 @@ def main() -> int:
             err = max(err, (a.float() - b.float()).abs().max().item())
         return err
 
-    all_packs = {wd: packs(wd) for wd in ("fp32", "bf16", "int8")}
-    matrix = [(wd, acts, bits) for wd in all_packs for acts in (EXACT, PAPER_HW_KERNEL)
+    # storage x compute: fp32 compute with fp32/bf16/int8 storage, bf16
+    # compute with bf16/int8 storage (storage is never wider than compute)
+    all_packs = {(wd, "fp32"): packs(wd) for wd in ("fp32", "bf16", "int8")}
+    all_packs.update({(wd, "bf16"): packs(wd, torch.bfloat16) for wd in ("bf16", "int8")})
+    matrix = [(key, acts, bits) for key in all_packs for acts in (EXACT, PAPER_HW_KERNEL)
               for bits in (None, 16)]
 
     # -- phase 3: K1 against its plain version -----------------------------
     t0, k1_err, n = time.perf_counter(), 0.0, 0
-    for wd, acts, bits in matrix:
-        for seg, pk in all_packs[wd].items():
+    for key, acts, bits in matrix:
+        for seg, pk in all_packs[key].items():
             s = pk.stacked
             for batch in (1, 64):
-                xw0 = project_layer0(segment_input(seg, pk, batch, T), s, wd)
+                xw0 = project_layer0(segment_input(seg, pk, batch, T), s, key[0])
                 h0, c0 = state(pk, batch)
                 got = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
                                  scales=s.get("scales"), acts=acts, act_bits=bits)
                 want = lstm_stack_ref(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
                                       **plain_kw(pk, acts, bits))
                 torch.cuda.synchronize()
-                k1_err = max(k1_err, compare(got, want, f"K1 {wd} {acts.name} {bits} {seg} B={batch}"))
+                k1_err = max(k1_err, compare(got, want, f"K1 {key} {acts.name} {bits} {seg} "
+                                                        f"B={batch}"))
                 n += 1
-    log(f"phase 3 K1 ok: {n} cases, max |kernel - plain| = {k1_err:.3g} "
+    log(f"phase 3 K1 ok: {n} cases (fp32 and bf16 compute), max |kernel - plain| = {k1_err:.3g} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: K2 against its plain version -----------------------------
     t0, k2_err, n = time.perf_counter(), 0.0, 0
-    for wd, acts, bits in matrix:
-        for seg, pk in all_packs[wd].items():
+    for key, acts, bits in matrix:
+        for seg, pk in all_packs[key].items():
             s = pk.stacked
             for t_len in (1, 25, 32):
                 for batch in (1, 8, 64):
@@ -223,9 +517,9 @@ def main() -> int:
                                                  **plain_kw(pk, acts, bits))
                     torch.cuda.synchronize()
                     k2_err = max(k2_err, compare(
-                        got, want, f"K2 {wd} {acts.name} {bits} {seg} T={t_len} B={batch}"))
+                        got, want, f"K2 {key} {acts.name} {bits} {seg} T={t_len} B={batch}"))
                     n += 1
-    log(f"phase 4 K2 ok: {n} cases, max |kernel - plain| = {k2_err:.3g} "
+    log(f"phase 4 K2 ok: {n} cases (fp32 and bf16 compute), max |kernel - plain| = {k2_err:.3g} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 5: the serving path at full gw_nominal width ----------------
@@ -261,28 +555,8 @@ def main() -> int:
         assert len(got) == 1
         np.testing.assert_allclose(got[0], one_shot, **STREAM_TOL,
                                    err_msg="chunked streaming vs one-shot")
-    n_streams = 8
-    rng = np.random.RandomState(0)
-    x = np.concatenate([windows[:n_streams], windows[n_streams : 2 * n_streams]], axis=1)
-    x = x + rng.randn(*x.shape).astype(np.float32) * 0.01
-    ids = [f"det{i}" for i in range(n_streams)]
-    lead = 3  # three streams start 7 samples ahead: ragged fill levels
-    pool = StreamingAnomalyEngine(params, cfg, batch=1)
-    pool.push_many(ids[:lead], x[:lead, :7])
-    got = {sid: [] for sid in ids}
-    starts = [7 if i < lead else 0 for i in range(n_streams)]
-    for a, b in ((0, 1), (1, 26), (26, 50), (50, 2 * T - 7)):
-        res = pool.push_many(ids, np.stack([x[i, s + a : s + b] for i, s in enumerate(starts)]))
-        for sid in ids:
-            got[sid] += res[sid]
-    seq = StreamingAnomalyEngine(params, cfg, batch=1)
-    for i, sid in enumerate(ids):
-        seq.reset()  # the same chunks, pushed by one stream alone
-        cuts = ([0] if starts[i] else []) + [starts[i] + a for a in (0, 1, 26, 50, 2 * T - 7)]
-        want = [sc for a, b in zip(cuts, cuts[1:]) for sc in seq.push(x[i : i + 1, a:b])]
-        assert len(got[sid]) == len(want) >= 1, (sid, len(got[sid]), len(want))
-        for g, w in zip(got[sid], want):
-            np.testing.assert_array_equal(g, w, err_msg="push_many vs sequential pushes")
+    n_streams = check_push_many(lambda: StreamingAnomalyEngine(params, cfg, batch=1),
+                                windows, T)
     torch.cuda.synchronize()
     launches = {"lstm_stack_wavefront": lstm_stack.launches,
                 "lstm_stack_step": lstm_stack_step.launches}
@@ -305,9 +579,119 @@ def main() -> int:
     eng.score(windows)
     per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches)
 
-    # -- phase 6: timing ---------------------------------------------------
+    # -- phase 6: K3 against its plain version -----------------------------
+    # both entries (xw streamed in; the input product in the launch, the
+    # kernel backend's) at the encoder's two layers: H=32 (layer 0, in 1)
+    # and H=8 (layer 1, in 32); xw is their real input product
+    t0, k3_err, n = time.perf_counter(), 0.0, 0
+    for ct in (torch.float32, torch.bfloat16):
+        for layer in ("lstm_0", "lstm_1"):
+            p = params[layer]
+            H = p["w_h"].shape[0]
+            w_x, w_h = p["w_x"].to(ct), p["w_h"].to(ct)
+            for t_len in (1, 25, 100):
+                for batch in (1, 64):
+                    x = torch.randn(batch, t_len, w_x.shape[0], generator=gen).to(ct).to(dev)
+                    xw = ((x @ w_x).float() + p["b"]).transpose(0, 1).contiguous()
+                    for nonzero in (False, True):
+                        h0, c0 = torch.zeros(batch, H), torch.zeros(batch, H)
+                        if nonzero:
+                            h0 = torch.randn(batch, H, generator=gen) * 0.3
+                            c0 = torch.randn(batch, H, generator=gen) * 0.3
+                        h0, c0 = h0.to(ct).to(dev), c0.to(dev)
+                        for acts in (EXACT, HARD, PAPER_HW_KERNEL):
+                            fns = dict(sigma=acts.sigma, tanh=acts.tanh)
+                            what = f"{ct} H={H} T={t_len} B={batch} {acts.name} nonzero={nonzero}"
+                            got = lstm_scan(xw, w_h, h0, c0, acts=acts)
+                            want = lstm_scan_ref(xw, w_h, h0, c0, **fns)
+                            got_l = lstm_scan_layer(x, w_x, p["b"], w_h, h0, c0, acts=acts)
+                            want_l = lstm_scan_layer_ref(x, w_x, p["b"], w_h, h0, c0, **fns)
+                            torch.cuda.synchronize()
+                            k3_err = max(k3_err, compare(got, want, f"K3 lstm_scan {what}"),
+                                         compare(got_l, want_l, f"K3 lstm_scan_layer {what}"))
+                            n += 2
+    log(f"phase 6 K3 ok: {n} cases (both entries, fp32 and bf16 compute), max |kernel - "
+        f"plain| = {k3_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phases 7-8: the kernel backend and the StreamServer ---------------
+    # the second serving path: counts set to 0 before it, read after it
+    with np.load(SERVER_FIXTURE) as data:
+        sgold = {k: data[k] for k in data.files}
+    saved = (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, k3_mod.lstm_scan_ref,
+             k3_mod.lstm_scan_layer_ref)
+    k1_mod.lstm_stack_ref = k2_mod.lstm_stack_step_plain = refuse_plain
+    k3_mod.lstm_scan_ref = k3_mod.lstm_scan_layer_ref = refuse_plain
+
+    def counts():
+        return {"lstm_stack_wavefront": lstm_stack.launches,
+                "lstm_stack_step": lstm_stack_step.launches, "lstm_scan": lstm_scan.launches}
+
+    lstm_stack.launches = lstm_stack_step.launches = lstm_scan.launches = 0
     t0 = time.perf_counter()
-    enc = all_packs["fp32"]["enc"]
+    kb = AnomalyStreamEngine(params, cfg, impl="kernel")
+    assert kb.effective_impl == "kernel", kb.effective_impl
+    np.testing.assert_allclose(kb.score(windows), sgold["scores/kernel"], **TOL,
+                               err_msg="kernel backend batch scores vs reference")
+    lock = StreamingAnomalyEngine(params, cfg, batch=len(windows), impl="kernel")
+    streamed = [s for pos in range(0, T, 25) for s in lock.push(windows[:, pos : pos + 25])]
+    np.testing.assert_allclose(streamed[0], sgold["streamed/kernel"], **TOL,
+                               err_msg="kernel backend streamed scores vs reference")
+    keng = StreamingAnomalyEngine(params, cfg, batch=1, impl="kernel")
+    one_shot = keng.score(windows[:1])
+    for chunk in (25, 1):
+        got = [s for pos in range(0, T, chunk) for s in keng.push(windows[:1, pos : pos + chunk])]
+        assert len(got) == 1
+        np.testing.assert_allclose(got[0], one_shot, **STREAM_TOL,
+                                   err_msg=f"kernel backend, chunks of {chunk} vs one-shot")
+    check_push_many(lambda: StreamingAnomalyEngine(params, cfg, batch=1, impl="kernel"),
+                    windows, T)
+    torch.cuda.synchronize()
+    path_launches = {"kernel_engine": counts()}
+    if counts()["lstm_scan"] == 0 or lstm_stack.launches or lstm_stack_step.launches:
+        raise AssertionError(f"the kernel backend's launches are wrong: {counts()}")
+    log(f"phase 7 kernel backend ok: scores match the reference, chunked == one-shot, "
+        f"push_many bit-equal, launches {counts()} ({time.perf_counter() - t0:.1f} s)")
+
+    server_report = {}
+    for impl in ("fused_step", "kernel"):
+        t0 = time.perf_counter()
+        lstm_stack.launches = lstm_stack_step.launches = lstm_scan.launches = 0
+        server_report[impl] = server_phases(
+            impl, lambda impl=impl: StreamingAnomalyEngine(params, cfg, batch=1, impl=impl),
+            sgold, T)
+        torch.cuda.synchronize()
+        path_launches[f"server_{impl}"] = c = counts()
+        ran = ((c["lstm_stack_wavefront"] and c["lstm_stack_step"] and not c["lstm_scan"])
+               if impl == "fused_step" else
+               (c["lstm_scan"] and not c["lstm_stack_wavefront"] and not c["lstm_stack_step"]))
+        if not ran:
+            raise AssertionError(f"the {impl} server's launches are wrong: {c}")
+        th = server_report[impl]["threaded"]
+        log(f"phase 8 server ok ({impl}): golden script equal to the reference, 32 "
+            f"streams bit-equal to sequential replays, restart_from bit-equal, "
+            f"{server_report[impl]['rejected']} NaN chunks rejected, threaded "
+            f"{th['chunks_per_s']:.0f} chunks/s p50 {th['p50_us']:.0f} us p99 "
+            f"{th['p99_us']:.0f} us max {th['max_us']:.0f} us, launches {c} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, k3_mod.lstm_scan_ref,
+     k3_mod.lstm_scan_layer_ref) = saved
+    log(smi)
+    log(json.dumps({"server": server_report}))
+    k3_launches = sum(c["lstm_scan"] for c in path_launches.values())
+
+    # K3 launches per scored window by streaming mode, and per score call
+    for mode, chunk in (("push_T1", 1), ("push_T25", 25)):
+        lstm_scan.launches = 0
+        for pos in range(0, T, chunk):
+            keng.push(windows[:1, pos : pos + chunk])
+        per_window[mode] += (lstm_scan.launches,)
+    lstm_scan.launches = 0
+    kb.score(windows)
+    per_window[f"score_call_B{len(windows)}"] += (lstm_scan.launches,)
+
+    # -- phase 9: timing ---------------------------------------------------
+    t0 = time.perf_counter()
+    enc = all_packs[("fp32", "fp32")]["enc"]
     s = enc.stacked
     L, W = enc.n_layers, enc.width_p
     lib_lstm = torch.nn.LSTM(W, W, num_layers=L).to(dev)
@@ -350,6 +734,57 @@ def main() -> int:
             "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
         })
+    # K3 at the path's widths: H=32 over T=100 (a decoder layer and batch
+    # scoring) and H=8 at T=1 (encoder layer 1 on every pushed sample),
+    # through both entries.  The kernel backend runs lstm_scan_layer; its
+    # yardstick is cuDNN's one-layer LSTM on the same weights, which
+    # computes the same function (input product and recurrence).  The
+    # yardstick of lstm_scan, nn.LSTM(H, H, 1), also computes an input
+    # product, which lstm_scan is given
+    rows["lstm_scan"] = []
+    for layer, t_len in (("lstm_0", T), ("lstm_1", 1)):
+        p = params[layer]
+        H, n_in = p["w_h"].shape[0], p["w_x"].shape[0]
+        lib_layer = torch.nn.LSTM(n_in, H, num_layers=1).to(dev)
+        lib_hh = torch.nn.LSTM(H, H, num_layers=1).to(dev)
+        with torch.no_grad():
+            lib_layer.weight_ih_l0.copy_(p["w_x"].T)
+            lib_hh.weight_ih_l0.copy_(torch.randn(4 * H, H, generator=gen) * 0.1)
+            for lib in (lib_layer, lib_hh):
+                lib.weight_hh_l0.copy_(p["w_h"].T)
+                lib.bias_ih_l0.copy_(p["b"])
+                lib.bias_hh_l0.zero_()
+        for entry in ("lstm_scan_layer", "lstm_scan"):
+            for batch in (1, 64):
+                x = torch.randn(batch, t_len, n_in, generator=gen).to(dev)
+                xw = ((x @ p["w_x"]) + p["b"]).transpose(0, 1).contiguous()
+                h0 = (torch.randn(batch, H, generator=gen) * 0.3).to(dev)
+                c0 = (torch.randn(batch, H, generator=gen) * 0.3).to(dev)
+                if entry == "lstm_scan_layer":
+                    args = (x, p["w_x"], p["b"], p["w_h"], h0, c0)
+                    kernel = lambda: lstm_scan_layer(*args)  # noqa: E731
+                    plain = lambda: lstm_scan_layer_ref(*args)  # noqa: E731
+                    x_lib, lib = x.transpose(0, 1).contiguous(), lib_layer
+                else:
+                    kernel = lambda: lstm_scan(xw, p["w_h"], h0, c0)  # noqa: E731
+                    plain = lambda: lstm_scan_ref(xw, p["w_h"], h0, c0)  # noqa: E731
+                    x_lib, lib = torch.randn(t_len, batch, H, generator=gen).to(dev), lib_hh
+                lib_call = lambda: lib(x_lib, (h0[None], c0[None]))  # noqa: E731
+                with torch.no_grad():
+                    lib_ms = median_ms(lib_call, reps=50)
+                    lib_dev = device_ms(lib_call, reps=50)
+                call_ms = median_ms(kernel, reps=50)
+                ms = device_ms(kernel, reps=50, kernel="lstm_scan_kernel")
+                b_ms, b_by = scan_bound(H, t_len, batch,
+                                        n_in if entry == "lstm_scan_layer" else 0)
+                rows["lstm_scan"].append({
+                    "entry": entry, "H": H, "IN": n_in, "T": t_len, "B": batch,
+                    "ms": ms if ms is not None else call_ms,
+                    "ms_source": "profiler" if ms is not None else "events",
+                    "call_ms": call_ms, "plain_ms": median_ms(plain, reps=3, warmup=1),
+                    "library_ms": lib_dev if lib_dev is not None else lib_ms,
+                    "library_call_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                })
     # end to end, host clock: one T=1 push (a window completion every T
     # pushes runs the decoder), and one batch score call
     push_ms = []
@@ -369,7 +804,7 @@ def main() -> int:
         "push_T1_B1_ms_p99": float(np.percentile(push_ms, 99)),
         f"score_B{len(windows)}_T{T}_ms_median": statistics.median(score_ms[2:]),
     }}))
-    log(f"phase 6 timing ok ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 9 timing ok ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, err, replaces, mode in (
@@ -389,6 +824,18 @@ def main() -> int:
                                     for m, v in per_window.items()},
             "shapes": rows[name],
         })
+    head = rows["lstm_scan"][0]  # the kernel backend's entry, H=32, T=100, B=1
+    kernels.append({
+        "name": "lstm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/lstm_scan/csrc/lstm_scan.cu",
+        "replaces": "src/repro/kernels/lstm_scan/lstm_scan.py:91",
+        "launches": k3_launches, "max_abs_err": k3_err,
+        "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "launches_per_window": {m: v[2] for m, v in per_window.items()},
+        "shapes": rows["lstm_scan"],
+    })
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

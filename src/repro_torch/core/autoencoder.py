@@ -38,7 +38,7 @@ class AutoencoderConfig:
     dtype: torch.dtype = torch.float32
     cell_dtype: torch.dtype = torch.float32
     acts: ActivationSet = EXACT
-    impl: str = "split"                 # naive | split | fused_stack | fused_step
+    impl: str = "split"                 # naive | split | kernel | fused_stack | fused_step
     #: fused-stack weight storage: "fp32" | "bf16" | "int8" (None = native at
     #: ``dtype``); ``dec_weight_dtype`` overrides the decoder segment
     weight_dtype: str | None = None

@@ -1,7 +1,8 @@
 """Backend registry and the legality rules every LSTM execution surface shares.
 
 * ``BACKENDS``: one table of every way a stacked LSTM segment can execute
-  (``naive``/``split`` layer by layer, ``fused_stack`` one wavefront kernel
+  (``naive``/``split`` layer by layer, ``kernel`` layer by layer with one
+  scan-kernel launch per layer, ``fused_stack`` one wavefront kernel
   launch, ``fused_step`` the same plus the step kernel for short streaming
   chunks), each declaring its capabilities.
 * ``check_weight_storage`` and ``resolve_impl``: quantized-storage legality
@@ -59,7 +60,6 @@ IDENTITY = "identity"
 
 #: backends of the reference that later slices of the port bring over
 LATER_BACKENDS = {
-    "kernel": "the per-layer lstm_scan kernel (ROADMAP queue 1, item 7)",
     "mixed": "heterogeneous stacks (ROADMAP queue 1, item 8)",
     "fused_stack_sharded": "multi-GPU placement (ROADMAP queue 1, item 10)",
     "wavefront": "multi-GPU placement (ROADMAP queue 1, item 10)",

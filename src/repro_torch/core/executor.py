@@ -13,6 +13,7 @@ executor never re-checks them per call and never re-packs.
 Backends ported so far (see ``core.backends.BACKENDS``):
 
     naive / split   layer by layer, plain PyTorch
+    kernel          layer by layer, one scan-kernel launch per layer
     fused_stack     whole segment in ONE wavefront kernel launch
     fused_step      fused_stack + the step kernel for chunks with
                     T <= plan.chunk_len (the streaming serving default)
@@ -325,6 +326,7 @@ def _fused_seq_call(ex: StackExecutor, xs, state):
 register_backend(BackendSpec(name=IDENTITY, forward=_forward_identity))
 register_backend(BackendSpec(name="naive", forward=_forward_layerwise))
 register_backend(BackendSpec(name="split", forward=_forward_layerwise))
+register_backend(BackendSpec(name="kernel", kernel_acts=True, forward=_forward_layerwise))
 register_backend(BackendSpec(
     name="fused_stack", packs=True, quantized=True, kernel_acts=True,
     state_layout="packed", act_quant=True, knobs=("block_b",),

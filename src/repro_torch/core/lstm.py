@@ -120,11 +120,15 @@ def lstm_forward_split(params: Params, xs: torch.Tensor, cfg: LstmConfig,
 def lstm_forward(params: Params, xs: torch.Tensor, cfg: LstmConfig,
                  state: tuple[torch.Tensor, torch.Tensor] | None = None,
                  impl: str = "split"):
-    """Dispatch: impl in {naive, split}."""
+    """Dispatch: impl in {naive, split, kernel}."""
     if impl == "naive":
         return lstm_forward_naive(params, xs, cfg, state)
     if impl == "split":
         return lstm_forward_split(params, xs, cfg, state)
+    if impl == "kernel":
+        from repro_torch.kernels.lstm_scan.ops import lstm_forward_kernel
+
+        return lstm_forward_kernel(params, xs, cfg, state)
     raise ValueError(f"unknown layer-by-layer impl {impl!r}")
 
 

@@ -1,10 +1,12 @@
 """Build the CUDA sources with ``nvcc`` at first use and load them with ctypes.
 
 Each library is one ``csrc/*.cu`` file with a plain C interface (no PyTorch
-headers, so a build takes seconds).  It is compiled for ``sm_90a`` into
-``<repo>/build/kernels/`` under a name keyed on a hash of the source and
-the flags, so a changed source rebuilds and an unchanged one loads the
-existing library.  Nothing here runs at import time.
+headers, so a build takes seconds).  The sources include the shared cell
+body from ``kernels/csrc/`` (``INCLUDE_DIR``).  A library is compiled for
+``sm_90a`` into ``<repo>/build/kernels/`` under a name keyed on a hash of
+the source, every shared header and the flags, so a changed source or
+header rebuilds and an unchanged one loads the existing library.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from pathlib import Path
 
 #: where the libraries go (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+#: the headers every kernel source may include (the shared cell body)
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,11 +58,20 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(source: Path) -> str:
+    """Hash of what a build depends on: the source, every shared header and
+    the flags (an edit to the shared cell body must not load a stale
+    library)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: Path) -> Built:
     """Compile ``source`` (if its keyed library is missing) and load it."""
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = source_digest(source)
     out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
@@ -66,7 +80,7 @@ def build(source: Path) -> Built:
         # load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp, str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

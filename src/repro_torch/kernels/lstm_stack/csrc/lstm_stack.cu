@@ -10,7 +10,8 @@
 //     kernel.  It takes the raw chunk (B, T, W) and computes layer 0's
 //     projection in-kernel, rounded to the compute dtype as the reference's
 //     hoisted `(x @ W_x[0]).astype(f32)` is.
-// Both run one shared cell body and differ only in where layer 0's gate
+// Both run one shared cell body (../../csrc/lstm_cell.cuh, shared with the
+// per-layer lstm_scan kernel) and differ only in where layer 0's gate
 // input comes from.
 //
 // What bounds them on this card.  At the GW nominal shapes (L=2, W=32,
@@ -41,14 +42,9 @@
 //     how rows are grouped into CTAs.
 // wgmma, TMA and persistent scheduling are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm_cell.cuh"
 
 namespace {
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
-enum Act { kExact = 0, kHard = 1, kPaperHwKernel = 2 };
 
 struct Args {
   const void* x;        // wavefront: xw0 (T, B, 4W) fp32; step: xs (B, T, W) compute dtype
@@ -63,8 +59,6 @@ struct Args {
   float* c_f;           // (L, B, W)
   int T, B, L, W, rows, act, act_bits;
 };
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // Byte offsets of the dynamic shared-memory carve-up.
 struct Layout {
@@ -83,75 +77,6 @@ __host__ __device__ inline Layout smem_layout(int L, int W, int rows, int w_byte
   s.gates = s.c + align16(size_t(L) * rows * W * sizeof(float));
   s.total = s.gates + align16(size_t(rows) * 4 * W * sizeof(float));
   return s;
-}
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an fp32 value to the compute dtype and back (exact for fp32).
-template <typename CT> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<CT>(v));
-}
-
-// Piecewise-linear tanh: sum of clipped ramps times sign(x).  The constants
-// are double literals cast to float, the rounding PyTorch applies to the
-// Python floats of core/quant.py.
-__device__ float tanh_pwl(float x) {
-  const float knots[6] = {0.0f, 0.5f, 1.0f, 1.5f, 2.0f, 2.5f};
-  const float slopes[6] = {(float)0.92423, (float)0.58891, (float)0.28699,
-                           (float)0.11786, (float)0.04513, (float)0.01702};
-  const float ax = fabsf(x);
-  float y = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    y = add(y, mul(slopes[i], clip(__fsub_rn(ax, knots[i]), 0.0f, 0.5f)));
-  }
-  const float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-  return mul(sgn, y);
-}
-
-__device__ __forceinline__ float sigma(float x, int act) {
-  if (act == kExact) return __fdiv_rn(1.0f, add(1.0f, expf(-x)));
-  if (act == kHard) return clip(add(mul(x, 0.25f), 0.5f), 0.0f, 1.0f);
-  return add(mul(0.5f, tanh_pwl(mul(0.5f, x))), 0.5f);
-}
-
-__device__ __forceinline__ float tanh_act(float x, int act) {
-  return act == kExact ? tanhf(x) : tanh_pwl(x);
-}
-
-// Fake-quant onto the <bits, bits/2> fixed-point grid: round half to even
-// (rintf, not roundf), saturate.
-__device__ __forceinline__ float act_quant(float x, int bits) {
-  const float scale = float(1 << (bits / 2));
-  const float lo = -float(1 << (bits - 1)) / scale;
-  const float hi = float((1 << (bits - 1)) - 1) / scale;
-  return clip(__fdiv_rn(rintf(mul(x, scale)), scale), lo, hi);
-}
-
-__device__ void copy_to_smem(void* dst, const void* src, size_t bytes) {
-  if (bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const uint4* s = static_cast<const uint4*>(src);
-    uint4* d = static_cast<uint4*>(dst);
-    for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
-  } else {  // every array the kernels load is a whole number of 4-byte words
-    const uint32_t* s = static_cast<const uint32_t*>(src);
-    uint32_t* d = static_cast<uint32_t*>(dst);
-    for (size_t i = threadIdx.x; i < bytes / 4; i += blockDim.x) d[i] = s[i];
-  }
 }
 
 // CT: compute dtype of h and of the step kernel's input (float or bf16).
@@ -234,17 +159,8 @@ __global__ void __launch_bounds__(1024) lstm_stack_kernel(const Args a) {
       // phase 2: activations and the fp32 cell, one element per thread
       for (int i = tid; i < nrows * W; i += blockDim.x) {
         const int r = i / W, k = i % W;
-        const float* g = g_s + r * W4;
-        const float ig = sigma(g[k], a.act);
-        const float fg = sigma(g[W + k], a.act);
-        const float gg = tanh_act(g[2 * W + k], a.act);
-        const float og = sigma(g[3 * W + k], a.act);
-        float* cp = c_s + (l * R + r) * W + k;
-        const float c = add(mul(fg, *cp), mul(ig, gg));
-        float h = mul(og, tanh_act(c, a.act));
-        if (a.act_bits) h = act_quant(h, a.act_bits);
-        h = round_to<CT>(h);
-        *cp = c;
+        const float h = cell_tail<CT>(g_s + r * W4, W, k, c_s + (l * R + r) * W + k,
+                                      a.act, a.act_bits);
         h_s[(l * R + r) * W + k] = h;
         if (l == L - 1) {
           const size_t o = kStep ? (size_t(row0 + r) * T + t) * W + k

@@ -1,1 +1,1 @@
-"""Batch and streaming anomaly-scoring engines."""
+"""Serving: engines, the stream server, latency statistics, health and snapshots."""

@@ -18,6 +18,13 @@ Streaming state lifecycle (``StreamingAnomalyEngine``):
 
 The kernels return fresh state tensors on every push; nothing a caller
 holds is ever overwritten in place.
+
+Fault tolerance (``StreamingAnomalyEngine``): ``snapshot``/``restore``
+carry every stream's state, partial windows and the threshold through the
+versioned ``.npz`` format of ``serve/health.py``, gated by
+``fingerprint()``; ``state_absmax`` is the server's post-step watchdog
+probe.  Fingerprints and snapshot files read the same in this package and
+the reference, so a snapshot written by one restores in the other.
 """
 
 from __future__ import annotations
@@ -38,8 +45,66 @@ from repro_torch.core.autoencoder import (
 )
 from repro_torch.core.backends import get_backend, resolve_impl
 from repro_torch.device import resolve_device
+from repro_torch.serve.health import (
+    SNAPSHOT_VERSION,
+    SnapshotMismatchError,
+    check_fingerprint,
+    read_snapshot,
+    write_snapshot,
+)
 
 logger = logging.getLogger(__name__)
+
+#: step of the pool-width ladder above its power-of-two rungs (the
+#: reference's width of one batch tile, kept so both servers pad alike)
+POOL_STEP = 8
+
+
+def _pad_width(n: int) -> int:
+    """Pool-width ladder: the width a batch of ``n`` independent rows is
+    padded up to: {1, 2, 4} below ``POOL_STEP``, then multiples of it.  A
+    bounded set of batch widths across every fill level (the shapes a
+    captured launch sequence per width would cover), without forcing a
+    lone stream through a wide batch.  Rows are independent in the
+    kernels, so padding never changes a real row's result.
+    """
+    if n >= POOL_STEP:
+        return (n + POOL_STEP - 1) // POOL_STEP * POOL_STEP
+    w = 1
+    while w < n:
+        w *= 2
+    return w
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The reference's spelling of a dtype: ``float32``, ``bfloat16``."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _host_leaf(t: torch.Tensor) -> np.ndarray:
+    """A state tensor as a host array.  bf16 has no numpy dtype: its bits
+    go out as 2-byte void items, the form numpy gives the reference's
+    bf16 arrays on disk."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().copy().view(np.dtype("V2"))
+    return t.numpy().copy()
+
+
+def _device_leaf(arr, like: torch.Tensor) -> torch.Tensor:
+    """A snapshot leaf back onto ``like``'s device and dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.itemsize == 2):
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    if tuple(t.shape) != tuple(like.shape):
+        raise SnapshotMismatchError(
+            f"snapshot state leaf has shape {tuple(t.shape)}, this engine's "
+            f"is {tuple(like.shape)}"
+        )
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def _params_to(params: dict, device: torch.device) -> dict:
@@ -261,6 +326,137 @@ class StreamingAnomalyEngine:
     def drop_stream(self, stream_id) -> None:
         """Release one named stream's state and partial window."""
         self._streams.pop(stream_id, None)
+
+    # -- fault tolerance: snapshot/restore + numeric watchdog ----------------
+
+    def fingerprint(self) -> dict:
+        """The geometry + dtype identity a snapshot must match to be
+        restorable into this engine: every key changes either the state
+        leaves' shapes and dtypes or the meaning of their values.  The
+        values are spelled as the reference spells them."""
+        cfg = self.cfg
+        packed = self._exec_enc.packed
+        fp = {
+            "hidden": list(cfg.hidden),
+            "boundary": int(cfg.boundary),
+            "input_dim": int(cfg.input_dim),
+            "timesteps": int(cfg.timesteps),
+            "window": int(self.window),
+            "batch": int(self.batch),
+            "dtype": _dtype_name(cfg.dtype),
+            "acts": cfg.acts.name,
+            "carry_state": bool(self.carry_state),
+            "state_layout": self._exec_enc.plan.backend.state_layout,
+            "weight_dtype": "native" if packed is None else packed.weight_dtype,
+        }
+        act_bits = self._exec_enc.plan.act_bits
+        if act_bits is not None:
+            # activation fake-quant changes the meaning of carried state
+            fp["act_bits"] = int(act_bits)
+        return fp
+
+    def _leaves(self, state) -> list:
+        """State leaves in the reference's flattening order: ``[h, c]`` of
+        the packed layout, ``[h0, c0, h1, c1, ...]`` of the layers layout."""
+        if self._packed_layout:
+            return list(state)
+        return [t for layer in state for t in layer]
+
+    def _unflatten(self, template, leaves: list):
+        if len(leaves) != len(self._leaves(template)):
+            raise SnapshotMismatchError(
+                f"snapshot state has {len(leaves)} leaves, this engine's "
+                f"has {len(self._leaves(template))}"
+            )
+        if self._packed_layout:
+            return tuple(_device_leaf(a, t) for a, t in zip(leaves, template))
+        it = iter(leaves)
+        return [tuple(_device_leaf(next(it), t) for t in layer) for layer in template]
+
+    def snapshot(self) -> dict:
+        """Every stream's resident state in host memory: the lock-step
+        ``push`` path's (h, c) and partial window, the whole ``push_many``
+        pool, the calibrated threshold and the ``fingerprint()`` that gates
+        ``restore``.  Arrays are copies; a restored engine resumes
+        bit-equal to an uninterrupted run."""
+        return {
+            "version": SNAPSHOT_VERSION,
+            "fingerprint": self.fingerprint(),
+            "threshold": float(self.threshold),
+            "state": [_host_leaf(t) for t in self._leaves(self._state)],
+            "chunks": [np.array(c) for c in self._chunks],
+            "filled": int(self._filled),
+            "streams": {
+                sid: {
+                    "state": [_host_leaf(t) for t in self._leaves(slot.state)],
+                    "chunks": [np.array(c) for c in slot.chunks],
+                    "filled": int(slot.filled),
+                }
+                for sid, slot in self._streams.items()
+            },
+        }
+
+    def save_snapshot(self, path) -> None:
+        """``snapshot()`` to ``path`` as a versioned ``.npz`` (atomic
+        write: temp file + rename)."""
+        write_snapshot(path, self.snapshot())
+
+    def restore(self, snap) -> None:
+        """Load a snapshot (in-memory dict or a path from
+        ``save_snapshot``) into this engine, replacing all stream state.
+
+        The version and the fingerprint are checked first
+        (``SnapshotMismatchError`` on any disagreement), so state from a
+        differently shaped or differently quantized engine is never
+        installed.  State leaves, partial windows, fill counts and the
+        threshold round-trip exactly.
+        """
+        if isinstance(snap, (str, bytes)) or hasattr(snap, "__fspath__"):
+            snap = read_snapshot(snap)
+        if snap.get("version") != SNAPSHOT_VERSION:
+            raise SnapshotMismatchError(
+                f"snapshot schema version {snap.get('version')!r} != "
+                f"{SNAPSHOT_VERSION} supported by this engine"
+            )
+        check_fingerprint(self.fingerprint(), snap["fingerprint"])
+        state = self._unflatten(self._exec_enc.zero_state(self.batch), snap["state"])
+        zero1 = self._exec_enc.zero_state(1)
+        streams = {
+            sid: _StreamSlot(state=self._unflatten(zero1, s["state"]),
+                             chunks=[np.array(c) for c in s["chunks"]],
+                             filled=int(s["filled"]))
+            for sid, s in snap["streams"].items()
+        }
+        self.threshold = float(snap["threshold"])
+        self._state = state
+        self._chunks = [np.array(c) for c in snap["chunks"]]
+        self._filled = int(snap["filled"])
+        self._streams = streams
+
+    def state_absmax(self, stream_ids) -> np.ndarray:
+        """Max ``|h|, |c|`` per named stream: the post-step watchdog's
+        probe.  NaN propagates (a poisoned stream reads NaN, Inf reads
+        inf), so ``not (value <= limit)`` catches non-finite and exploded
+        states in one comparison.  Streams not in the pool read 0.  One
+        gathered reduction and one device-to-host copy per call."""
+        ids = list(stream_ids)
+        out = np.zeros(len(ids), dtype=np.float64)
+        present = [(i, self._streams[sid]) for i, sid in enumerate(ids)
+                   if sid in self._streams]
+        if not present:
+            return out
+        ax = 1 if self._packed_layout else 0
+        with torch.no_grad():
+            batched = self._gather([slot.state for _, slot in present])
+            per_leaf = [
+                leaf.to(torch.float32).abs().amax(
+                    dim=tuple(d for d in range(leaf.dim()) if d != ax))
+                for leaf in self._leaves(batched)
+            ]
+            vals = torch.stack(per_leaf).amax(dim=0).cpu().numpy()
+        for (i, _), v in zip(present, vals):
+            out[i] = v
+        return out
 
     def _gather(self, states: list):
         """N B=1 native states -> one B=N state (batch axis 1 of the packed

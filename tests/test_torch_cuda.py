@@ -8,6 +8,8 @@ Marked ``gpu``: each test skips with a reason where
 
 Kernel and plain version perform the same fp32 operations in the same
 order, so they are held at rtol/atol 1e-5 (they normally agree exactly).
+The server tests hold the StreamServer on both engines of the card
+(``fused_step`` and ``kernel``) bit-equal to sequential pushes.
 """
 
 import dataclasses
@@ -18,12 +20,19 @@ import torch
 
 from repro_torch.configs.gw import GW_MODELS
 from repro_torch.core.autoencoder import decoder_layers, encoder_layers, init_autoencoder
-from repro_torch.core.quant import EXACT, PAPER_HW_KERNEL, make_act_quant
+from repro_torch.core.quant import EXACT, HARD, PAPER_HW_KERNEL, make_act_quant
+from repro_torch.kernels.lstm_scan import (
+    lstm_scan,
+    lstm_scan_layer,
+    lstm_scan_layer_ref,
+    lstm_scan_ref,
+)
 from repro_torch.kernels.lstm_stack import lstm_stack, lstm_stack_step
 from repro_torch.kernels.lstm_stack.ops import pack_stack
 from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
 from repro_torch.kernels.lstm_stack.step import lstm_stack_step_plain
 from repro_torch.serve.engine import StreamingAnomalyEngine
+from repro_torch.serve.server import ServerConfig, StreamServer
 
 pytestmark = pytest.mark.gpu
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -128,3 +137,66 @@ def test_engine_runs_both_kernels_and_push_many_is_bit_equal(cuda):
         assert len(got[sid]) == len(want) == 2
         for g, w in zip(got[sid], want):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("acts", [EXACT, HARD, PAPER_HW_KERNEL], ids=lambda a: a.name)
+def test_scan_kernel_matches_plain(cuda, dtype, acts):
+    g = torch.Generator().manual_seed(5)
+    for hidden, t_len, batch in ((8, 1, 1), (8, 100, 64), (32, 25, 1), (32, 100, 64)):
+        xw = torch.randn(t_len, batch, 4 * hidden, generator=g).to(cuda)
+        w_h = (torch.randn(hidden, 4 * hidden, generator=g) * 0.3).to(dtype).to(cuda)
+        h0 = torch.randn(batch, hidden, generator=g).to(dtype).to(cuda)
+        c0 = torch.randn(batch, hidden, generator=g).to(cuda)
+        x = torch.randn(batch, t_len, 32, generator=g).to(dtype).to(cuda)
+        w_x = (torch.randn(32, 4 * hidden, generator=g) * 0.2).to(dtype).to(cuda)
+        b = torch.randn(4 * hidden, generator=g).to(cuda)
+        fns = dict(sigma=acts.sigma, tanh=acts.tanh)
+        pairs = ((lstm_scan(xw, w_h, h0, c0, acts=acts), lstm_scan_ref(xw, w_h, h0, c0, **fns)),
+                 (lstm_scan_layer(x, w_x, b, w_h, h0, c0, acts=acts),
+                  lstm_scan_layer_ref(x, w_x, b, w_h, h0, c0, **fns)))
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            for a, b_ in zip(got, want):
+                torch.testing.assert_close(a, b_, **TOL)
+
+
+def test_scan_rows_are_independent_of_batch_grouping(cuda):
+    g = torch.Generator().manual_seed(6)
+    xw = torch.randn(20, 16, 128, generator=g).to(cuda)
+    w_h = (torch.randn(32, 128, generator=g) * 0.3).to(cuda)
+    h0, c0 = torch.randn(16, 32, generator=g).to(cuda), torch.randn(16, 32, generator=g).to(cuda)
+    whole = lstm_scan(xw, w_h, h0, c0, block_b=4)
+    for i in (0, 9, 15):
+        row = lstm_scan(xw[:, i : i + 1].contiguous(), w_h, h0[i : i + 1], c0[i : i + 1])
+        assert torch.equal(row[0], whole[0][:, i : i + 1])
+        assert torch.equal(row[2], whole[2][i : i + 1])
+
+
+@pytest.mark.parametrize("impl", ["fused_step", "kernel"])
+def test_server_on_card_is_bit_equal_to_sequential_pushes(cuda, impl):
+    cfg = GW_MODELS["gw_nominal"]
+    params = init_autoencoder(cfg, seed=4, device=cuda)
+    T = cfg.timesteps
+    x = np.random.RandomState(1).randn(6, 2 * T, 1).astype(np.float32)
+    cuts = (0, 1, 26, 51, 100, 101, 126, 200)
+    srv = StreamServer(StreamingAnomalyEngine(params, cfg, impl=impl),
+                       ServerConfig(deadline_us=1e9))
+    lstm_scan.launches = lstm_stack.launches = lstm_stack_step.launches = 0
+    for a, b in zip(cuts, cuts[1:]):
+        for i in range(6):
+            srv.submit(f"s{i}", x[i, a:b])
+        srv.tick(force=True)
+    srv.drain()
+    got = srv.pop_scores()
+    if impl == "kernel":
+        assert lstm_scan.launches > 0 and lstm_stack.launches == lstm_stack_step.launches == 0
+    else:
+        assert lstm_scan.launches == 0 and lstm_stack.launches > 0 < lstm_stack_step.launches
+    seq = StreamingAnomalyEngine(params, cfg, impl=impl)
+    for i in range(6):
+        seq.reset()
+        want = [s for a, b in zip(cuts, cuts[1:]) for s in seq.push(x[i : i + 1, a:b])]
+        assert len(got[f"s{i}"]) == len(want) == 2
+        for g_, w in zip(got[f"s{i}"], want):
+            np.testing.assert_array_equal(g_, w)

@@ -142,7 +142,7 @@ def test_plans_are_memoised():
 
 PLAN_ERRORS = [
     (dict(impl="nope"), "unknown impl"),
-    (dict(impl="kernel"), "not ported yet"),
+    (dict(impl="mixed", weight_dtype="int8"), "not ported yet"),
     (dict(impl="mixed"), "not ported yet"),
     (dict(impl="fused_stack_sharded"), "not ported yet"),
     (dict(impl="wavefront"), "not ported yet"),

@@ -37,8 +37,28 @@ def test_import_loads_no_jax_and_no_reference():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("repro_torch.serve.engine", "repro_torch.kernels.lstm_stack.step",
-                 "repro_torch.convert", "repro_torch.configs.gw"):
+                 "repro_torch.convert", "repro_torch.configs.gw",
+                 "repro_torch.kernels.lstm_scan.lstm_scan", "repro_torch.kernels.lstm_scan.ops",
+                 "repro_torch.serve.server", "repro_torch.serve.health",
+                 "repro_torch.serve.latency", "repro_torch.data.gw",
+                 "repro_torch.launch.serve"):
         assert name in report["modules"]
+
+
+_SERVER_PROBE = """
+import json, sys
+import repro_torch.serve.server, repro_torch.launch.serve
+print(json.dumps(sorted(m for m in sys.modules if m.startswith("repro_torch.kernels"))))
+"""
+
+
+def test_server_does_not_depend_on_the_scan_kernel():
+    """The server and its CLI import no kernel module: the scan kernel
+    only loads when a plan selects ``impl="kernel"``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _SERVER_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)

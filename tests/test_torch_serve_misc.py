@@ -1,0 +1,125 @@
+"""The port's numpy leaves and its CLI, against the reference.
+
+``serve/latency.py`` and ``data/gw.py`` are copies of the reference's
+numpy modules: the same gap and latency sequences give the same
+estimates and percentiles, exactly, and a seed gives equal arrays.  The
+CLI's anomaly mode runs on the CPU at ``gw_small`` through every serving
+loop (batch, ``--streams``, ``--server``, checkpoint and restore).
+"""
+
+import numpy as np
+import pytest
+
+from repro_torch.data import gw as tgw
+from repro_torch.launch import serve as tcli
+from repro_torch.serve import latency as tlat
+
+
+def _reference(name):
+    pytest.importorskip("jax")
+    import importlib
+
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_latency_histogram_matches_reference(seed):
+    rlat = _reference("repro.serve.latency")
+    rng = np.random.RandomState(seed)
+    samples = np.concatenate([rng.lognormal(5, 1.5, 500), [0.0, 0.5, 1.0, 2.0**27]])
+    mine, ref = tlat.LatencyHistogram(), rlat.LatencyHistogram()
+    mine.record_many(samples)
+    ref.record_many(samples)
+    assert mine.summary("x") == ref.summary("x")
+    for q in (0, 1, 25, 50, 90, 99, 99.9, 100):
+        assert mine.percentile(q) == ref.percentile(q)
+    other_m, other_r = tlat.LatencyHistogram(), rlat.LatencyHistogram()
+    other_m.record_many(samples[:50] * 3)
+    other_r.record_many(samples[:50] * 3)
+    assert mine.merge(other_m).summary() == ref.merge(other_r).summary()
+
+
+@pytest.mark.parametrize("trace", ["steady", "poisson", "bursty", "idle"])
+def test_arrival_estimator_matches_reference(trace):
+    rlat = _reference("repro.serve.latency")
+    rng = np.random.RandomState(4)
+    gaps = {"steady": [100e-6] * 50, "poisson": list(rng.exponential(200e-6, 500)),
+            "bursty": [500e-6] * 10 + [10e-6] * 10 + [0.0] * 3,
+            "idle": [100e-6] * 5 + [10.0] + [20e-6] * 5 + [100.0, 50e-6]}[trace]
+    for alpha, idle in ((0.25, 50.0), (1.0, 2.0), (0.05, 10.0)):
+        mine = tlat.ArrivalRateEstimator(alpha=alpha, idle_reset_factor=idle)
+        ref = rlat.ArrivalRateEstimator(alpha=alpha, idle_reset_factor=idle)
+        t = 0.0
+        for g in gaps:
+            t += g
+            mine.observe(t)
+            ref.observe(t)
+            assert (mine.gap_us, mine.rate_hz, mine.observed) == (
+                ref.gap_us, ref.rate_hz, ref.observed)
+
+
+def test_latency_validation():
+    with pytest.raises(ValueError, match="percentile"):
+        tlat.LatencyHistogram().percentile(101)
+    for kw in (dict(alpha=0.0), dict(alpha=1.5), dict(idle_reset_factor=1.0)):
+        with pytest.raises(ValueError):
+            tlat.ArrivalRateEstimator(**kw)
+    assert tlat.LatencyHistogram().summary("x")["x.p50_us"] == 0.0
+
+
+@pytest.mark.parametrize("seed,timesteps", [(0, 100), (3, 12)])
+def test_gw_data_equals_reference(seed, timesteps):
+    rgw = _reference("repro.data.gw")
+    mine = tgw.GwDataset(tgw.GwDataConfig(seed=seed, timesteps=timesteps))
+    ref = rgw.GwDataset(rgw.GwDataConfig(seed=seed, timesteps=timesteps))
+    for draw in ("background", "events", "background"):
+        a, b = getattr(mine, draw)(3), getattr(ref, draw)(3)
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    f = np.linspace(0, 1024, 33)
+    np.testing.assert_array_equal(tgw.analytic_psd(f), rgw.analytic_psd(f))
+    np.testing.assert_array_equal(tgw.inspiral_chirp(2048, 2048.0),
+                                  rgw.inspiral_chirp(2048, 2048.0))
+    np.testing.assert_array_equal(
+        tgw.colored_noise(np.random.default_rng(5), 256, 2048.0),
+        rgw.colored_noise(np.random.default_rng(5), 256, 2048.0))
+
+
+BASE = ["--mode", "anomaly", "--device", "cpu", "--gw-model", "gw_small", "--windows", "2"]
+
+
+def test_cli_batch_and_streams(capsys):
+    out = tcli.main(BASE + ["--chunk", "25"])
+    assert out["latency"]["latency.count"] >= 1
+    out = tcli.main(BASE + ["--chunk", "50", "--streams", "4"])
+    assert "coalesced streams" in capsys.readouterr().out
+
+
+def test_cli_server_checkpoint_and_restore(tmp_path, capsys):
+    path = str(tmp_path / "ck.npz")
+    out = tcli.main(BASE + ["--chunk", "25", "--streams", "4", "--server",
+                            "--checkpoint", path, "--sanitize", "reject"])
+    assert out["stats"]["processed"] == 32 and out["stats"]["windows_scored"] == 8
+    assert out["stats"]["checkpoints"] >= 1
+    assert sum(len(v) for v in out["scores"].values()) == 8
+    out = tcli.main(BASE + ["--chunk", "25", "--streams", "4", "--server", "--adaptive",
+                            "--restore", path])
+    text = capsys.readouterr().out
+    assert "restored engine" in text and "4 stream(s) resident" in text
+    assert out["stats"]["processed"] == 32
+
+
+def test_cli_plan_only(capsys):
+    plans = tcli.main(BASE + ["--plan-only", "--weight-dtype", "int8"])
+    assert "weight_dtype=int8" in plans["encoder"]
+
+
+@pytest.mark.parametrize("flags,slice_", [
+    (["--mode", "lm"], "item 13"),
+    (BASE + ["--placement", "sharded"], "item 10"),
+    (BASE + ["--tune", "cached"], "items 8 and 9"),
+    (BASE + ["--weight-dtypes", "int8,fp32"], "item 8"),
+])
+def test_cli_refuses_later_slices(flags, slice_):
+    with pytest.raises(ValueError, match=f"not ported yet.*{slice_}"):
+        tcli.main(flags)
