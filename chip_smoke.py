@@ -4,22 +4,32 @@
     python3 chip_smoke.py
 
 Builds the kernels of ``src/repro_torch`` (the fused LSTM-stack kernels K1
-and K2 and the per-layer scan kernel K3, one ``nvcc`` per source, started
-together), holds each kernel against its plain PyTorch version at the GW
-nominal shapes in fp32 and bf16 compute, and drives two serving paths at
-the full ``gw_nominal`` width with weights from the golden fixtures
-(``tests/data/torch_port_gw_nominal.npz`` and ``torch_port_gw_server.npz``,
-produced by the JAX reference):
+and K2, the per-layer scan kernel K3, decode attention K5 and the SSD scan
+K4, one ``nvcc`` per source, started together), holds each kernel against
+its plain PyTorch version at the shapes of its path in fp32 and bf16, and
+drives three serving paths: two at the full ``gw_nominal`` width with
+weights from the golden fixtures (``tests/data/torch_port_gw_nominal.npz``
+and ``torch_port_gw_server.npz``, produced by the JAX reference):
 
 * the engines on their defaults (batch scoring, streaming pushes,
   push_many), through K1 and K2;
 * the engines on ``impl="kernel"`` (K3 per layer) and the ``StreamServer``
   over a ``fused_step`` and a ``kernel`` engine: the reference's server
   script, a fake-clock run of 32 streams against sequential replays,
-  checkpoint and restore, the health screen, and a threaded run.
+  checkpoint and restore, the health screen, and a threaded run;
+
+and LM serving through ``LmEngine`` at full width in bf16 with random
+weights from a seed: ``smollm-360m`` (K5 on every decode step) and
+``mamba2-130m`` (K4 on every prefill), B=8, prompts of 512 (and 500 for
+mamba2), 64 new tokens, with the kernel path's logits held against the
+plain path's under teacher forcing.  The reduced LM golden fixtures
+(``tests/data/torch_port_lm_smollm.npz``, ``torch_port_lm_mamba2.npz``)
+are served on the card first and must match the reference's logits and
+tokens.
 
 It checks the scores against the reference's and times the kernels beside
-their plain versions, their bound and cuDNN's LSTM.  Every phase raises on
+their plain versions, their bound and a library call (cuDNN's LSTM,
+``scaled_dot_product_attention``).  Every phase raises on
 failure; the last line is ``{"ok": true, "device": {...}}``.  Needs one
 CUDA card; without one it exits non-zero and prints no result.
 """
@@ -44,6 +54,26 @@ FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_nominal.npz"
 SERVER_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_server.npz"
 TOL = dict(rtol=1e-5, atol=1e-5)            # kernel outputs and engine scores
 STREAM_TOL = dict(rtol=1e-6, atol=1e-7)     # chunked streaming vs one-shot
+
+LM_FIXTURES = {"smollm-360m": ROOT / "tests" / "data" / "torch_port_lm_smollm.npz",
+               "mamba2-130m": ROOT / "tests" / "data" / "torch_port_lm_mamba2.npz"}
+LM_GOLDEN_TOL = dict(rtol=1e-4, atol=1e-4)  # reduced fp32 logits vs the reference's
+#: kernel vs plain version, the reference's own tolerances for K5 and K4 in
+#: fp32 (other summation orders).  In bf16 both read the same bf16 inputs,
+#: compute in fp32 and round once, so they differ by at most one bf16 ulp
+#: (2^-7 of the value) where the fp32 results straddle a rounding point
+K5_TOL, K4_TOL = 2e-5, 2e-4
+BF16_TOL = dict(rtol=8e-3, atol=1e-3)
+#: dense head geometries (Hq, Hkv, D): smollm-360m, granite-3-2b, qwen1.5-4b, yi-9b
+K5_GEOMETRIES = ((15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128))
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+#: full-width bf16 logits, kernel path vs plain path under teacher forcing:
+#: max |difference| over max |logit|.  The two paths differ by bf16
+#: roundings (sdpa rounds the softmax weights to bf16, K5 does not; a
+#: one-ulp change, 0.4-0.8%, of one layer's attention or scan output is
+#: carried on by the 24-32 bf16 layers after it); a wrong head, group or
+#: length moves logits by their own size
+LM_TF_TOL = 0.05
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): the kernels run on the fp32
 #: CUDA cores, not the tensor cores
@@ -77,22 +107,42 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
     """Device time per call of ``fn`` from ``torch.profiler``: the device
     kernels whose name contains ``kernel`` (all of them if None), summed and
-    divided by ``reps``.  None when the profiler recorded no device time."""
+    divided by ``reps``.  One profiled call first counts the kernels a call
+    launches; a run of ``reps`` calls whose trace holds another multiple of
+    that count (the profiler dropped or split events) is run once more, and
+    then None is returned, as it is when no device time was recorded.
+
+    The first device events of a trace can go unrecorded (seen on the H100
+    with torch 2.11, from one event to most of a 50-call trace), so each
+    trace starts with spin kernels, a synchronise and a pause, and the
+    spins are not counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    def trace(n_calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name and (kernel is None or kernel in e.name)]
+        return len(times), sum(times)
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and (kernel is None or kernel in e.name)
-    )
-    return total_us / reps / 1e3 if total_us > 0 else None
+    per_call, _ = trace(1)
+    for _ in range(2):
+        count, total_us = trace(reps)
+        if per_call > 0 and count == per_call * reps and total_us > 0:
+            return total_us / reps / 1e3
+    log(f"device_ms: {count} kernel events in {reps} calls, want {per_call} per call; "
+        f"timing with CUDA events instead")
+    return None
 
 
 def bound(step: bool, L: int, W: int, T: int, B: int, w_bytes: int) -> tuple[float, str]:
@@ -380,6 +430,362 @@ def server_phases(impl: str, make_engine, sgold: dict, T: int) -> dict:
             "rejected": rejected}
 
 
+# -- the LM side: K5 (decode attention) and K4 (SSD scan) -----------------
+
+def decode_attn_bound(batch: int, hq: int, hkv: int, d: int, rows: int,
+                      itemsize: int) -> tuple[float, str]:
+    """Least time the card needs for one K5 call: bytes (q read and the
+    output written once, the ``rows`` valid cache rows of K and V read once,
+    ``rows`` summed over the batch, and the lengths) over the memory rate vs
+    fp32 operations (2 per multiply-add of q.k and of p.v, 6 per score for
+    the online softmax) over the fp32 peak; returns (ms, "bytes"|"operations")."""
+    n_bytes = 2 * batch * hq * d * itemsize + 2 * rows * hkv * d * itemsize + 4 * batch
+    ops = rows * hq * (4 * d + 6)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_bound(batch: int, t_len: int, heads: int, groups: int, p: int, n: int, chunk: int,
+              itemsize: int, with_s0: bool) -> tuple[float, str]:
+    """Least time the card needs for one K4 call: bytes (x, B, C at the
+    model dtype, dt and a fp32, s0 if given, read once; y and the fp32 final
+    state written once) over the memory rate vs the fp32 operations of the
+    chunked algorithm (2 per multiply-add of C.B over the lower triangle, of
+    M @ X, of (C exp(cum)) @ S^T and of xw^T @ B, 2 per state element for
+    the decay and the add) over the fp32 peak; returns (ms, "bytes"|"operations")."""
+    n_bytes = (2 * batch * t_len * heads * p + 2 * batch * t_len * groups * n) * itemsize \
+        + batch * t_len * heads * 4 + heads * 4 + (2 if with_s0 else 1) * batch * heads * p * n * 4
+    ops = 0
+    for t0 in range(0, t_len, chunk):
+        lc = min(chunk, t_len - t0)
+        tri = lc * (lc + 1) // 2
+        ops += 2 * tri * n + 2 * tri * p + 4 * lc * p * n + 2 * p * n
+    ops *= batch * heads
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k5_phase(dev) -> float:
+    """K5 against its plain version: the four dense head geometries, S in
+    {1, 511, 576, 2048}, B in {1, 8} with ragged lengths down to 1, bf16 and
+    fp32 caches.  Returns the max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rng = np.random.default_rng(10)
+    err, n, t0 = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0, time.perf_counter()
+    for hq, hkv, d in K5_GEOMETRIES:
+        for s_len in (1, 511, 576, 2048):
+            for batch in (1, 8):
+                lengths = [s_len] if batch == 1 else \
+                    [s_len, 1] + rng.integers(1, s_len + 1, batch - 2).tolist()
+                lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                for dtype in (torch.float32, torch.bfloat16):
+                    q = torch.randn(batch, hq, d, generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn(batch, s_len, hkv, d, generator=gen, device=dev).to(dtype)
+                            for _ in range(2))
+                    got = decode_attn(q, k, v, lens)
+                    want = decode_attn_plain(q, k, v, lens)
+                    torch.cuda.synchronize()
+                    tol = dict(rtol=K5_TOL, atol=K5_TOL) if dtype == torch.float32 else BF16_TOL
+                    torch.testing.assert_close(
+                        got.float(), want.float(), **tol,
+                        msg=lambda m: f"K5 {hq}/{hkv} D={d} S={s_len} B={batch} {dtype}: {m}")
+                    err[dtype] = max(err[dtype], (got.float() - want.float()).abs().max().item())
+                    n += 1
+    log(f"phase 10 K5 ok: {n} cases (4 head geometries, S 1..2048, ragged lengths, fp32 "
+        f"and bf16), max |kernel - plain| = {err[torch.float32]:.3g} in fp32, "
+        f"{err[torch.bfloat16]:.3g} in bf16 ({time.perf_counter() - t0:.1f} s)")
+    return max(err.values())
+
+
+def ssd_inputs(gen, dev, batch, t_len, heads, groups, p, n, dtype, nonzero):
+    """Model-shaped K4 inputs: dt = softplus(raw + dt_bias) and a = -exp(a_log)
+    with random dt_bias and a_log, as the SSM block forms them."""
+    import torch
+    import torch.nn.functional as F
+
+    dt_bias = torch.randn(heads, generator=gen, device=dev) * 0.5
+    a = -torch.exp(torch.randn(heads, generator=gen, device=dev) * 0.5)
+    dt = F.softplus(torch.randn(batch, t_len, heads, generator=gen, device=dev) + dt_bias)
+    x = torch.randn(batch, t_len, heads, p, generator=gen, device=dev).to(dtype)
+    bm, cm = ((torch.randn(batch, t_len, groups, n, generator=gen, device=dev) * 0.3).to(dtype)
+              for _ in range(2))
+    s0 = (torch.randn(batch, heads, p, n, generator=gen, device=dev) * 0.3) if nonzero else None
+    return x, dt, a, bm, cm, s0
+
+
+def k4_phase(dev) -> float:
+    """K4 against its plain version at mamba2's shapes (H=24, P=64, N=128,
+    G=1, chunk 64) and the serving batch (B=8, two waves of CTAs) over T in
+    {1, 64, 500, 512}, plus G=3 at T=500; zero and non-zero s0; fp32 and
+    bf16.  Returns the max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err = {"y fp32": 0.0, "y bf16": 0.0, "state": 0.0}
+    n, t0 = 0, time.perf_counter()
+    cases = [(1, t) for t in (1, 64, 500, 512)] + [(3, 500)]
+    for groups, t_len in cases:
+        for nonzero in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = ssd_inputs(gen, dev, LM_BATCH, t_len, 24, groups, 64, 128, dtype, nonzero)
+                y, s_f = ssd_scan(*args, chunk=64)
+                y_p, s_p = ssd_chunked(*args, chunk=64)
+                torch.cuda.synchronize()
+                what = f"K4 B={LM_BATCH} G={groups} T={t_len} s0={nonzero} {dtype}"
+                tol = dict(rtol=K4_TOL, atol=K4_TOL) if dtype == torch.float32 else BF16_TOL
+                torch.testing.assert_close(y.float(), y_p.float(), **tol,
+                                           msg=lambda m: f"{what} y: {m}")
+                torch.testing.assert_close(s_f, s_p, rtol=K4_TOL, atol=K4_TOL,
+                                           msg=lambda m: f"{what} state: {m}")
+                key = "y fp32" if dtype == torch.float32 else "y bf16"
+                err[key] = max(err[key], (y.float() - y_p.float()).abs().max().item())
+                err["state"] = max(err["state"], (s_f - s_p).abs().max().item())
+                n += 1
+    log(f"phase 11 K4 ok: {n} cases (mamba2 shapes at B={LM_BATCH}, T 1..512, G 1 and 3, "
+        f"zero and non-zero s0, fp32 and bf16), max |kernel - plain| = "
+        + ", ".join(f"{e:.3g} ({k})" for k, e in err.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return max(err.values())
+
+
+def lm_phases(dev, smi: str) -> list:
+    """Phases 10-14: K5 and K4 against their plain versions, the reduced LM
+    golden fixtures, full-width serving of smollm-360m and mamba2-130m, and
+    timing.  Returns the ``kernels`` entries of K5 and K4."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_numpy, unflatten
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import LmEngine
+
+    k5_mod = sys.modules["repro_torch.kernels.decode_attn.decode_attn"]
+    k4_mod = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
+    k5_err, k4_err = k5_phase(dev), k4_phase(dev)
+
+    def refuse_plain(*args, **kwargs):
+        raise AssertionError("the LM kernel path reached a plain version on the card")
+
+    def block_plain():
+        k5_mod.decode_attn_plain, k4_mod.ssd_chunked = refuse_plain, refuse_plain
+
+    def unblock_plain():
+        k5_mod.decode_attn_plain, k4_mod.ssd_chunked = decode_attn_plain, ssd_chunked
+
+    def counts():
+        return {"decode_attn": decode_attn.launches, "ssd_scan": ssd_scan.launches}
+
+    def want_launches(cfg, n_steps):
+        """K5 once per layer per decode step (dense); K4 once per layer per
+        prefill (ssm)."""
+        if cfg.family == "dense":
+            return {"decode_attn": cfg.n_layers * n_steps, "ssd_scan": 0}
+        return {"decode_attn": 0, "ssd_scan": cfg.n_layers}
+
+    # -- phase 12: the reduced golden fixtures, kernels on -------------------
+    t0 = time.perf_counter()
+    block_plain()
+    for name, path in LM_FIXTURES.items():
+        with np.load(path) as data:
+            gold = {k: data[k] for k in data.files}
+        cfg = get_arch(name).reduced()
+        n_new = gold["tokens"].shape[1]
+        eng = LmEngine(lm_params_from_numpy(unflatten(gold), dev), cfg,
+                       max_len=gold["prompt"].shape[1] + n_new, device=dev)
+        pre, steps = eng.teacher_forced(gold["prompt"], gold["tokens"])
+        np.testing.assert_allclose(pre.cpu().numpy(), gold["prefill_logits"], **LM_GOLDEN_TOL,
+                                   err_msg=f"{name} prefill logits vs reference")
+        np.testing.assert_allclose(steps.cpu().numpy(), gold["decode_logits"], **LM_GOLDEN_TOL,
+                                   err_msg=f"{name} decode logits vs reference")
+        if eng.launches != want_launches(cfg, n_new - 1):
+            raise AssertionError(f"{name} golden: launches {eng.launches}, want "
+                                 f"{want_launches(cfg, n_new - 1)}")
+        np.testing.assert_array_equal(eng.generate(gold["prompt"], n_new), gold["tokens"],
+                                      err_msg=f"{name} greedy tokens vs reference")
+    unblock_plain()
+    log(f"phase 12 LM golden ok: reduced smollm-360m and mamba2-130m logits within 1e-4 "
+        f"of the reference's, tokens equal ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 13: full-width serving, bf16, B=8 -------------------------------
+    # the main path of this slice: every count is set to 0 just before each
+    # serving run and read just after it
+    rng = np.random.default_rng(0)
+    report, path_launches = {}, {"decode_attn": 0, "ssd_scan": 0}
+    per_step, per_prefill = {}, {}  # measured on the serving runs (1 prefill, LM_NEW - 1 steps)
+    params = None
+    for name, prompt_len in (("smollm-360m", LM_PROMPT), ("mamba2-130m", LM_PROMPT),
+                             ("mamba2-130m", 500)):
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        if prompt_len == LM_PROMPT:  # one set of weights per model
+            params = None
+            params = get_model(cfg).init_params(cfg, seed=0, device=dev)
+        prompts = rng.integers(0, cfg.vocab, (LM_BATCH, prompt_len)).astype(np.int32)
+        eng = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev)
+        eng.generate(prompts[:, :16], 2)  # warm-up (cuBLAS handles, first launches)
+        torch.cuda.synchronize()
+        block_plain()
+        decode_attn.launches = ssd_scan.launches = 0
+        t1 = time.perf_counter()
+        tokens = eng.generate(prompts, LM_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        c = counts()
+        unblock_plain()
+        if c != want_launches(cfg, LM_NEW - 1):
+            raise AssertionError(f"{name} serving run: launches {c}, want "
+                                 f"{want_launches(cfg, LM_NEW - 1)}")
+        for key in path_launches:
+            path_launches[key] += c[key]
+        per_step[f"{name}_p{prompt_len}"] = c["decode_attn"] / (LM_NEW - 1)
+        per_prefill[f"{name}_p{prompt_len}"] = c["ssd_scan"]
+        if tokens.shape != (LM_BATCH, LM_NEW) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+            raise AssertionError(f"{name}: bad tokens {tokens.shape} in "
+                                 f"[{tokens.min()}, {tokens.max()}]")
+        # teacher forcing: the kernel path and the plain path (sdpa,
+        # ssd_chunked) fed the same tokens
+        step_ms: list = []
+        step = eng.step
+
+        def timed_step(cache, toks):  # each decode step's host time, synchronised
+            t1 = time.perf_counter()
+            out = step(cache, toks)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        eng.step = timed_step
+        k_pre, k_steps = eng.teacher_forced(prompts, tokens)
+        eng.step = step
+        plain = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev,
+                         use_kernel=False)
+        p_pre, p_steps = plain.teacher_forced(prompts, tokens)
+        torch.cuda.synchronize()
+        stats = {}
+        for what, a, b in (("prefill", k_pre, p_pre), ("decode", k_steps, p_steps)):
+            a, b = a[..., : cfg.vocab], b[..., : cfg.vocab]
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"{name} {what}: non-finite logits")
+            stats[what] = {"max_abs_diff": (a - b).abs().max().item(),
+                           "max_abs_logit": b.abs().max().item(),
+                           "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
+        for what, st in stats.items():
+            limit = LM_TF_TOL * st["max_abs_logit"]
+            if st["max_abs_diff"] > limit:
+                raise AssertionError(f"{name} {what}: kernel path logits differ from the plain "
+                                     f"path's by {st['max_abs_diff']:.4g} > {limit:.4g}")
+        pre_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            eng.prefill(prompts)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t1) * 1e3)
+        # device time of a prefill and of one decode step (every kernel the
+        # profiler records, summed); the rest of the host time the card idles
+        _, cache = eng.prefill(prompts)
+        busy_pre = device_ms(lambda: eng.prefill(prompts), reps=2)
+        busy_step = device_ms(lambda: eng.step(cache, tokens[:, :1]), reps=5)
+        prefill_ms, decode_ms = statistics.median(pre_ms), statistics.median(step_ms)
+        report[f"{name}_p{prompt_len}"] = {
+            "batch": LM_BATCH, "prompt": prompt_len, "new_tokens": LM_NEW,
+            "generate_s": wall, "tokens_per_s": LM_BATCH * LM_NEW / wall,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "prefill_device_ms": busy_pre, "decode_step_device_ms": busy_step,
+            "prefill_idle_share": None if busy_pre is None else 1 - busy_pre / prefill_ms,
+            "decode_idle_share": None if busy_step is None else 1 - busy_step / decode_ms,
+            "launches": c, "teacher_forced": stats}
+        log(f"phase 13 {name} prompt {prompt_len} ok: B={LM_BATCH}, {LM_NEW} tokens in "
+            f"{wall:.3f} s ({LM_BATCH * LM_NEW / wall:.0f} tok/s), prefill {prefill_ms:.2f} ms "
+            f"(device {busy_pre} ms), decode {decode_ms:.3f} ms per step (device {busy_step} "
+            f"ms), launches {c}, kernel vs plain path under teacher forcing {stats} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    params = None
+    log(smi)
+    log(json.dumps({"lm_e2e": report}))
+
+    # -- phase 14: K5 and K4 timing at the serving shapes -----------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cfg = get_arch("smollm-360m")
+    s_len = LM_PROMPT + LM_NEW
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.randn(LM_BATCH, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(LM_BATCH, s_len, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    k5_rows = []
+    for length in (LM_PROMPT + 1, s_len):  # the first and the last decode step's cache
+        lens = torch.full((LM_BATCH,), length, dtype=torch.int32, device=dev)
+        qs, ks, vs = q[:, :, None], k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2)
+        lib_call = lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)  # noqa: E731
+        kernel = lambda: decode_attn(q, k, v, lens)  # noqa: E731
+        torch.testing.assert_close(kernel().float(), decode_attn_plain(q, k, v, lens).float(),
+                                   **BF16_TOL, msg=lambda m: f"K5 timing inputs {length}: {m}")
+        lib_err = (lib_call()[:, :, 0].float() - kernel().float()).abs().max().item()
+        ms = device_ms(kernel, reps=50, kernel="decode_attn_kernel")
+        call_ms = median_ms(kernel, reps=50)
+        lib_dev = device_ms(lib_call, reps=50)
+        lib_call_ms = median_ms(lib_call, reps=50)
+        b_ms, b_by = decode_attn_bound(LM_BATCH, hq, hkv, d, LM_BATCH * length, 2)
+        k5_rows.append({
+            "B": LM_BATCH, "Hq": hq, "Hkv": hkv, "D": d, "S": s_len, "length": length,
+            "dtype": "bf16", "ms": ms if ms is not None else call_ms,
+            "ms_source": "profiler" if ms is not None else "events", "call_ms": call_ms,
+            "plain_ms": median_ms(lambda: decode_attn_plain(q, k, v, lens), reps=5),
+            "library_ms": lib_dev if lib_dev is not None else lib_call_ms,
+            "library_call_ms": lib_call_ms, "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by})
+    mcfg = get_arch("mamba2-130m")
+    heads = mcfg.ssm_expand * mcfg.d_model // mcfg.ssm_head_dim
+    k4_rows = []
+    for t_len in (LM_PROMPT, 500):
+        args = ssd_inputs(gen, dev, LM_BATCH, t_len, heads, mcfg.ssm_groups, mcfg.ssm_head_dim,
+                          mcfg.ssm_state, torch.bfloat16, False)
+        kernel = lambda: ssd_scan(*args, chunk=64)  # noqa: E731
+        (y, s_f), (y_p, s_p) = kernel(), ssd_chunked(*args, chunk=64)
+        torch.testing.assert_close(y.float(), y_p.float(), **BF16_TOL,
+                                   msg=lambda m: f"K4 timing inputs T={t_len} y: {m}")
+        torch.testing.assert_close(s_f, s_p, rtol=K4_TOL, atol=K4_TOL,
+                                   msg=lambda m: f"K4 timing inputs T={t_len} state: {m}")
+        ms = device_ms(kernel, reps=20, kernel="ssd_scan_kernel")
+        call_ms = median_ms(kernel, reps=20)
+        b_ms, b_by = ssd_bound(LM_BATCH, t_len, heads, mcfg.ssm_groups, mcfg.ssm_head_dim,
+                               mcfg.ssm_state, 64, 2, False)
+        k4_rows.append({
+            "B": LM_BATCH, "T": t_len, "H": heads, "G": mcfg.ssm_groups, "P": mcfg.ssm_head_dim,
+            "N": mcfg.ssm_state, "chunk": 64, "dtype": "bf16",
+            "ms": ms if ms is not None else call_ms,
+            "ms_source": "profiler" if ms is not None else "events", "call_ms": call_ms,
+            "plain_ms": median_ms(lambda: ssd_chunked(*args, chunk=64), reps=5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    log(f"phase 14 LM kernel timing ok ({time.perf_counter() - t0:.1f} s)")
+
+    head5, head4 = k5_rows[-1], k4_rows[0]  # the last decode step; the 512-token prefill
+    return [
+        {"name": "decode_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:96",
+         "launches": path_launches["decode_attn"], "max_abs_err": k5_err,
+         "ms": head5["ms"], "kernel_ms": head5["ms"], "plain_ms": head5["plain_ms"],
+         "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
+         "library_ms": head5["library_ms"],
+         "launches_per_decode_step": per_step, "shapes": k5_rows},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:94",
+         "launches": path_launches["ssd_scan"], "max_abs_err": k4_err,
+         "ms": head4["ms"], "kernel_ms": head4["ms"], "plain_ms": head4["plain_ms"],
+         "bound_ms": head4["bound_ms"], "bound_by": head4["bound_by"], "library_ms": None,
+         "library_note": "none: no single PyTorch call computes the SSD scan",
+         "launches_per_prefill": per_prefill, "shapes": k4_rows},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -410,6 +816,10 @@ def main() -> int:
     k1_mod = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
     k2_mod = sys.modules["repro_torch.kernels.lstm_stack.step"]
     k3_mod = sys.modules["repro_torch.kernels.lstm_scan.lstm_scan"]
+    import repro_torch.kernels.decode_attn  # noqa: F401
+    import repro_torch.kernels.ssd_scan  # noqa: F401
+    k5_mod = sys.modules["repro_torch.kernels.decode_attn.decode_attn"]
+    k4_mod = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
 
     # -- phase 1: environment ----------------------------------------------
     dev = resolve_device("cuda")  # also switches TF32 off for matmul and cuDNN
@@ -423,8 +833,9 @@ def main() -> int:
 
     # -- phase 2: build, one nvcc per source, started together --------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda build: build(), (library, k3_mod.library)))
+    to_build = (library, k3_mod.library, k5_mod.library, k4_mod.library)
+    with concurrent.futures.ThreadPoolExecutor(len(to_build)) as pool:
+        libs = list(pool.map(lambda build: build(), to_build))
     for built in libs:
         log(f"phase 2 build ok: {built.path.name}, nvcc {built.seconds:.1f} s")
         for line in built.log.splitlines():
@@ -806,6 +1217,8 @@ def main() -> int:
     }}))
     log(f"phase 9 timing ok ({time.perf_counter() - t0:.1f} s)")
 
+    lm_kernels = lm_phases(dev, smi)  # phases 10-14
+
     kernels = []
     for name, err, replaces, mode in (
         ("lstm_stack_wavefront", k1_err, "src/repro/kernels/lstm_stack/lstm_stack.py:165",
@@ -836,6 +1249,7 @@ def main() -> int:
         "launches_per_window": {m: v[2] for m, v in per_window.items()},
         "shapes": rows["lstm_scan"],
     })
+    kernels += lm_kernels
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Synthetic GW strain data (numpy)."""
+"""Synthetic data (numpy): GW strain (``gw``) and LM token streams (``lm``)."""

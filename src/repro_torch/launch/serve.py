@@ -1,4 +1,10 @@
-"""Serving launcher: GW anomaly streaming on the port.
+"""Serving launcher: LM decode or GW anomaly streaming on the port.
+
+LM mode (batched prefill + greedy decode through ``LmEngine``; the
+``dense`` and ``ssm`` families, random weights from seed 0):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch smollm-360m --reduced --prompt-len 16 --new-tokens 16
 
 Anomaly mode (the paper's use case: persistent-state B=1 streaming on the
 fused stack, weights packed once at engine init; short chunks ride the
@@ -29,8 +35,8 @@ here).  Any of these turns on the health layer and prints its counters.
 ``--plan-only`` prints the resolved plan of both segments and exits.
 
 Not ported yet, each refused with a ``ValueError`` naming its later slice:
-``--mode lm``, ``--placement sharded``, ``--tune cached|balanced`` and
-``--weight-dtypes``.
+``--mode lm`` for the ``moe``, ``hybrid`` and ``encdec`` families,
+``--placement sharded``, ``--tune cached|balanced`` and ``--weight-dtypes``.
 """
 
 from __future__ import annotations
@@ -48,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", choices=("lm", "anomaly"), default="lm")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the engine runs; cpu runs the plain versions")
-    # lm mode (not ported yet)
-    ap.add_argument("--arch", help="LM arch id (lm mode)")
+    # lm mode
+    ap.add_argument("--arch", help="LM arch id (lm mode; dense and ssm families)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -101,7 +107,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Refuse the flag values that belong to later slices of the port."""
     later = [
-        (args.mode == "lm", "--mode lm", "the LM side (ROADMAP queue 1, item 13)"),
         (args.placement == "sharded", "--placement sharded",
          "multi-GPU placement (ROADMAP queue 1, item 10)"),
         (args.tune != "default", f"--tune {args.tune}",
@@ -116,9 +121,41 @@ def check_ported(args) -> None:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     check_ported(args)
-    return serve_anomaly(args)
+    if args.mode == "anomaly":
+        return serve_anomaly(args)
+    if not args.arch:
+        ap.error("--arch is required in lm mode")
+    return serve_lm(args)
+
+
+def serve_lm(args):
+    """Batched prefill + greedy decode of random prompts (seed 0) with
+    random weights (seed 0) on ``--device``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import LmEngine
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    api = get_model(cfg)  # a family of a later slice raises here
+    params = api.init_params(cfg, seed=0, device=args.device)
+    engine = LmEngine(params, cfg, max_len=args.prompt_len + args.new_tokens,
+                      device=args.device)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.new_tokens)
+    dt = time.perf_counter() - t0
+    tok_s = args.batch * args.new_tokens / dt
+    print(f"{args.arch}: generated {out.shape} in {dt:.2f}s ({tok_s:.1f} tok/s on "
+          f"{args.device}), kernel launches {engine.launches}")
+    print("sample:", out[0][:12].tolist())
+    return {"tokens": out, "launches": dict(engine.launches)}
 
 
 def _engine(args, params, cfg):

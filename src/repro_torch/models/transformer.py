@@ -1,0 +1,159 @@
+"""Dense GQA decoder-only transformer (llama-style) and the VLM-backbone variant.
+
+The port of ``repro/models/transformer.py``: yi-9b, qwen1.5-4b (QKV bias),
+granite-3-2b, smollm-360m, llava-next-34b (precomputed frontend embeddings
+spliced in front of the token embeddings).
+
+Layer parameters keep the reference's stacked (L, ...) tree, so converting
+the reference's params is a copy; the forward functions loop over the
+layers and index the stack.  Prefill attends with ``sdpa`` up to
+``_FLASH_THRESHOLD`` tokens and with ``flash_attention`` above it.  The KV
+cache is (L, B, S_max, Hkv, D) per K and V plus the next position ``pos``
+(a Python int); ``decode_step`` writes each layer's new row in place and
+attends through the decode-attention kernel (K5) unless the caller asks
+for the plain path or the model has a sliding window.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.flash_attention import flash_attention
+
+_FLASH_THRESHOLD = 1024  # use flash attention above this sequence length
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, seed: int = 0, device: str | torch.device = "cuda") -> dict:
+    """Random parameters from ``seed`` (drawn on the CPU, then moved); the
+    reference's shapes, dtypes and scales."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    lead = (cfg.n_layers,)
+    layers = {
+        "attn": L.init_attention(gen, cfg, lead=lead),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype, lead),
+        "ln1": torch.ones(*lead, cfg.d_model),
+        "ln2": torch.ones(*lead, cfg.d_model),
+    }
+    params = {
+        "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype),
+        "layers": layers,
+        "ln_f": torch.ones(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, cfg.dtype)
+    return L.tree_map(lambda t: t.to(dev), params)
+
+
+def _head(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _attn_core(q, k, v, cfg: ArchConfig):
+    if q.shape[1] > _FLASH_THRESHOLD:
+        return flash_attention(q, k, v, True, cfg.sliding_window, 0)
+    return L.sdpa(q, k, v, causal=True, window=cfg.sliding_window)
+
+
+def _attn_full(p, x, cfg: ArchConfig, rope):
+    """Causal self-attention over the sequence; returns (out, k, v)."""
+    b, s, _ = x.shape
+    q, k, v = L._proj_qkv(p, x, x, cfg)
+    cos, sin = rope
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    out = _attn_core(q, k, v, cfg)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"], k, v
+
+
+def _layer_fwd(x, lp, cfg: ArchConfig, rope):
+    """One block; returns (x, k, v) with this layer's K and V."""
+    out, k, v = _attn_full(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope)
+    x = x + out
+    x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x, k, v
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings, with frontend embeddings spliced in front (VLM)."""
+    embed = params["embed"]
+    x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        fe = torch.as_tensor(batch["frontend_embeds"], device=embed.device).to(x.dtype)
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence causal LM forward -> logits (B, S, V_padded)."""
+    x = embed_inputs(params, batch, cfg)
+    s = x.shape[1]
+    rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x, _, _ = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x @ _head(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,
+               device: str | torch.device = "cuda") -> dict:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+
+def prefill(params: dict, batch: dict, cfg: ArchConfig,
+            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Process the whole prompt; returns (last-token logits (B, 1, V_padded),
+    the cache filled up to the prompt length).  Prefill runs no kernel of
+    this package."""
+    x = embed_inputs(params, batch, cfg)
+    b, s, _ = x.shape
+    max_len = max(max_len or s, s)
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x, k, v = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope)
+        cache["k"][i, :, :s] = k.to(cfg.dtype)
+        cache["v"][i, :, :s] = v.to(cfg.dtype)
+    x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    cache["pos"] = s
+    return x @ _head(params, cfg), cache
+
+
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
+                *, use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+    """One new token against the cache; batch["tokens"]: (B, 1).  Writes the
+    token's K/V rows into ``cache`` in place and returns (logits (B, 1,
+    V_padded), the cache with ``pos`` advanced).  Attention runs through
+    the decode-attention kernel when ``use_kernel`` and the model has no
+    sliding window."""
+    x = embed_inputs(params, {"tokens": batch["tokens"]}, cfg)  # (B, 1, d)
+    pos = cache["pos"]
+    kernel = use_kernel and cfg.sliding_window is None
+    for i in range(cfg.n_layers):
+        lp = L.layer(params["layers"], i)
+        xn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        out, _, _ = L.attention_decode(lp["attn"], xn, cache["k"][i], cache["v"][i], pos,
+                                       cfg, window=cfg.sliding_window, use_kernel=kernel)
+        x = x + out
+        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x @ _head(params, cfg), {**cache, "pos": pos + 1}

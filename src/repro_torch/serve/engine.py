@@ -19,6 +19,10 @@ Streaming state lifecycle (``StreamingAnomalyEngine``):
 The kernels return fresh state tensors on every push; nothing a caller
 holds is ever overwritten in place.
 
+``LmEngine``: LM serving for the ``dense`` and ``ssm`` families: one
+batched prefill, then greedy decode steps against the cache, with the
+decode-attention (K5) and SSD-scan (K4) kernels on their paths.
+
 Fault tolerance (``StreamingAnomalyEngine``): ``snapshot``/``restore``
 carry every stream's state, partial windows and the threshold through the
 versioned ``.npz`` format of ``serve/health.py``, gated by
@@ -547,3 +551,84 @@ class StreamingAnomalyEngine:
         """FPR-targeted threshold on background windows (batch path)."""
         self.threshold = float(np.quantile(self.score(background), 1.0 - fpr))
         return self.threshold
+
+
+class LmEngine:
+    """Prefill + greedy decode (the reference's ``LmEngine``).
+
+    The model's cache is updated in place by each decode step (the
+    reference donates it to the jitted step).  ``use_kernel=False`` runs
+    the plain path: ``sdpa`` for decode attention and ``ssd_chunked`` for
+    the prefill scan.  ``launches`` counts the K5 (``decode_attn``) and K4
+    (``ssd_scan``) launches this engine made.
+    """
+
+    def __init__(self, params: dict, cfg, max_len: int = 256,
+                 device: str | torch.device = "cuda", *, use_kernel: bool = True):
+        from repro_torch.models.api import get_model
+
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = _params_to(params, self.device)
+        self.api = get_model(cfg)
+        self.max_len = max_len
+        self.use_kernel = use_kernel
+        # only the entry point that reaches the family's kernel takes use_kernel
+        self._entry_kw = {"prefill": {}, "decode_step": {}}
+        self._entry_kw[self.api.kernel_entry] = {"use_kernel": use_kernel}
+        self.launches = {"decode_attn": 0, "ssd_scan": 0}
+
+    @staticmethod
+    def _kernel_counts() -> dict:
+        from repro_torch.kernels.decode_attn import decode_attn
+        from repro_torch.kernels.ssd_scan import ssd_scan
+
+        return {"decode_attn": decode_attn.launches, "ssd_scan": ssd_scan.launches}
+
+    def _counted(self, fn, *args, **kwargs):
+        before = self._kernel_counts()
+        out = fn(*args, **kwargs)
+        for name, count in self._kernel_counts().items():
+            self.launches[name] += count - before[name]
+        return out
+
+    def prefill(self, tokens) -> tuple[torch.Tensor, dict]:
+        """tokens: (B, S_prompt) -> (last-token logits (B, 1, V_padded), cache)."""
+        tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
+        with torch.inference_mode():
+            return self._counted(self.api.prefill, self.params, {"tokens": tokens},
+                                 self.cfg, self.max_len, **self._entry_kw["prefill"])
+
+    def step(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
+        """One decode step for tokens (B, 1) -> (logits (B, 1, V_padded), cache)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        with torch.inference_mode():
+            return self._counted(self.api.decode_step, self.params, cache,
+                                 {"tokens": tokens}, self.cfg, **self._entry_kw["decode_step"])
+
+    def teacher_forced(self, prompt, tokens) -> tuple[torch.Tensor, torch.Tensor]:
+        """Logits of ``prompt``, then of ``tokens`` (B, n) fed one by one
+        (teacher forcing): (prefill (B, V_padded), decode steps (n-1, B,
+        V_padded)), float32 on the engine's device."""
+        tokens = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+        logits, cache = self.prefill(prompt)
+        pre, steps = logits[:, 0].float(), []
+        for i in range(tokens.shape[1] - 1):
+            logits, cache = self.step(cache, tokens[:, i : i + 1])
+            steps.append(logits[:, 0].float())
+        return pre, torch.stack(steps) if steps else pre.new_zeros((0, *pre.shape))
+
+    def generate(self, tokens: np.ndarray, n_new: int) -> np.ndarray:
+        """tokens: (B, S_prompt) -> (B, n_new) greedy continuation (argmax
+        over the real vocabulary, never the padded rows)."""
+        vocab = self.cfg.vocab
+        logits, cache = self.prefill(tokens)
+        out = []
+        for i in range(n_new):
+            nxt = logits[:, -1, :vocab].argmax(dim=-1, keepdim=True)
+            out.append(nxt)
+            if i + 1 < n_new:  # the last token needs no step of its own
+                logits, cache = self.step(cache, nxt)
+        if not out:
+            return np.zeros((len(tokens), 0), np.int64)
+        return torch.cat(out, dim=1).cpu().numpy()

@@ -10,6 +10,15 @@ Kernel and plain version perform the same fp32 operations in the same
 order, so they are held at rtol/atol 1e-5 (they normally agree exactly).
 The server tests hold the StreamServer on both engines of the card
 (``fused_step`` and ``kernel``) bit-equal to sequential pushes.
+
+The LM kernels K5 (decode attention) and K4 (SSD scan) sum in another order
+than their plain versions (fmaf chains against PyTorch's reductions), so
+they are held at the reference's own tolerances for those kernels: rtol/atol
+2e-5 (K5) and 2e-4 (K4) in fp32.  In bf16 both read the same bf16 inputs,
+compute in fp32 and round once, so they differ by at most one bf16 ulp
+(2^-7 of the value): rtol 8e-3, atol 1e-3.
+The LM engine runs the reduced golden fixtures on the card with both
+kernels and must match the reference's logits within 1e-4 and its tokens.
 """
 
 import dataclasses
@@ -31,7 +40,11 @@ from repro_torch.kernels.lstm_stack import lstm_stack, lstm_stack_step
 from repro_torch.kernels.lstm_stack.ops import pack_stack
 from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
 from repro_torch.kernels.lstm_stack.step import lstm_stack_step_plain
-from repro_torch.serve.engine import StreamingAnomalyEngine
+from repro_torch.configs import get_arch
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+from repro_torch.serve.engine import LmEngine, StreamingAnomalyEngine
 from repro_torch.serve.server import ServerConfig, StreamServer
 
 pytestmark = pytest.mark.gpu
@@ -200,3 +213,68 @@ def test_server_on_card_is_bit_equal_to_sequential_pushes(cuda, impl):
         assert len(got[f"s{i}"]) == len(want) == 2
         for g_, w in zip(got[f"s{i}"], want):
             np.testing.assert_array_equal(g_, w)
+
+
+def _tol(dtype, fp32_tol):
+    return dict(rtol=fp32_tol, atol=fp32_tol) if dtype == torch.float32 else \
+        dict(rtol=8e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128)])
+def test_decode_attn_kernel_matches_plain(cuda, hq, hkv, d, dtype):
+    g = torch.Generator().manual_seed(hq + d)
+    for s_len, lengths in ((1, [1, 1, 1]), (70, [70, 33, 1]), (576, [576, 300, 32])):
+        q = torch.randn(3, hq, d, generator=g).to(dtype).to(cuda)
+        k, v = (torch.randn(3, s_len, hkv, d, generator=g).to(dtype).to(cuda) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        before = decode_attn.launches
+        got = decode_attn(q, k, v, lens)
+        want = decode_attn_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert decode_attn.launches == before + 1 and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, 2e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_ssd_scan_kernel_matches_plain(cuda, groups, dtype):
+    g = torch.Generator().manual_seed(groups)
+    heads, p, n = 24, 64, 128
+    for t_len, nonzero in ((1, False), (64, True), (100, False), (130, True)):
+        x = torch.randn(2, t_len, heads, p, generator=g).to(dtype).to(cuda)
+        dt = torch.nn.functional.softplus(torch.randn(2, t_len, heads, generator=g) - 1).to(cuda)
+        a = -torch.exp(torch.randn(heads, generator=g) * 0.5).to(cuda)
+        bm, cm = ((torch.randn(2, t_len, groups, n, generator=g) * 0.3).to(dtype).to(cuda)
+                  for _ in range(2))
+        s0 = (torch.randn(2, heads, p, n, generator=g) * 0.3).to(cuda) if nonzero else None
+        before = ssd_scan.launches
+        y, s_f = ssd_scan(x, dt, a, bm, cm, s0, chunk=64)
+        y_p, s_p = ssd_chunked(x, dt, a, bm, cm, s0, chunk=64)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        torch.testing.assert_close(y.float(), y_p.float(), **_tol(dtype, 2e-4))
+        torch.testing.assert_close(s_f, s_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name,fixture", [("smollm-360m", "torch_port_lm_smollm.npz"),
+                                          ("mamba2-130m", "torch_port_lm_mamba2.npz")])
+def test_lm_engine_on_card_matches_golden(cuda, name, fixture):
+    from pathlib import Path
+
+    from test_torch_lm_golden import N_NEW, PROMPT
+
+    from repro_torch.convert import unflatten
+
+    with np.load(Path(__file__).parent / "data" / fixture) as data:
+        gold = {k: data[k] for k in data.files}
+    cfg = get_arch(name).reduced()
+    eng = LmEngine(lm_params_from_numpy(unflatten(gold), cuda), cfg, max_len=PROMPT + N_NEW)
+    pre, steps = eng.teacher_forced(gold["prompt"], gold["tokens"])
+    np.testing.assert_allclose(pre.cpu().numpy(), gold["prefill_logits"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(steps.cpu().numpy(), gold["decode_logits"], rtol=1e-4, atol=1e-4)
+    want = {"decode_attn": cfg.n_layers * (N_NEW - 1), "ssd_scan": 0}
+    if cfg.family == "ssm":
+        want = {"decode_attn": 0, "ssd_scan": cfg.n_layers}
+    assert eng.launches == want
+    np.testing.assert_array_equal(eng.generate(gold["prompt"], N_NEW), gold["tokens"])

@@ -41,7 +41,15 @@ def test_import_loads_no_jax_and_no_reference():
                  "repro_torch.kernels.lstm_scan.lstm_scan", "repro_torch.kernels.lstm_scan.ops",
                  "repro_torch.serve.server", "repro_torch.serve.health",
                  "repro_torch.serve.latency", "repro_torch.data.gw",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.configs.registry",
+                 "repro_torch.configs.base", "repro_torch.configs.smollm_360m",
+                 "repro_torch.configs.mamba2_130m", "repro_torch.data.lm",
+                 "repro_torch.models.layers", "repro_torch.models.flash_attention",
+                 "repro_torch.models.transformer", "repro_torch.models.ssm",
+                 "repro_torch.models.api", "repro_torch.kernels.decode_attn.decode_attn",
+                 "repro_torch.kernels.decode_attn.ops", "repro_torch.kernels.decode_attn.ref",
+                 "repro_torch.kernels.ssd_scan.ssd_scan", "repro_torch.kernels.ssd_scan.ops",
+                 "repro_torch.kernels.ssd_scan.ref"):
         assert name in report["modules"]
 
 

@@ -115,7 +115,7 @@ def test_cli_plan_only(capsys):
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--mode", "lm"], "item 13"),
+    (["--mode", "lm", "--arch", "hymba-1.5b", "--device", "cpu"], "item 13"),
     (BASE + ["--placement", "sharded"], "item 10"),
     (BASE + ["--tune", "cached"], "items 8 and 9"),
     (BASE + ["--weight-dtypes", "int8,fp32"], "item 8"),
