@@ -77,9 +77,28 @@ __device__ __forceinline__ float act_quant(float x, int bits) {
   return clip(__fdiv_rn(rintf(mul(x, scale)), scale), lo, hi);
 }
 
+// The activation of one gate pre-activation, by gate (0 i, 1 f, 2 g, 3 o):
+// sigma for i, f and o, tanh for g.
+__device__ __forceinline__ float gate_act(float x, int gate, int act) {
+  return gate == 2 ? tanh_act(x, act) : sigma(x, act);
+}
+
+// The fp32 cell of one element from its activated gates, *cp updated in
+// place.  Returns the new h, fake-quantized when act_bits != 0 and rounded
+// to the compute dtype.
+template <typename CT>
+__device__ __forceinline__ float cell_update(float ig, float fg, float gg, float og, float* cp,
+                                             int act, int act_bits) {
+  const float c = add(mul(fg, *cp), mul(ig, gg));
+  float h = mul(og, tanh_act(c, act));
+  if (act_bits) h = act_quant(h, act_bits);
+  *cp = c;
+  return round_to<CT>(h);
+}
+
 // The cell tail of one element: gate pre-activations g[0..4W) of one row
-// ([i|f|g|o]), element k, fp32 cell *cp updated in place.  Returns the new
-// h, fake-quantized when act_bits != 0 and rounded to the compute dtype.
+// ([i|f|g|o]), element k, fp32 cell *cp updated in place.  The same
+// operations as gate_act on each gate, then cell_update.
 template <typename CT>
 __device__ __forceinline__ float cell_tail(const float* g, int W, int k, float* cp,
                                            int act, int act_bits) {
@@ -87,11 +106,7 @@ __device__ __forceinline__ float cell_tail(const float* g, int W, int k, float* 
   const float fg = sigma(g[W + k], act);
   const float gg = tanh_act(g[2 * W + k], act);
   const float og = sigma(g[3 * W + k], act);
-  const float c = add(mul(fg, *cp), mul(ig, gg));
-  float h = mul(og, tanh_act(c, act));
-  if (act_bits) h = act_quant(h, act_bits);
-  *cp = c;
-  return round_to<CT>(h);
+  return cell_update<CT>(ig, fg, gg, og, cp, act, act_bits);
 }
 
 __device__ void copy_to_smem(void* dst, const void* src, size_t bytes) {

@@ -46,6 +46,7 @@
 // wgmma, persistent CTAs and CUDA graphs are left for later work.
 
 #include "lstm_cell.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -152,11 +153,13 @@ __global__ void __launch_bounds__(1024) lstm_scan_kernel(const ScanArgs a) {
 }
 
 template <typename CT, typename WT, bool kRaw>
+struct Instance {};  // one shared-memory table each
+
+template <typename CT, typename WT, bool kRaw>
 cudaError_t launch(const ScanArgs& a, cudaStream_t stream) {
   const size_t smem = scan_layout(a.H, kRaw ? a.IN : 0, a.rows, sizeof(WT)).total;
   auto kernel = lstm_scan_kernel<CT, WT, kRaw>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = set_smem_once<Instance<CT, WT, kRaw>>(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + a.rows - 1) / a.rows);
   kernel<<<grid, 4 * a.H, smem, stream>>>(a);

@@ -10,39 +10,63 @@
 //     kernel.  It takes the raw chunk (B, T, W) and computes layer 0's
 //     projection in-kernel, rounded to the compute dtype as the reference's
 //     hoisted `(x @ W_x[0]).astype(f32)` is.
-// Both run one shared cell body (../../csrc/lstm_cell.cuh, shared with the
-// per-layer lstm_scan kernel) and differ only in where layer 0's gate
-// input comes from.
+// Both are one template (kStep) over one shared cell body
+// (../../csrc/lstm_cell.cuh, shared with the per-layer lstm_scan kernel)
+// and differ only in where layer 0's gate input comes from.
 //
 // What bounds them on this card.  At the GW nominal shapes (L=2, W=32,
 // T=100, B <= 64) a call moves a few MB and does ~0.2 GFLOP: the bytes and
 // FLOP bounds are a few microseconds.  The kernels are bound instead by
-// the dependency chain of T*L cells, each of which needs the previous
-// cell's h, and, at B=1 and T=1, by launch latency.  Per cell a thread
-// runs two W-long chains of dependent fp32 adds, two block barriers and
-// the transcendental tail.
+// the dependency chain of the recurrence: every step needs the previous
+// step's h, and each gate column is a W-long chain of dependent fp32 adds
+// (the order the bit-for-bit contract fixes), then a barrier, the
+// transcendental, the cell and a barrier.  At B=1 and T=1, launch latency.
 //
 // What the design does about it.
-//   * One CTA per block of `rows` batch rows (default 1) runs the whole
-//     time loop, layers ascending inside each timestep: the TPU's
-//     sequential grid axis becomes a loop inside the CTA.  Independent rows
-//     are independent chains on different SMs.
-//   * All L layers' W_x/W_h sit in dynamic shared memory at their storage
-//     dtype (fp32, bf16 or int8 codes), loaded once per CTA and cast on
-//     use; h (rounded to the compute dtype) and the fp32 cell c of every
-//     layer stay in shared memory.  Nothing recurrent touches device
-//     memory.
-//   * blockDim = 4W: one thread per gate column computes that column's
-//     dot products in a fixed sequential order over k.  After a barrier,
-//     threads take the sigma/tanh tail element by element.
+//   * A wavefront across layers, as the TPU kernel runs it: at step s,
+//     layer l computes timestep t = s - l, and every layer with t in
+//     [0, T) runs in the same phase.  Each layer's h is double-buffered in
+//     shared memory: step s reads buffer s & 1 (h of every layer after step
+//     s - 1) and writes buffer (s + 1) & 1, which is the TPU kernel's
+//     reverse-order layer loop as a ping-pong.  T + L - 1 steps, where a
+//     time loop with the layers inside took T * L (of two barriers each).
+//     blockDim is L * 4W (256 at L=2, W=32); where that exceeds 1024,
+//     groups of layers take turns inside a step, on the same buffers, so
+//     the bits do not change.
+//   * Two paths.  At W = 32 while L * 4W <= 256 (gw_nominal's encoder and
+//     decoder packs: L = 2, W = 32) W is a compile-time constant, the k
+//     loops unroll, and each thread keeps the W_x and W_h columns of its
+//     gate column in registers as fp32 (2W values), loaded once, and loads
+//     the h rows it needs into registers before each dot product.  Every
+//     other shape (gw_small's W = 9, more layers) runs at run-time width
+//     with the packed weights in shared memory: the same operations in the
+//     same order.  h is read by broadcast from shared memory.
+//   * The thread that owns a gate column applies that gate's activation
+//     right after its dot product (sigma for i, f, o; tanh for g).  On the
+//     register path a warp holds all four gates of 8 elements (lane =
+//     8 * gate + element % 8): shuffles bring f, g and o to the lane of
+//     gate i, which does only c = f*c + i*g, tanh(c), the fake-quant and
+//     the rounding, so a step has one barrier (h visible to every layer).
+//     The run-time-width path hands the gates over in shared memory: two
+//     barriers per step.
+//   * Layer 0's input of step s + 1 (a row of xw0, or of the raw chunk) is
+//     copied at the start of step s into a double-buffered shared row,
+//     by cp.async for fp32 rows (through registers for bf16 chunks), and
+//     waited for before the step's last barrier: off the critical path.
+//   * One CTA per block of `rows` batch rows (default 1); the weights, b,
+//     the scales and every layer's h and c stay on chip for the whole call.
 //   * Every operation is a single IEEE fp32 operation (__fmul_rn and
 //     __fadd_rn never contract into FMAs) in the order of the plain
 //     PyTorch versions (ref.py, step.py), so kernel and plain version agree
-//     bit for bit; a row's result does not depend on the batch size or on
-//     how rows are grouped into CTAs.
-// wgmma, TMA and persistent scheduling are left for later work.
+//     bit for bit; a row's result does not depend on the batch size, on how
+//     rows are grouped into CTAs, or on which path a width takes.
+//   * cudaFuncSetAttribute runs once per instantiation and size
+//     (smem_attr.cuh), not on every launch.
+// wgmma and TMA are left out: the products are (rows x W) . (W x 4W) per
+// step, a few hundred multiply-adds per thread on the critical path.
 
 #include "lstm_cell.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -60,150 +84,372 @@ struct Args {
   int T, B, L, W, rows, act, act_bits;
 };
 
+constexpr int kMaxThreads = 1024;  // per CTA, weights in shared memory
+constexpr int kRegThreads = 256;   // per CTA, weights and h in registers (<= 255 each)
+constexpr int kPrefetch = 2;       // bf16 layer-0 inputs of the next step a thread loads ahead
+
+constexpr int kRegW = 32;          // the width whose weights live in registers
+
+// Whether a thread's columns of W_x and W_h live in registers (the width the
+// GW configs pack to, all layers at once) or in shared memory.
+__host__ __device__ inline bool in_regs(int L, int W) {
+  return W == kRegW && L * 4 * W <= kRegThreads;
+}
+
+// Layers whose threads run at once: all L, or as many as a CTA holds (the
+// others take turns inside each step).
+__host__ __device__ inline int layers_at_once(int L, int W) {
+  const int cap = (in_regs(L, W) ? kRegThreads : kMaxThreads) / (4 * W);
+  return L < cap ? L : cap;
+}
+
 // Byte offsets of the dynamic shared-memory carve-up.
 struct Layout {
-  size_t wx, wh, b, scales, h, c, gates, total;
+  size_t wx, wh, b, scales, h, c, gates, in, total;
 };
 
-__host__ __device__ inline Layout smem_layout(int L, int W, int rows, int w_bytes) {
+__host__ __device__ inline Layout smem_layout(int L, int W, int rows, int w_bytes, bool step) {
   Layout s;
-  const size_t w = align16(size_t(L) * W * 4 * W * w_bytes);
+  const size_t W4 = 4 * size_t(W);
+  const size_t w = in_regs(L, W) ? 0 : align16(size_t(L) * W * W4 * w_bytes);
   s.wx = 0;
   s.wh = w;
   s.b = 2 * w;
-  s.scales = s.b + align16(size_t(L) * 4 * W * sizeof(float));
+  s.scales = s.b + align16(size_t(L) * W4 * sizeof(float));
   s.h = s.scales + align16(size_t(L) * 8 * sizeof(float));
-  s.c = s.h + align16(size_t(L) * rows * W * sizeof(float));
+  s.c = s.h + align16(2 * size_t(L) * rows * W * sizeof(float));     // two buffers
   s.gates = s.c + align16(size_t(L) * rows * W * sizeof(float));
-  s.total = s.gates + align16(size_t(rows) * 4 * W * sizeof(float));
+  s.in = s.gates + align16(size_t(L) * rows * W4 * sizeof(float));
+  s.total = s.in + align16(2 * size_t(rows) * (step ? W : W4) * sizeof(float));  // two buffers
   return s;
+}
+
+// sum_k h[k] * w[k], sequential over k, one rounded multiply and one
+// rounded add per term (the plain versions' seq_dot).  h is a shared row
+// of fp32, read by broadcast.  dot2_regs runs two such sums (x . w_x and
+// h . w_h) interleaved: two independent chains, each in its own order, so
+// that one hides the other's latency.  The register forms load every
+// element of the shared row(s) first, 16 bytes at a time, so that the
+// loads overlap one another and the add chain never waits on one.
+template <int kW>
+__device__ __forceinline__ void load_row(const float* h, float (&v)[kW]) {
+#pragma unroll
+  for (int k = 0; k < kW; k += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(h + k);
+    v[k] = q.x;
+    v[k + 1] = q.y;
+    v[k + 2] = q.z;
+    v[k + 3] = q.w;
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ float dot_regs(const float* h, const float (&w)[kW]) {
+  float hv[kW];
+  load_row<kW>(h, hv);
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) acc = add(acc, mul(hv[k], w[k]));
+  return acc;
+}
+
+template <int kW>
+__device__ __forceinline__ void dot2_regs(const float* x, const float (&wx)[kW], const float* h,
+                                          const float (&wh)[kW], float& gx, float& hh) {
+  float xv[kW], hv[kW];
+  load_row<kW>(x, xv);
+  load_row<kW>(h, hv);
+  float ax = 0.0f, ah = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    ax = add(ax, mul(xv[k], wx[k]));
+    ah = add(ah, mul(hv[k], wh[k]));
+  }
+  gx = ax;
+  hh = ah;
+}
+
+template <typename WT>
+__device__ __forceinline__ float dot_flat(const float* h, const WT* col, int W, int W4) {
+  float acc = 0.0f;
+  for (int k = 0; k < W; ++k) acc = add(acc, mul(h[k], to_f(col[size_t(k) * W4])));
+  return acc;
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Column j of layer l's W_h dotted with the shared row h (hh), and, where
+// x is given, column j of W_x with x (gx).
+template <typename WT, int kW, int kR>
+__device__ __forceinline__ void col_dots(const float* x, const float (&wxr)[kR], const WT* wx_s,
+                                         const float* h, const float (&whr)[kR], const WT* wh_s,
+                                         int l, int j, int W, float& gx, float& hh) {
+  if constexpr (kW > 0) {
+    if (x != nullptr) {
+      dot2_regs<kW>(x, wxr, h, whr, gx, hh);
+    } else {
+      hh = dot_regs<kW>(h, whr);
+    }
+  } else {
+    const size_t col = size_t(l) * W * 4 * W + j;
+    hh = dot_flat(h, wh_s + col, W, 4 * W);
+    if (x != nullptr) gx = dot_flat(x, wx_s + col, W, 4 * W);
+  }
 }
 
 // CT: compute dtype of h and of the step kernel's input (float or bf16).
 // WT: weight storage dtype (float, bf16 or int8 codes).
 // kStep: false = wavefront kernel (xw0 input), true = step kernel (raw chunk).
-template <typename CT, typename WT, bool kStep>
-__global__ void __launch_bounds__(1024) lstm_stack_kernel(const Args a) {
+// kW: kRegW (weights in registers, W at compile time) or 0 (weights in
+// shared memory, W at run time).
+template <typename CT, typename WT, bool kStep, int kW>
+__global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads)
+lstm_stack_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = a.L, W = a.W, W4 = 4 * a.W, R = a.rows, T = a.T, B = a.B;
-  const Layout lay = smem_layout(L, W, R, sizeof(WT));
+  const int L = a.L, W = kW > 0 ? kW : a.W, W4 = 4 * W, R = a.rows, T = a.T, B = a.B;
+  const int IN = kStep ? W : W4;  // layer 0's input per row and step
+  // fp32 input rows are copied by cp.async, 4 bytes per element
+  constexpr bool kAsyncIn = !kStep || sizeof(CT) == 4;
+  const Layout lay = smem_layout(L, W, R, sizeof(WT), kStep);
   WT* wx_s = reinterpret_cast<WT*>(smem + lay.wx);
   WT* wh_s = reinterpret_cast<WT*>(smem + lay.wh);
   float* b_s = reinterpret_cast<float*>(smem + lay.b);
   float* sc_s = reinterpret_cast<float*>(smem + lay.scales);
-  float* h_s = reinterpret_cast<float*>(smem + lay.h);      // [L][R][W]
+  float* h_s = reinterpret_cast<float*>(smem + lay.h);      // [2][L][R][W]
   float* c_s = reinterpret_cast<float*>(smem + lay.c);      // [L][R][W]
-  float* g_s = reinterpret_cast<float*>(smem + lay.gates);  // [R][4W]
+  float* g_s = reinterpret_cast<float*>(smem + lay.gates);  // [L][R][4W], activated
+  float* in_s = reinterpret_cast<float*>(smem + lay.in);    // [2][R][IN]
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
   const int row0 = blockIdx.x * R;
   const int nrows = min(R, B - row0);
+  const int nl = nthreads / W4;  // layers whose threads run at once
+  const int lt = tid / W4;       // this thread's (first) layer
+  // the gate column j this thread owns.  On the register path a warp
+  // holds all four gates of 8 elements: lane = 8 * gate + element % 8, so
+  // the gates of one element meet by shuffles; at run-time widths column j
+  // is thread j of the layer and the gates meet in shared memory
+  constexpr bool kWarpCell = kW > 0;
+  const int lane = tid & 31;
+  const int kq = kWarpCell ? ((tid - lt * W4) >> 5) * 8 + (lane & 7) : 0;  // element
+  const int gate = kWarpCell ? lane >> 3 : (tid - lt * W4) / W;
+  const int j = kWarpCell ? gate * W + kq : tid - lt * W4;
 
-  const size_t w_bytes = size_t(L) * W * W4 * sizeof(WT);
-  copy_to_smem(wx_s, a.w_x, w_bytes);
-  copy_to_smem(wh_s, a.w_h, w_bytes);
+  // weights: registers (the one layer of this thread), or shared memory
+  constexpr int kR = kW > 0 ? kW : 1;
+  float wxr[kR], whr[kR];
+  if constexpr (kW > 0) {
+    const WT* gx = static_cast<const WT*>(a.w_x) + size_t(lt) * W * W4 + j;
+    const WT* gh = static_cast<const WT*>(a.w_h) + size_t(lt) * W * W4 + j;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      wxr[k] = to_f(gx[size_t(k) * W4]);
+      whr[k] = to_f(gh[size_t(k) * W4]);
+    }
+  } else {
+    const size_t w_bytes = size_t(L) * W * W4 * sizeof(WT);
+    copy_to_smem(wx_s, a.w_x, w_bytes);
+    copy_to_smem(wh_s, a.w_h, w_bytes);
+  }
   copy_to_smem(b_s, a.b, size_t(L) * W4 * sizeof(float));
   if (a.scales != nullptr) {
     copy_to_smem(sc_s, a.scales, size_t(L) * 8 * sizeof(float));
   } else {  // unquantized packs: x * 1.0f is exact, one code path for all
-    for (int i = tid; i < L * 8; i += blockDim.x) sc_s[i] = 1.0f;
+    for (int i = tid; i < L * 8; i += nthreads) sc_s[i] = 1.0f;
   }
+  const size_t hbuf = size_t(L) * R * W;  // floats of one h buffer
   const CT* h0 = static_cast<const CT*>(a.h0);
-  for (int i = tid; i < L * nrows * W; i += blockDim.x) {
+  for (int i = tid; i < L * nrows * W; i += nthreads) {
     const int l = i / (nrows * W), r = (i / W) % nrows, k = i % W;
     const size_t g = (size_t(l) * B + row0 + r) * W + k;
-    h_s[(l * R + r) * W + k] = to_f(h0[g]);
-    c_s[(l * R + r) * W + k] = a.c0[g];
+    const size_t o = (size_t(l) * R + r) * W + k;
+    h_s[o] = h_s[hbuf + o] = to_f(h0[g]);  // a layer reads h0 until its first step
+    c_s[o] = a.c0[g];
   }
-  __syncthreads();
-
-  const int j = tid;  // the gate column this thread owns in phase 1
-  const int gate = j / W;
-  CT* hs = static_cast<CT*>(a.hs);
-  for (int t = 0; t < T; ++t) {
-    for (int l = 0; l < L; ++l) {
-      // phase 1: gate pre-activations, one column per thread
-      const WT* wx_col = wx_s + size_t(l) * W * W4 + j;
-      const WT* wh_col = wh_s + size_t(l) * W * W4 + j;
-      const float s_x = sc_s[l * 8 + gate];
-      const float s_h = sc_s[l * 8 + 4 + gate];
-      const float bias = b_s[l * W4 + j];
-      for (int r = 0; r < nrows; ++r) {
-        const float* h_own = h_s + (l * R + r) * W;
-        float gx = 0.0f, hh = 0.0f;
-        if (!kStep && l == 0) {
-          // streamed mvm_x: scales and bias were applied outside
-          for (int k = 0; k < W; ++k) hh = add(hh, mul(h_own[k], to_f(wh_col[k * W4])));
-          gx = static_cast<const float*>(a.x)[(size_t(t) * B + row0 + r) * W4 + j];
-          g_s[r * W4 + j] = add(gx, mul(hh, s_h));
-          continue;
-        }
-        if (l == 0) {
-          const CT* x_row = static_cast<const CT*>(a.x) + (size_t(row0 + r) * T + t) * W;
-          for (int k = 0; k < W; ++k) {
-            gx = add(gx, mul(to_f(x_row[k]), to_f(wx_col[k * W4])));
-            hh = add(hh, mul(h_own[k], to_f(wh_col[k * W4])));
-          }
-          gx = round_to<CT>(gx);
-        } else {
-          const float* h_in = h_s + ((l - 1) * R + r) * W;
-          for (int k = 0; k < W; ++k) {
-            gx = add(gx, mul(h_in[k], to_f(wx_col[k * W4])));
-            hh = add(hh, mul(h_own[k], to_f(wh_col[k * W4])));
-          }
-        }
-        // per-gate tail order of both reference kernels: (gx*s_x + b) + hh*s_h
-        g_s[r * W4 + j] = add(add(mul(gx, s_x), bias), mul(hh, s_h));
-      }
-      __syncthreads();
-      // phase 2: activations and the fp32 cell, one element per thread
-      for (int i = tid; i < nrows * W; i += blockDim.x) {
-        const int r = i / W, k = i % W;
-        const float h = cell_tail<CT>(g_s + r * W4, W, k, c_s + (l * R + r) * W + k,
-                                      a.act, a.act_bits);
-        h_s[(l * R + r) * W + k] = h;
-        if (l == L - 1) {
-          const size_t o = kStep ? (size_t(row0 + r) * T + t) * W + k
-                                 : (size_t(t) * B + row0 + r) * W + k;
-          hs[o] = from_f<CT>(h);
-        }
-      }
-      __syncthreads();
+  // layer 0's input of timestep t, element i of the CTA's rows: at
+  // in_off(i) + t * in_step
+  const size_t in_step = kStep ? size_t(W) : size_t(B) * W4;
+  auto in_off = [&](int i) -> size_t {
+    const int r = i / IN, e = i - r * IN;
+    return kStep ? size_t(row0 + r) * T * W + e : size_t(row0 + r) * W4 + e;
+  };
+  auto load_at = [&](size_t off) -> float {
+    if constexpr (kStep) {
+      return to_f(static_cast<const CT*>(a.x)[off]);
+    } else {
+      return static_cast<const float*>(a.x)[off];
     }
+  };
+  auto load_in = [&](int t, int i) { return load_at(in_off(i) + t * in_step); };
+  for (int i = tid; i < nrows * IN; i += nthreads) in_s[i] = load_in(0, i);
+  __syncthreads();
+  // with weights in registers a thread has one layer: its scales and bias
+  // stay in registers too
+  const float s_x0 = sc_s[lt * 8 + gate], s_h0 = sc_s[lt * 8 + 4 + gate];
+  const float bias0 = b_s[lt * W4 + j];
+
+  CT* hs = static_cast<CT*>(a.hs);
+  for (int s = 0; s < T + L - 1; ++s) {
+    const float* h_rd = h_s + (s & 1) * hbuf;
+    float* h_wr = h_s + ((s + 1) & 1) * hbuf;
+    const float* in_rd = in_s + (s & 1) * R * IN;
+    // layer 0's input of the next step, into the other buffer (its last
+    // reads were in step s - 1, before the barrier that ended it): fp32
+    // rows by cp.async now, waited for before this step's last barrier;
+    // bf16 rows into registers now, stored after the cells
+    const bool more = s + 1 < T;
+    float* in_wr = in_s + ((s + 1) & 1) * R * IN;
+    float pf[kPrefetch];
+    if constexpr (kAsyncIn) {
+      if (more) {
+        for (int i = tid; i < nrows * IN; i += nthreads) {
+          cp_async4(in_wr + i, static_cast<const float*>(a.x) + in_off(i) + (s + 1) * in_step);
+        }
+      }
+      cp_async_commit();
+    } else {
+#pragma unroll
+      for (int n = 0; n < kPrefetch; ++n) {
+        const int i = tid + n * nthreads;
+        pf[n] = more && i < nrows * IN ? load_in(s + 1, i) : 0.0f;
+      }
+    }
+
+    // layer l on timestep s - l: gate column j's pre-activation of row r
+    auto gate_pre = [&](int l, int r) -> float {
+      const float* h_own = h_rd + (size_t(l) * R + r) * W;
+      const bool streamed = !kStep && l == 0;  // mvm_x applied outside, with scales and bias
+      const float* x = streamed ? nullptr
+                     : l == 0   ? in_rd + r * W
+                                : h_rd + (size_t(l - 1) * R + r) * W;
+      float gx = 0.0f, hh;
+      col_dots<WT, kW>(x, wxr, wx_s, h_own, whr, wh_s, l, j, W, gx, hh);
+      const float s_h = kW > 0 ? s_h0 : sc_s[l * 8 + 4 + gate];
+      if (streamed) return add(in_rd[r * W4 + j], mul(hh, s_h));
+      if (kStep && l == 0) gx = round_to<CT>(gx);
+      const float s_x = kW > 0 ? s_x0 : sc_s[l * 8 + gate];
+      const float bias = kW > 0 ? bias0 : b_s[l * W4 + j];
+      // per-gate tail order of both reference kernels: (gx*s_x + b) + hh*s_h
+      return add(add(mul(gx, s_x), bias), mul(hh, s_h));
+    };
+    // the cell of element k of (l, r) from its activated gates and its
+    // previous c (loaded early by the caller); c is updated in place
+    auto cell = [&](int l, int r, int k, float ig, float fg, float gg, float og, float& c) {
+      const size_t o = (size_t(l) * R + r) * W + k;
+      const float h = cell_update<CT>(ig, fg, gg, og, &c, a.act, a.act_bits);
+      c_s[o] = c;
+      h_wr[o] = h;
+      if (l == L - 1) {
+        const int t = s - l;
+        const size_t out = kStep ? (size_t(row0 + r) * T + t) * W + k
+                                 : (size_t(t) * B + row0 + r) * W + k;
+        hs[out] = from_f<CT>(h);
+      }
+    };
+
+    if constexpr (kWarpCell) {
+      // one phase, all layers at once (one layer per thread): a warp's
+      // lanes own the four gates of 8 elements; each applies its gate's
+      // activation, shuffles bring f, g and o to the lane of gate i, which
+      // runs the cell
+      const int t = s - lt;
+      if (t >= 0 && t < T) {  // uniform across the warp
+        for (int r = 0; r < nrows; ++r) {
+          float c = c_s[(size_t(lt) * R + r) * W + kq];  // used by the lanes of gate i
+          const float act = gate_act(gate_pre(lt, r), gate, a.act);
+          const float fg = __shfl_sync(0xffffffffu, act, (lane & 7) + 8);
+          const float gg = __shfl_sync(0xffffffffu, act, (lane & 7) + 16);
+          const float og = __shfl_sync(0xffffffffu, act, (lane & 7) + 24);
+          if (gate == 0) cell(lt, r, kq, act, fg, gg, og, c);
+        }
+      }
+    } else {
+      // phase 1: one gate column per thread, its activation applied at once
+      for (int l = lt; l < L; l += nl) {
+        const int t = s - l;
+        if (t < 0 || t >= T) continue;
+        for (int r = 0; r < nrows; ++r) {
+          g_s[(size_t(l) * R + r) * W4 + j] = gate_act(gate_pre(l, r), gate, a.act);
+        }
+      }
+      __syncthreads();
+      // phase 2: the fp32 cell, one element per thread
+      for (int i = tid; i < L * nrows * W; i += nthreads) {
+        const int l = i / (nrows * W), r = (i / W) % nrows, k = i % W;
+        const int t = s - l;
+        if (t < 0 || t >= T) continue;
+        const float* g = g_s + (size_t(l) * R + r) * W4;
+        float c = c_s[(size_t(l) * R + r) * W + k];
+        cell(l, r, k, g[k], g[W + k], g[2 * W + k], g[3 * W + k], c);
+      }
+    }
+    if constexpr (kAsyncIn) {
+      cp_async_wait_all();
+    } else if (more) {
+#pragma unroll
+      for (int n = 0; n < kPrefetch; ++n) {
+        const int i = tid + n * nthreads;
+        if (i < nrows * IN) in_wr[i] = pf[n];
+      }
+      for (int i = tid + kPrefetch * nthreads; i < nrows * IN; i += nthreads) {
+        in_wr[i] = load_in(s + 1, i);
+      }
+    }
+    __syncthreads();
   }
 
+  // layer l's last write went to buffer (l + T) & 1
   CT* h_f = static_cast<CT*>(a.h_f);
-  for (int i = tid; i < L * nrows * W; i += blockDim.x) {
+  for (int i = tid; i < L * nrows * W; i += nthreads) {
     const int l = i / (nrows * W), r = (i / W) % nrows, k = i % W;
     const size_t g = (size_t(l) * B + row0 + r) * W + k;
-    h_f[g] = from_f<CT>(h_s[(l * R + r) * W + k]);
-    a.c_f[g] = c_s[(l * R + r) * W + k];
+    const size_t o = (size_t(l) * R + r) * W + k;
+    h_f[g] = from_f<CT>(h_s[((l + T) & 1) * hbuf + o]);
+    a.c_f[g] = c_s[o];
   }
 }
 
-template <typename CT, typename WT, bool kStep>
+template <typename CT, typename WT, bool kStep, int kW>
+struct Instance {};  // one shared-memory table each
+
+template <typename CT, typename WT, bool kStep, int kW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_layout(a.L, a.W, a.rows, sizeof(WT)).total;
-  auto kernel = lstm_stack_kernel<CT, WT, kStep>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const size_t smem = smem_layout(a.L, a.W, a.rows, sizeof(WT), kStep).total;
+  auto kernel = lstm_stack_kernel<CT, WT, kStep, kW>;
+  cudaError_t err = set_smem_once<Instance<CT, WT, kStep, kW>>(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + a.rows - 1) / a.rows);
-  kernel<<<grid, 4 * a.W, smem, stream>>>(a);
+  kernel<<<grid, layers_at_once(a.L, a.W) * 4 * a.W, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename CT, typename WT, bool kStep>
+cudaError_t by_width(const Args& a, cudaStream_t s) {
+  if (in_regs(a.L, a.W)) return launch<CT, WT, kStep, kRegW>(a, s);
+  return launch<CT, WT, kStep, 0>(a, s);
 }
 
 template <bool kStep>
 int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.W < 1 || 4 * a.W > kMaxThreads || a.L < 1 || a.rows < 1) return cudaErrorInvalidValue;
   if (compute_dtype == kF32) {
-    if (weight_dtype == kF32) return launch<float, float, kStep>(a, s);
-    if (weight_dtype == kBF16) return launch<float, __nv_bfloat16, kStep>(a, s);
-    if (weight_dtype == kI8) return launch<float, int8_t, kStep>(a, s);
+    if (weight_dtype == kF32) return by_width<float, float, kStep>(a, s);
+    if (weight_dtype == kBF16) return by_width<float, __nv_bfloat16, kStep>(a, s);
+    if (weight_dtype == kI8) return by_width<float, int8_t, kStep>(a, s);
   } else if (compute_dtype == kBF16) {
     // fp32 storage under bf16 compute is refused before the launch
-    if (weight_dtype == kBF16) return launch<__nv_bfloat16, __nv_bfloat16, kStep>(a, s);
-    if (weight_dtype == kI8) return launch<__nv_bfloat16, int8_t, kStep>(a, s);
+    if (weight_dtype == kBF16) return by_width<__nv_bfloat16, __nv_bfloat16, kStep>(a, s);
+    if (weight_dtype == kI8) return by_width<__nv_bfloat16, int8_t, kStep>(a, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -256,8 +502,15 @@ extern "C" int lstm_stack_step(
   return dispatch<true>(a, compute_dtype, weight_dtype, stream);
 }
 
-// Dynamic shared memory one CTA of either kernel needs.
-extern "C" long long lstm_stack_smem_bytes(int L, int W, int rows, int weight_dtype) {
+// Dynamic shared memory one CTA of either kernel needs (step: 1 for
+// lstm_stack_step, 0 for lstm_stack_wavefront).
+extern "C" long long lstm_stack_smem_bytes(int L, int W, int rows, int weight_dtype, int step) {
   const int w_bytes = weight_dtype == kF32 ? 4 : (weight_dtype == kBF16 ? 2 : 1);
-  return static_cast<long long>(smem_layout(L, W, rows, w_bytes).total);
+  return static_cast<long long>(
+      smem_layout(L, W, rows, w_bytes, step != 0).total);
 }
+
+// Threads of one CTA, and whether the weights live in registers (1) or in
+// shared memory at run-time width (0).
+extern "C" int lstm_stack_threads(int L, int W) { return layers_at_once(L, W) * 4 * W; }
+extern "C" int lstm_stack_weights_in_registers(int L, int W) { return in_regs(L, W); }

@@ -1,12 +1,14 @@
 """Fused multi-layer wavefront LSTM stack: one CUDA launch for L layers.
 
-The paper's coarse-grained pipeline (Sec. III-B/III-D) as one kernel: all L
-layers' W_x and W_h stay resident in shared memory, every layer's h and c
-stay on chip for the whole window, only layer 0's precomputed gate stream
-``xw0`` streams in and only the last layer's hidden sequence streams out.
-Inner layers compute ``h_{l-1} @ W_x[l]`` in-kernel.  The kernel source and
-its design notes are in ``csrc/lstm_stack.cu``; the plain PyTorch version
-of the same function is ``ref.lstm_stack_ref``.
+The paper's coarse-grained pipeline (Sec. III-B/III-D) as one kernel: at
+wavefront step s layer l runs timestep s - l, all layers in the same phase;
+all L layers' W_x and W_h stay on chip (in registers at W = 32 with
+L <= 2, else in shared memory), every layer's h and c stay on chip for the
+whole window, only layer 0's precomputed gate stream ``xw0`` streams in and
+only the last layer's hidden sequence streams out.  Inner layers compute
+``h_{l-1} @ W_x[l]`` in-kernel.  The kernel source and its design notes are
+in ``csrc/lstm_stack.cu``; the plain PyTorch version of the same function
+is ``ref.lstm_stack_ref``.
 
 ``lstm_stack`` runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
@@ -51,8 +53,11 @@ def library():
         fn = getattr(built.lib, name)
         fn.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
         fn.restype = i32
-    built.lib.lstm_stack_smem_bytes.argtypes = [i32] * 4
+    built.lib.lstm_stack_smem_bytes.argtypes = [i32] * 5
     built.lib.lstm_stack_smem_bytes.restype = ctypes.c_longlong
+    for name in ("lstm_stack_threads", "lstm_stack_weights_in_registers"):
+        getattr(built.lib, name).argtypes = [i32] * 2
+        getattr(built.lib, name).restype = i32
     return built
 
 
@@ -111,7 +116,8 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
     if rows < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
     built = library()
-    smem = built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype])
+    smem = built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype],
+                                           int(entry == "lstm_stack_step"))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{entry}: L={n_layers}, W={width} at {w_h.dtype} storage needs "

@@ -46,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -208,11 +210,13 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs a) {
 }
 
 template <typename T>
+struct Instance {};  // one shared-memory table each
+
+template <typename T>
 cudaError_t launch(const SsdArgs& a, cudaStream_t stream) {
   const size_t smem = ssd_layout(a.L, a.P, a.N).total * sizeof(float);
   auto kernel = ssd_scan_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = set_smem_once<Instance<T>>(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<a.B * a.H, kThreads, smem, stream>>>(a);
   return cudaGetLastError();

@@ -6,17 +6,23 @@ Marked ``gpu``: each test skips with a reason where
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Kernel and plain version perform the same fp32 operations in the same
-order, so they are held at rtol/atol 1e-5 (they normally agree exactly).
-The server tests hold the StreamServer on both engines of the card
-(``fused_step`` and ``kernel``) bit-equal to sequential pushes.
+The LSTM kernels K1 and K2 and their plain versions perform the same fp32
+operations in the same order, so they are held bit for bit
+(``torch.equal``), on both of the kernel's paths (W=32 at L <= 2 with the
+weights in registers, every other shape at run-time width), layer counts
+whose threads take turns inside a step, and every storage dtype; K3 is held at rtol/atol
+1e-5 (it normally agrees exactly).  The server tests hold the
+StreamServer on both engines of the card (``fused_step`` and ``kernel``)
+bit-equal to sequential pushes.
 
 The LM kernels K5 (decode attention) and K4 (SSD scan) sum in another order
 than their plain versions (fmaf chains against PyTorch's reductions), so
 they are held at the reference's own tolerances for those kernels: rtol/atol
 2e-5 (K5) and 2e-4 (K4) in fp32.  In bf16 both read the same bf16 inputs,
 compute in fp32 and round once, so they differ by at most one bf16 ulp
-(2^-7 of the value): rtol 8e-3, atol 1e-3.
+(2^-7 of the value): rtol 8e-3, atol 1e-3.  K5 is also held at the edges of
+its splits of ``SPLIT_ROWS`` cache rows, and a row's output must not
+depend on the batch it is served in (bitwise).
 The LM engine runs the reduced golden fixtures on the card with both
 kernels and must match the reference's logits within 1e-4 and its tokens.
 """
@@ -43,6 +49,7 @@ from repro_torch.kernels.lstm_stack.step import lstm_stack_step_plain
 from repro_torch.configs import get_arch
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+from repro_torch.kernels.decode_attn.decode_attn import SPLIT_ROWS
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 from repro_torch.serve.engine import LmEngine, StreamingAnomalyEngine
 from repro_torch.serve.server import ServerConfig, StreamServer
@@ -95,10 +102,10 @@ def test_wavefront_kernel_matches_plain(cuda, wd, acts, act_bits, batch):
                               **_plain_kw(pk, acts, act_bits))
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, **TOL)
+            assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("t_len,batch", [(1, 1), (25, 8), (32, 64)])
+@pytest.mark.parametrize("t_len,batch", [(1, 1), (25, 8), (32, 64), (25, 1), (32, 1)])
 @pytest.mark.parametrize("wd,acts,act_bits", CASES)
 def test_step_kernel_matches_plain(cuda, wd, acts, act_bits, t_len, batch):
     for pk in _packs(cuda, wd):
@@ -112,7 +119,77 @@ def test_step_kernel_matches_plain(cuda, wd, acts, act_bits, t_len, batch):
                                      **_plain_kw(pk, acts, act_bits))
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, **TOL)
+            assert torch.equal(a, b)
+
+
+def _random_stack(n_layers, width, batch, wd, compute, seed):
+    """Random packed weights at storage ``wd`` ((L, W, 4W); int8 codes with
+    per-gate scales), biases and a non-zero state, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (n_layers, width, 4 * width)
+    if wd == "int8":
+        w_x, w_h = (torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+                    for _ in range(2))
+        scales = torch.rand(n_layers, 2, 4, generator=g) * 0.02 + 0.002
+    else:
+        w_x, w_h = ((torch.randn(shape, generator=g) * width**-0.5).to(
+            torch.float32 if wd == "fp32" else torch.bfloat16) for _ in range(2))
+        scales = None
+    b = torch.randn(n_layers, 4 * width, generator=g) * 0.1
+    h0 = (torch.randn(n_layers, batch, width, generator=g) * 0.3).to(compute)
+    c0 = torch.randn(n_layers, batch, width, generator=g) * 0.3
+    return w_x, w_h, b, h0, c0, scales
+
+
+def _hold_k1_k2_bitwise(cuda, n_layers, width, wd, compute, acts, act_bits, t_lens, batches):
+    """K1 (xw0 streamed in) and K2 (raw chunk) against their plain versions
+    with torch.equal over every (T, B)."""
+    for t_len in t_lens:
+        for batch in batches:
+            seed = 1000 * n_layers + 10 * width + t_len + batch
+            w_x, w_h, b, h0, c0, scales = (
+                None if t is None else t.to(cuda)
+                for t in _random_stack(n_layers, width, batch, wd, compute, seed))
+            g = torch.Generator().manual_seed(seed + 1)
+            xw0 = torch.randn(t_len, batch, 4 * width, generator=g).to(cuda)
+            xs = torch.randn(batch, t_len, width, generator=g).to(compute).to(cuda)
+            kw = dict(scales=scales, sigma=acts.sigma, tanh=acts.tanh,
+                      act_quant=make_act_quant(act_bits) if act_bits else None)
+            pairs = [(lstm_stack(xw0, w_x, w_h, b, h0, c0, scales=scales, acts=acts,
+                                 act_bits=act_bits),
+                      lstm_stack_ref(xw0, w_x, w_h, b, h0, c0, **kw))]
+            if t_len * n_layers <= 512:
+                pairs.append((lstm_stack_step(xs, w_x, w_h, b, h0, c0, scales=scales,
+                                              acts=acts, act_bits=act_bits),
+                              lstm_stack_step_plain(xs, w_x, w_h, b, h0, c0, **kw)))
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                for a, b_ in zip(got, want):
+                    assert torch.equal(a, b_), (n_layers, width, wd, t_len, batch)
+
+
+@pytest.mark.parametrize("width", [9, 32, 64])
+@pytest.mark.parametrize("n_layers", [1, 2, 3, 4])
+def test_stack_kernels_bitwise_over_shapes(cuda, n_layers, width):
+    """L in 1..4, W in {9, 32, 64}, T in {1, 2, 100}, B in {1, 64}, fp32
+    compute.  W=32 at L <= 2 keeps its weights in registers; every other
+    shape runs at run-time width from shared memory (W=64 at L=4 fills 1024
+    threads).  W=64 stores int8 codes: its fp32 or bf16 weights fit the 227
+    KB of shared memory at L=1 only."""
+    _hold_k1_k2_bitwise(cuda, n_layers, width, "int8" if width == 64 else "fp32",
+                        torch.float32, EXACT, None, (1, 2, 100), (1, 64))
+
+
+@pytest.mark.parametrize("n_layers,width,wd,compute", [
+    (5, 64, "int8", torch.float32),      # 4 of 5 layers at once
+    (9, 32, "bf16", torch.bfloat16),     # W=32 past the register path: 8 of 9 layers at once
+    (6, 16, "fp32", torch.float32),      # L*4W = 384 threads
+    (1, 128, "int8", torch.bfloat16),    # the widest: 512 threads, int8 fits shared memory
+    (2, 8, "bf16", torch.float32),
+])
+def test_stack_kernels_bitwise_in_turns_and_dtypes(cuda, n_layers, width, wd, compute):
+    _hold_k1_k2_bitwise(cuda, n_layers, width, wd, compute, PAPER_HW_KERNEL, 16,
+                        (1, 37), (1, 3))
 
 
 def test_rows_are_independent_of_batch_grouping(cuda):
@@ -234,6 +311,62 @@ def test_decode_attn_kernel_matches_plain(cuda, hq, hkv, d, dtype):
         torch.cuda.synchronize()
         assert decode_attn.launches == before + 1 and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, 2e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128)])
+def test_decode_attn_kernel_at_split_edges(cuda, hq, hkv, d, dtype):
+    """Lengths one below, at and one above a split, shorter than a split,
+    1 beside a full row, and S not a multiple of SPLIT_ROWS; NaN past every
+    row's length must never be read."""
+    g = torch.Generator().manual_seed(hq * d)
+    s_len = 2 * SPLIT_ROWS + 7
+    lengths = [SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, 5, 1, s_len]
+    batch = len(lengths)
+    q = torch.randn(batch, hq, d, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(batch, s_len, hkv, d, generator=g).to(dtype).to(cuda) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    want = decode_attn_plain(q, k, v, lens)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    got = decode_attn(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, 2e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decode_attn_rows_are_independent_of_the_batch(cuda, dtype):
+    """A row served alone equals the same row in a batch of 8, bitwise
+    (smollm-360m's heads at its serving cache)."""
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(8, 15, 64, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(8, 576, 5, 64, generator=g).to(dtype).to(cuda) for _ in range(2))
+    lens = torch.tensor([576, 513, 1, 64, 65, 300, 128, 575], dtype=torch.int32, device=cuda)
+    whole = decode_attn(q, k, v, lens)
+    for i in range(8):
+        row = decode_attn(q[i : i + 1], k[i : i + 1], v[i : i + 1], lens[i : i + 1])
+        assert torch.equal(row, whole[i : i + 1]), i
+    assert torch.equal(decode_attn(q, k, v, lens), whole)  # and run to run
+
+
+@pytest.mark.parametrize("layout", ["strided", "misaligned"])
+def test_decode_attn_refuses_a_cache_it_would_copy(cuda, layout):
+    """The kernel reads the cache in place by 16-byte copies; a cache that is
+    not contiguous or not 16-byte aligned is refused, never copied."""
+    q = torch.randn(2, 4, 64, device=cuda).to(torch.bfloat16)
+    k = torch.randn(2, 70, 2, 64, device=cuda).to(torch.bfloat16)
+    if layout == "strided":
+        bad = torch.randn(2, 70, 2, 128, device=cuda).to(torch.bfloat16)[..., :64]
+    else:
+        bad = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].view(k.shape)
+    lens = torch.tensor([70, 5], dtype=torch.int32, device=cuda)
+    before = decode_attn.launches
+    for args in ((q, bad, k, lens), (q, k, bad, lens)):
+        with pytest.raises(ValueError, match="contiguous and 16-byte aligned"):
+            decode_attn(*args)
+    assert decode_attn.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

@@ -1,12 +1,14 @@
 """Decode attention (K5) against the reference, on the CPU.
 
 The port's ``decode_attn_op`` runs its plain version here
-(``decode_attn_plain``, the CUDA kernel's order: q scaled first, an fp32
-online softmax over blocks of ``BLOCK_S`` rows).  It is held to the
-reference's Pallas ``decode_attn_op`` in interpret mode and to its oracle
-``decode_attn_ref``, with inputs made by numpy from a seed, over the head
-geometries of every dense config, cache lengths that are not a multiple of
-either package's block, and ragged per-row lengths down to 1.  Tolerances
+(``decode_attn_plain``, the CUDA kernel's arithmetic: q scaled first, an
+fp32 softmax partial per split of ``SPLIT_ROWS`` cache rows, the partials
+combined in split order).  It is held to the reference's Pallas
+``decode_attn_op`` in interpret mode and to its oracle ``decode_attn_ref``,
+with inputs made by numpy from a seed, over the head geometries of every
+dense config, cache lengths that are not a multiple of either package's
+block, lengths at the edges of a split, and ragged per-row lengths down to
+1.  Tolerances
 are the reference's own for this kernel (``tests/test_ssd_decode_kernels.py``):
 rtol/atol 2e-5 in fp32 (the two packages sum the scores and the softmax in
 other orders) and 0.03 in bf16 (one rounding of the output to bf16).
@@ -27,7 +29,11 @@ from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attn_plain,
     decode_attn_ref,
 )
-from repro_torch.kernels.decode_attn.decode_attn import BLOCK_S  # noqa: E402
+from repro_torch.kernels.decode_attn.decode_attn import (  # noqa: E402
+    BLOCK_S,
+    SPLIT_ROWS,
+    n_splits,
+)
 
 r_ref = jax.jit(_r_ref)  # op-by-op dispatch takes several times longer
 
@@ -75,6 +81,50 @@ def test_lengths_at_block_edges(s, lengths):
     got = decode_attn_op(*port)
     np.testing.assert_allclose(_np(got), _np(r_ref(*ref)), **TOL["fp32"])
     np.testing.assert_allclose(_np(got), _np(decode_attn_ref(*port)), **TOL["fp32"])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("s,lengths", [
+    # one below, at and one above a split
+    (SPLIT_ROWS + 1, [SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1]),
+    # shorter than one split, in a cache of one split
+    (SPLIT_ROWS, [5, SPLIT_ROWS - 1, 2]),
+    # S not a multiple of SPLIT_ROWS; a row of length 1 beside a full one
+    (2 * SPLIT_ROWS + 7, [2 * SPLIT_ROWS + 7, 1, SPLIT_ROWS + 3]),
+])
+def test_lengths_at_split_edges(s, lengths, dtype):
+    ref, port = _inputs(s + len(lengths), len(lengths), s, 6, 2, 16, lengths, dtype)
+    got = decode_attn_op(*port)
+    assert got.dtype == port[0].dtype and got.shape == (len(lengths), 6, 16)
+    np.testing.assert_allclose(_np(got), _np(r_op(*ref, block_s=32, interpret=True)),
+                               **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(r_ref(*ref)), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(decode_attn_ref(*port)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("lengths", [[SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, 1],
+                                     [3, 2 * SPLIT_ROWS + 5, 2 * SPLIT_ROWS, SPLIT_ROWS + 2]])
+def test_nan_past_every_length_is_never_read(lengths):
+    """NaN in K and V past every row's length, at the split edges: the
+    output is finite and equal, bit for bit, to the output without it."""
+    s = 2 * SPLIT_ROWS + 5
+    _, (q, k, v, lens) = _inputs(7, len(lengths), s, 6, 3, 16, lengths, "fp32")
+    want = decode_attn_plain(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:] = float("nan")
+        v2[b, n:] = float("nan")
+    got = decode_attn_plain(q, k2, v2, lens)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_splits_are_a_fixed_number_of_rows():
+    """The split is a constant number of cache rows (a row's output must not
+    depend on the batch it is served in), staged in blocks of BLOCK_S."""
+    assert SPLIT_ROWS % BLOCK_S == 0
+    assert [n_splits(s) for s in (1, SPLIT_ROWS, SPLIT_ROWS + 1, 576)] == \
+        [1, 1, 2, -(-576 // SPLIT_ROWS)]
 
 
 def test_rows_past_the_length_are_never_read():
