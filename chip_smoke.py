@@ -41,6 +41,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,6 +67,13 @@ LM_GOLDEN_TOL = dict(rtol=1e-4, atol=1e-4)  # reduced fp32 logits vs the referen
 #: (2^-7 of the value) where the fp32 results straddle a rounding point
 K5_TOL, K4_TOL = 2e-5, 2e-4
 BF16_TOL = dict(rtol=8e-3, atol=1e-3)
+#: of K4's bf16 y elements that differ from the plain version's (by one
+#: ulp), the largest share that may lie toward zero: two fp32 summation
+#: orders round apart either way alike, a sum that loses its low bits
+#: toward zero (the tensor cores' accumulation) leans one way, and every
+#: later layer of a bf16 model carries that lean on; it is counted over
+#: at least K4_LEAN_MIN differing elements
+K4_LEAN_MAX, K4_LEAN_MIN = 0.55, 500
 #: dense head geometries (Hq, Hkv, D): smollm-360m, granite-3-2b, qwen1.5-4b, yi-9b
 K5_GEOMETRIES = ((15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128))
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
@@ -79,9 +87,13 @@ K5_COPIES = 12
 #: length moves logits by their own size
 LM_TF_TOL = 0.05
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): the kernels run on the fp32
-#: CUDA cores, not the tensor cores
+#: H100 SXM peaks (NVIDIA data sheet, dense).  A bound counts each
+#: kernel's work at the peak of the unit that type of work can run on,
+#: whatever a kernel uses: fp32 arithmetic (the LSTM kernels, K5, K4's fp32
+#: instantiation) at the fp32 CUDA-core peak, bf16 products with fp32
+#: sums (K4's bf16 instantiation) at the bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -453,10 +465,12 @@ def ssd_bound(batch: int, t_len: int, heads: int, groups: int, p: int, n: int, c
               itemsize: int, with_s0: bool) -> tuple[float, str]:
     """Least time the card needs for one K4 call: bytes (x, B, C at the
     model dtype, dt and a fp32, s0 if given, read once; y and the fp32 final
-    state written once) over the memory rate vs the fp32 operations of the
+    state written once) over the memory rate vs the operations of the
     chunked algorithm (2 per multiply-add of C.B over the lower triangle, of
     M @ X, of (C exp(cum)) @ S^T and of xw^T @ B, 2 per state element for
-    the decay and the add) over the fp32 peak; returns (ms, "bytes"|"operations")."""
+    the decay and the add) over the peak for the model dtype: bf16 inputs
+    at the bf16 tensor-core peak, fp32 inputs at the fp32 peak; returns
+    (ms, "bytes"|"operations")."""
     n_bytes = (2 * batch * t_len * heads * p + 2 * batch * t_len * groups * n) * itemsize \
         + batch * t_len * heads * 4 + heads * 4 + (2 if with_s0 else 1) * batch * heads * p * n * 4
     ops = 0
@@ -465,8 +479,36 @@ def ssd_bound(batch: int, t_len: int, heads: int, groups: int, p: int, n: int, c
         tri = lc * (lc + 1) // 2
         ops += 2 * tri * n + 2 * tri * p + 4 * lc * p * n + 2 * p * n
     ops *= batch * heads
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, stack frame and spills of each kernel in an ``nvcc -Xptxas
+    -v`` log: [{"kernel", "registers", "stack_frame", "spill_stores",
+    "spill_loads"}] (bytes), names
+    demangled where ``c++filt`` is installed."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"kernel": line.split("'")[1], "registers": None, "stack_frame": None,
+                   "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+        elif cur is not None and "bytes spill stores" in line:
+            words = line.replace(",", "").split()
+            cur["stack_frame"] = int(words[0])
+            cur["spill_stores"] = int(words[words.index("spill") - 2])
+            cur["spill_loads"] = int(words[-4])
+        elif cur is not None and "Used " in line:
+            cur["registers"] = int(line.split("Used ")[1].split()[0])
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(k["kernel"] for k in out),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for k, name in zip(out, names):
+                k["kernel"] = name.replace("(anonymous namespace)::", "")
+    return out
 
 
 def k5_phase(dev) -> float:
@@ -542,17 +584,27 @@ def ssd_inputs(gen, dev, batch, t_len, heads, groups, p, n, dtype, nonzero):
     return x, dt, a, bm, cm, s0
 
 
+def rounding_lean(y, y_plain) -> tuple[int, int]:
+    """(elements of y that differ from y_plain, those of them that lie
+    toward zero from it)."""
+    d = y.float() - y_plain.float()
+    differ = d != 0
+    away = differ & (d.sign() == y_plain.float().sign())
+    return int(differ.sum()), int((differ & ~away).sum())
+
+
 def k4_phase(dev) -> float:
     """K4 against its plain version at mamba2's shapes (H=24, P=64, N=128,
     G=1, chunk 64) and the serving batch (B=8, two waves of CTAs) over T in
     {1, 64, 500, 512}, plus G=3 at T=500; zero and non-zero s0; fp32 and
-    bf16.  Returns the max |kernel - plain|."""
+    bf16; over the bf16 cases, the lean of the y elements that round apart
+    (K4_LEAN_MAX).  Returns the max |kernel - plain|."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
     gen = torch.Generator(device=dev).manual_seed(11)
     err = {"y fp32": 0.0, "y bf16": 0.0, "state": 0.0}
-    n, t0 = 0, time.perf_counter()
+    n, t0, differ, toward, n_bf16 = 0, time.perf_counter(), 0, 0, 0
     cases = [(1, t) for t in (1, 64, 500, 512)] + [(3, 500)]
     for groups, t_len in cases:
         for nonzero in (False, True):
@@ -571,10 +623,18 @@ def k4_phase(dev) -> float:
                 err[key] = max(err[key], (y.float() - y_p.float()).abs().max().item())
                 err["state"] = max(err["state"], (s_f - s_p).abs().max().item())
                 n += 1
+                if dtype == torch.bfloat16:
+                    d, tz = rounding_lean(y, y_p)
+                    differ, toward, n_bf16 = differ + d, toward + tz, n_bf16 + y.numel()
+    share = toward / max(differ, 1)
+    lean = (f"bf16 y rounds apart from the plain version in {differ} of {n_bf16} elements "
+            f"({differ / n_bf16:.3g}), {share:.3f} of them toward zero")
+    if differ >= K4_LEAN_MIN and share > K4_LEAN_MAX:
+        raise AssertionError(f"K4 leans toward zero: {lean} (limit {K4_LEAN_MAX})")
     log(f"phase 11 K4 ok: {n} cases (mamba2 shapes at B={LM_BATCH}, T 1..512, G 1 and 3, "
         f"zero and non-zero s0, fp32 and bf16), max |kernel - plain| = "
         + ", ".join(f"{e:.3g} ({k})" for k, e in err.items())
-        + f" ({time.perf_counter() - t0:.1f} s)")
+        + f"; {lean} ({time.perf_counter() - t0:.1f} s)")
     return max(err.values())
 
 
@@ -806,7 +866,7 @@ def lm_phases(dev, smi: str) -> list:
                                    msg=lambda m: f"K4 timing inputs T={t_len} y: {m}")
         torch.testing.assert_close(s_f, s_p, rtol=K4_TOL, atol=K4_TOL,
                                    msg=lambda m: f"K4 timing inputs T={t_len} state: {m}")
-        ms = device_ms(kernel, reps=20, kernel="ssd_scan_kernel")
+        ms = device_ms(kernel, reps=20)  # every kernel one ssd_scan call launches
         call_ms = median_ms(kernel, reps=20)
         b_ms, b_by = ssd_bound(LM_BATCH, t_len, heads, mcfg.ssm_groups, mcfg.ssm_head_dim,
                                mcfg.ssm_state, 64, 2, False)
@@ -817,6 +877,11 @@ def lm_phases(dev, smi: str) -> list:
             "ms_source": "profiler" if ms is not None else "events", "call_ms": call_ms,
             "plain_ms": median_ms(lambda: ssd_chunked(*args, chunk=64), reps=5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    ctas = k4_mod.library().lib.ssd_scan_ctas(LM_BATCH, heads, mcfg.ssm_head_dim)
+    for r in k4_rows:
+        log(f"phase 14 K4 B={r['B']} T={r['T']} H={r['H']} P={r['P']} N={r['N']} bf16, "
+            f"{ctas} CTAs: {r['ms']:.4g} ms ({r['ms_source']}; call {r['call_ms']:.4g} ms, "
+            f"plain {r['plain_ms']:.4g} ms), bound {r['bound_ms']:.4g} ms ({r['bound_by']})")
     log(f"phase 14 LM kernel timing ok ({time.perf_counter() - t0:.1f} s)")
 
     head5, head4 = k5_rows[-1], k4_rows[0]  # the last decode step; the 512-token prefill
@@ -890,14 +955,27 @@ def main() -> int:
     to_build = (library, k3_mod.library, k5_mod.library, k4_mod.library)
     with concurrent.futures.ThreadPoolExecutor(len(to_build)) as pool:
         libs = list(pool.map(lambda build: build(), to_build))
+    ptxas = {}
     for built in libs:
-        lines = built.log.splitlines()
-        regs = [int(line.split("Used ")[1].split()[0]) for line in lines if "Used " in line]
-        log(f"phase 2 build ok: {built.path.name}, nvcc {built.seconds:.1f} s, {len(regs)} "
-            f"kernels, registers {min(regs)}-{max(regs)}")
-        for i, line in enumerate(lines):  # ptxas names the kernel on the line before
-            if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
-                log(f"  ptxas: {lines[i - 1].split('for ')[-1]}: {line.strip()}")
+        report = ptxas[built.path.name.split("-")[0][3:]] = ptxas_report(built.log)
+        regs = [k["registers"] for k in report if k["registers"] is not None]
+        log(f"phase 2 build ok: {built.path.name}, nvcc {built.seconds:.1f} s, {len(report)} "
+            f"kernels, registers {min(regs, default=None)}-{max(regs, default=None)}")
+        for k in report:
+            if k["spill_stores"] or k["spill_loads"]:
+                log(f"  ptxas: {k['kernel']}: {k['spill_stores']} bytes spill stores, "
+                    f"{k['spill_loads']} bytes spill loads")
+    # every instantiation of K3 and K4; K3's warp-cell kernels keep their
+    # weights in registers and must spill nothing
+    for lib in ("lstm_scan", "ssd_scan"):
+        for k in ptxas[lib]:
+            log(f"  ptxas {lib}: {k['kernel']}: {k['registers']} registers, "
+                f"{k['stack_frame']} bytes stack, {k['spill_stores']}/{k['spill_loads']} "
+                f"bytes spilled (stores/loads)")
+    warp_spills = [k for k in ptxas["lstm_scan"]
+                   if "warp_kernel" in k["kernel"] and (k["spill_stores"] or k["spill_loads"])]
+    if warp_spills or not ptxas["lstm_scan"]:
+        raise AssertionError(f"K3's warp-cell kernels spill (or no ptxas report): {warp_spills}")
     log(f"phase 2 build wall {time.perf_counter() - t0:.1f} s")
 
     with np.load(FIXTURE) as data:
@@ -1051,38 +1129,66 @@ def main() -> int:
     per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches)
 
     # -- phase 6: K3 against its plain version -----------------------------
-    # both entries (xw streamed in; the input product in the launch, the
-    # kernel backend's) at the encoder's two layers: H=32 (layer 0, in 1)
-    # and H=8 (layer 1, in 32); xw is their real input product
+    # every warp-cell instantiation (H=8 and H=32 with x chains of 1, 8 and
+    # 32; IN=5 pads to 8) and the run-time-width kernel (H=9, H=16, IN=40),
+    # both entries, B 1, 3 and 64, block_b 1 and 2, fp32 and bf16 compute
+    # (and bf16 weights under fp32 compute), T 1 and 25 on random operands;
+    # then gw_nominal's four layers with their real weights over a T=100
+    # window.  Bit for bit (torch.equal)
+    from repro_torch.kernels.lstm_scan.lstm_scan import kernel_path
+
     t0, k3_err, n = time.perf_counter(), 0.0, 0
-    for ct in (torch.float32, torch.bfloat16):
-        for layer in ("lstm_0", "lstm_1"):
-            p = params[layer]
-            H = p["w_h"].shape[0]
-            w_x, w_h = p["w_x"].to(ct), p["w_h"].to(ct)
-            for t_len in (1, 25, 100):
-                for batch in (1, 64):
-                    x = torch.randn(batch, t_len, w_x.shape[0], generator=gen).to(ct).to(dev)
-                    xw = ((x @ w_x).float() + p["b"]).transpose(0, 1).contiguous()
-                    for nonzero in (False, True):
-                        h0, c0 = torch.zeros(batch, H), torch.zeros(batch, H)
-                        if nonzero:
-                            h0 = torch.randn(batch, H, generator=gen) * 0.3
-                            c0 = torch.randn(batch, H, generator=gen) * 0.3
-                        h0, c0 = h0.to(ct).to(dev), c0.to(dev)
-                        for acts in (EXACT, HARD, PAPER_HW_KERNEL):
-                            fns = dict(sigma=acts.sigma, tanh=acts.tanh)
-                            what = f"{ct} H={H} T={t_len} B={batch} {acts.name} nonzero={nonzero}"
-                            got = lstm_scan(xw, w_h, h0, c0, acts=acts)
-                            want = lstm_scan_ref(xw, w_h, h0, c0, **fns)
-                            got_l = lstm_scan_layer(x, w_x, p["b"], w_h, h0, c0, acts=acts)
-                            want_l = lstm_scan_layer_ref(x, w_x, p["b"], w_h, h0, c0, **fns)
-                            torch.cuda.synchronize()
-                            k3_err = max(k3_err, compare(got, want, f"K3 lstm_scan {what}"),
-                                         compare(got_l, want_l, f"K3 lstm_scan_layer {what}"))
-                            n += 2
-    log(f"phase 6 K3 ok: {n} cases (both entries, fp32 and bf16 compute), bit-equal to the "
-        f"plain version ({time.perf_counter() - t0:.1f} s)")
+    lstm_scan.launches_by_path.clear()
+    f32, bf16 = torch.float32, torch.bfloat16
+    k3_acts = itertools.cycle((EXACT, HARD, PAPER_HW_KERNEL))
+
+    def k3_case(x, w_x, b, w_h, h0, c0, acts, blocks, what):
+        fns = dict(sigma=acts.sigma, tanh=acts.tanh)
+        xw = ((x.float() @ w_x.float()) + b).transpose(0, 1).contiguous()
+        want = lstm_scan_ref(xw, w_h, h0, c0, **fns)
+        want_l = lstm_scan_layer_ref(x, w_x, b, w_h, h0, c0, **fns)
+        err = 0.0
+        for block_b in blocks:
+            got = lstm_scan(xw, w_h, h0, c0, block_b=block_b, acts=acts)
+            got_l = lstm_scan_layer(x, w_x, b, w_h, h0, c0, block_b=block_b, acts=acts)
+            torch.cuda.synchronize()
+            err = max(err, compare(got, want, f"K3 lstm_scan {what} block_b={block_b}"),
+                      compare(got_l, want_l, f"K3 lstm_scan_layer {what} block_b={block_b}"))
+        return err, 2 * len(blocks)
+
+    k3_warp = [(h, i) for h in (8, 32) for i in (1, 5, 8, 32)]
+    k3_shapes = k3_warp + [(9, 1), (16, 8), (8, 40)]
+    for hidden, n_in in k3_shapes:
+        for ct, wd in ((f32, f32), (f32, bf16), (bf16, bf16)):
+            for t_len in (1, 25):
+                for batch in (1, 3, 64):
+                    w_x = (torch.randn(n_in, 4 * hidden, generator=gen) * n_in**-0.5).to(wd)
+                    w_h = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden**-0.5).to(wd)
+                    b = torch.randn(4 * hidden, generator=gen) * 0.1
+                    x = torch.randn(batch, t_len, n_in, generator=gen).to(ct)
+                    h0 = (torch.randn(batch, hidden, generator=gen) * 0.3).to(ct)
+                    c0 = torch.randn(batch, hidden, generator=gen) * 0.3
+                    e, m = k3_case(*(v.to(dev) for v in (x, w_x, b, w_h, h0, c0)),
+                                   next(k3_acts), (1, 2),
+                                   f"{ct} w {wd} H={hidden} IN={n_in} T={t_len} B={batch}")
+                    k3_err, n = max(k3_err, e), n + m
+    for layer in (f"lstm_{i}" for i in range(4)):
+        p = params[layer]
+        hidden, n_in = p["w_h"].shape[0], p["w_x"].shape[0]
+        for ct in (f32, bf16):
+            x = torch.randn(1, T, n_in, generator=gen).to(ct).to(dev)
+            h0 = (torch.randn(1, hidden, generator=gen) * 0.3).to(ct).to(dev)
+            c0 = (torch.randn(1, hidden, generator=gen) * 0.3).to(dev)
+            e, m = k3_case(x, p["w_x"].to(ct), p["b"], p["w_h"].to(ct), h0, c0, EXACT, (1,),
+                           f"{layer} {ct} H={hidden} IN={n_in} T={T}")
+            k3_err, n = max(k3_err, e), n + m
+    paths = {(h, i): kernel_path(h, i) for h, i in k3_shapes + [(8, 0), (32, 0)]}
+    if any(path != (f"warp_cell H={h}" if (h, i) in k3_warp else f"run_time H={h}")
+           for (h, i), path in paths.items()):
+        raise AssertionError(f"K3 took the wrong kernel: {paths}")
+    log(f"phase 6 K3 ok: {n} cases (both entries, fp32 and bf16 compute, bf16 weights under "
+        f"fp32 compute, B 1/3/64, block_b 1/2), bit-equal to the plain version; launches by "
+        f"kernel {dict(lstm_scan.launches_by_path)} ({time.perf_counter() - t0:.1f} s)")
 
     # -- phases 7-8: the kernel backend and the StreamServer ---------------
     # the second serving path: counts set to 0 before it, read after it
@@ -1095,9 +1201,20 @@ def main() -> int:
 
     def counts():
         return {"lstm_stack_wavefront": lstm_stack.launches,
-                "lstm_stack_step": lstm_stack_step.launches, "lstm_scan": lstm_scan.launches}
+                "lstm_stack_step": lstm_stack_step.launches, "lstm_scan": lstm_scan.launches,
+                "lstm_scan_by_kernel": dict(lstm_scan.launches_by_path)}
 
-    lstm_stack.launches = lstm_stack_step.launches = lstm_scan.launches = 0
+    def zero_counts():
+        lstm_stack.launches = lstm_stack_step.launches = lstm_scan.launches = 0
+        lstm_scan.launches_by_path.clear()
+
+    def k3_warp_cells_ran(c):
+        """gw_nominal's layers (H=32 and H=8) all run K3's warp-cell kernel."""
+        by = c["lstm_scan_by_kernel"]
+        return by.get("warp_cell H=32", 0) > 0 and by.get("warp_cell H=8", 0) > 0 \
+            and sum(by.values()) == c["lstm_scan"]
+
+    zero_counts()
     t0 = time.perf_counter()
     kb = AnomalyStreamEngine(params, cfg, impl="kernel")
     assert kb.effective_impl == "kernel", kb.effective_impl
@@ -1118,7 +1235,7 @@ def main() -> int:
                     windows, T)
     torch.cuda.synchronize()
     path_launches = {"kernel_engine": counts()}
-    if counts()["lstm_scan"] == 0 or lstm_stack.launches or lstm_stack_step.launches:
+    if not k3_warp_cells_ran(counts()) or lstm_stack.launches or lstm_stack_step.launches:
         raise AssertionError(f"the kernel backend's launches are wrong: {counts()}")
     log(f"phase 7 kernel backend ok: scores match the reference, chunked == one-shot, "
         f"push_many bit-equal, launches {counts()} ({time.perf_counter() - t0:.1f} s)")
@@ -1126,7 +1243,7 @@ def main() -> int:
     server_report = {}
     for impl in ("fused_step", "kernel"):
         t0 = time.perf_counter()
-        lstm_stack.launches = lstm_stack_step.launches = lstm_scan.launches = 0
+        zero_counts()
         server_report[impl] = server_phases(
             impl, lambda impl=impl: StreamingAnomalyEngine(params, cfg, batch=1, impl=impl),
             sgold, T)
@@ -1134,7 +1251,8 @@ def main() -> int:
         path_launches[f"server_{impl}"] = c = counts()
         ran = ((c["lstm_stack_wavefront"] and c["lstm_stack_step"] and not c["lstm_scan"])
                if impl == "fused_step" else
-               (c["lstm_scan"] and not c["lstm_stack_wavefront"] and not c["lstm_stack_step"]))
+               (k3_warp_cells_ran(c) and not c["lstm_stack_wavefront"]
+                and not c["lstm_stack_step"]))
         if not ran:
             raise AssertionError(f"the {impl} server's launches are wrong: {c}")
         th = server_report[impl]["threaded"]
@@ -1205,57 +1323,57 @@ def main() -> int:
             "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
         })
-    # K3 at the path's widths: H=32 over T=100 (a decoder layer and batch
-    # scoring) and H=8 at T=1 (encoder layer 1 on every pushed sample),
-    # through both entries.  The kernel backend runs lstm_scan_layer; its
-    # yardstick is cuDNN's one-layer LSTM on the same weights, which
-    # computes the same function (input product and recurrence).  The
-    # yardstick of lstm_scan, nn.LSTM(H, H, 1), also computes an input
-    # product, which lstm_scan is given
+    # K3 at gw_nominal's four layer shapes on the kernel path (H=32 IN=1,
+    # H=8 IN=32, H=8 IN=8, H=32 IN=8), over a T=100 window and at T=1 (a
+    # pushed sample), B=1, through lstm_scan_layer, the kernel backend's
+    # entry; then B=64 at the first layer, and the xw entry.  The yardstick
+    # is cuDNN's one-layer LSTM on the same weights, which computes the same
+    # function (input product and recurrence); the xw entry's, nn.LSTM(H, H,
+    # 1), also computes an input product, which lstm_scan is given.  Device
+    # time sums every kernel one call launches
     rows["lstm_scan"] = []
-    for layer, t_len in (("lstm_0", T), ("lstm_1", 1)):
+    k3_cases = [(f"lstm_{i}", t_len, 1, "lstm_scan_layer") for i in range(4) for t_len in (T, 1)]
+    k3_cases += [("lstm_0", T, 64, "lstm_scan_layer"), ("lstm_0", T, 1, "lstm_scan")]
+    for layer, t_len, batch, entry in k3_cases:
         p = params[layer]
         H, n_in = p["w_h"].shape[0], p["w_x"].shape[0]
-        lib_layer = torch.nn.LSTM(n_in, H, num_layers=1).to(dev)
-        lib_hh = torch.nn.LSTM(H, H, num_layers=1).to(dev)
+        layer_entry = entry == "lstm_scan_layer"
+        lib = torch.nn.LSTM(n_in if layer_entry else H, H, num_layers=1).to(dev)
         with torch.no_grad():
-            lib_layer.weight_ih_l0.copy_(p["w_x"].T)
-            lib_hh.weight_ih_l0.copy_(torch.randn(4 * H, H, generator=gen) * 0.1)
-            for lib in (lib_layer, lib_hh):
-                lib.weight_hh_l0.copy_(p["w_h"].T)
-                lib.bias_ih_l0.copy_(p["b"])
-                lib.bias_hh_l0.zero_()
-        for entry in ("lstm_scan_layer", "lstm_scan"):
-            for batch in (1, 64):
-                x = torch.randn(batch, t_len, n_in, generator=gen).to(dev)
-                xw = ((x @ p["w_x"]) + p["b"]).transpose(0, 1).contiguous()
-                h0 = (torch.randn(batch, H, generator=gen) * 0.3).to(dev)
-                c0 = (torch.randn(batch, H, generator=gen) * 0.3).to(dev)
-                if entry == "lstm_scan_layer":
-                    args = (x, p["w_x"], p["b"], p["w_h"], h0, c0)
-                    kernel = lambda: lstm_scan_layer(*args)  # noqa: E731
-                    plain = lambda: lstm_scan_layer_ref(*args)  # noqa: E731
-                    x_lib, lib = x.transpose(0, 1).contiguous(), lib_layer
-                else:
-                    kernel = lambda: lstm_scan(xw, p["w_h"], h0, c0)  # noqa: E731
-                    plain = lambda: lstm_scan_ref(xw, p["w_h"], h0, c0)  # noqa: E731
-                    x_lib, lib = torch.randn(t_len, batch, H, generator=gen).to(dev), lib_hh
-                lib_call = lambda: lib(x_lib, (h0[None], c0[None]))  # noqa: E731
-                with torch.no_grad():
-                    lib_ms = median_ms(lib_call, reps=50)
-                    lib_dev = device_ms(lib_call, reps=50)
-                call_ms = median_ms(kernel, reps=50)
-                ms = device_ms(kernel, reps=50, kernel="lstm_scan_kernel")
-                b_ms, b_by = scan_bound(H, t_len, batch,
-                                        n_in if entry == "lstm_scan_layer" else 0)
-                rows["lstm_scan"].append({
-                    "entry": entry, "H": H, "IN": n_in, "T": t_len, "B": batch,
-                    "ms": ms if ms is not None else call_ms,
-                    "ms_source": "profiler" if ms is not None else "events",
-                    "call_ms": call_ms, "plain_ms": median_ms(plain, reps=3, warmup=1),
-                    "library_ms": lib_dev if lib_dev is not None else lib_ms,
-                    "library_call_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                })
+            lib.weight_ih_l0.copy_(p["w_x"].T if layer_entry
+                                   else torch.randn(4 * H, H, generator=gen) * 0.1)
+            lib.weight_hh_l0.copy_(p["w_h"].T)
+            lib.bias_ih_l0.copy_(p["b"])
+            lib.bias_hh_l0.zero_()
+        x = torch.randn(batch, t_len, n_in, generator=gen).to(dev)
+        xw = ((x @ p["w_x"]) + p["b"]).transpose(0, 1).contiguous()
+        h0 = (torch.randn(batch, H, generator=gen) * 0.3).to(dev)
+        c0 = (torch.randn(batch, H, generator=gen) * 0.3).to(dev)
+        if layer_entry:
+            args = (x, p["w_x"], p["b"], p["w_h"], h0, c0)
+            kernel = lambda: lstm_scan_layer(*args)  # noqa: E731
+            plain = lambda: lstm_scan_layer_ref(*args)  # noqa: E731
+            x_lib = x.transpose(0, 1).contiguous()
+        else:
+            kernel = lambda: lstm_scan(xw, p["w_h"], h0, c0)  # noqa: E731
+            plain = lambda: lstm_scan_ref(xw, p["w_h"], h0, c0)  # noqa: E731
+            x_lib = torch.randn(t_len, batch, H, generator=gen).to(dev)
+        lib_call = lambda: lib(x_lib, (h0[None], c0[None]))  # noqa: E731
+        with torch.no_grad():
+            lib_ms = median_ms(lib_call, reps=50)
+            lib_dev = device_ms(lib_call, reps=50)
+        call_ms = median_ms(kernel, reps=50)
+        dev_ms = device_ms(kernel, reps=50)
+        ms = dev_ms if dev_ms is not None else call_ms
+        b_ms, b_by = scan_bound(H, t_len, batch, n_in if layer_entry else 0)
+        rows["lstm_scan"].append({
+            "entry": entry, "H": H, "IN": n_in, "T": t_len, "B": batch,
+            "kernel_path": kernel_path(H, n_in if layer_entry else 0),
+            "ms": ms, "ms_source": "profiler" if dev_ms is not None else "events",
+            "call_ms": call_ms, "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "library_ms": lib_dev if lib_dev is not None else lib_ms,
+            "library_call_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+        })
     # end to end, host clock: one T=1 push (a window completion every T
     # pushes runs the decoder), and one batch score call
     push_ms = []
@@ -1280,6 +1398,10 @@ def main() -> int:
                         f"{r['ms'] / (r['T'] + L - 1) * 1e3:.3g} us x {r['T'] + L - 1} steps "
                         f"(cuDNN {r['library_ms']:.4g} ms)"
                         for r in rows[name]))
+    for r in rows["lstm_scan"]:
+        log(f"phase 9 lstm_scan {r['entry']} H={r['H']} IN={r['IN']} T={r['T']} B={r['B']} "
+            f"({r['kernel_path']}): {r['ms']:.4g} ms = {r['ms'] * 1e3 / r['T']:.3g} us x {r['T']} "
+            f"steps (cuDNN {r['library_ms']:.4g} ms, call {r['call_ms']:.4g} ms)")
     log(json.dumps({"e2e": {
         "push_T1_B1_ms_median": statistics.median(push_ms),
         "push_T1_B1_ms_p99": float(np.percentile(push_ms, 99)),
@@ -1317,6 +1439,8 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "launches_per_window": {m: v[2] for m, v in per_window.items()},
+        "launches_by_kernel": {path: dict(c["lstm_scan_by_kernel"])
+                               for path, c in path_launches.items()},
         "shapes": rows["lstm_scan"],
     })
     kernels += lm_kernels

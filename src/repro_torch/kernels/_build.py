@@ -40,7 +40,8 @@ class Built:
     lib: ctypes.CDLL
     path: Path
     seconds: float   # compile time; 0.0 when an existing build was loaded
-    log: str         # nvcc/ptxas output (registers, shared memory, spills)
+    log: str         # nvcc/ptxas output (registers, shared memory, spills), kept
+                     # beside the library and read back when it is loaded
 
 
 def _nvcc() -> str:
@@ -58,29 +59,36 @@ def _nvcc() -> str:
     )
 
 
-def source_digest(source: Path) -> str:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_digest(source: Path, defines: tuple = ()) -> str:
     """Hash of what a build depends on: the source, every shared header and
     the flags (an edit to the shared cell body must not load a stale
     library)."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(INCLUDE_DIR.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def build(source: Path) -> Built:
-    """Compile ``source`` (if its keyed library is missing) and load it."""
-    digest = source_digest(source)
+def build(source: Path, defines: tuple = ()) -> Built:
+    """Compile ``source`` (if its keyed library is missing) and load it.
+    ``defines`` are macros passed as ``-D`` (the wrappers pass none;
+    ``KERNEL_PROBE`` turns on the clock stamps of ``csrc/probe.cuh``)."""
+    digest = source_digest(source, defines)
     out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
-    seconds, log = 0.0, ""
+    log_path = out.with_suffix(".log")
+    seconds, log = 0.0, log_path.read_text() if log_path.exists() else ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # compile to a private name, then rename: concurrent builders never
         # load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp, str(source)]
+        cmd = [_nvcc(), *_flags(defines), "-I", str(INCLUDE_DIR), "-o", tmp, str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -90,5 +98,6 @@ def build(source: Path) -> Built:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) on {source.name}:\n{log}"
             )
+        log_path.write_text(log)
         os.replace(tmp, out)
     return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -12,8 +12,11 @@ with ``W_h``, ``h`` and the fp32 cell ``c`` resident on chip.
   (a cuBLAS product picks its reduction by shape).  The ``kernel`` backend
   runs this entry.
 
-Both launch the same kernel (``csrc/lstm_scan.cu``, with its design notes)
-and count into ``lstm_scan.launches``; the plain PyTorch versions are
+Both launch the kernels of ``csrc/lstm_scan.cu`` (with its design notes:
+``lstm_scan_layer`` runs a warp-cell kernel with H at compile time for
+H = 8 and 32, the widths ``gw_nominal`` runs; every other shape, and
+``lstm_scan`` at any width, runs a run-time-width kernel) and count into ``lstm_scan.launches``, and by path into
+``lstm_scan.launches_by_path``; the plain PyTorch versions are
 ``ref.lstm_scan_ref`` and ``ref.lstm_scan_layer_ref``.  Each wrapper runs
 its plain version for CPU tensors and launches the kernel for CUDA
 tensors; it never falls back from one to the other.
@@ -21,6 +24,7 @@ tensors; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -54,7 +58,18 @@ def library():
     built.lib.lstm_scan_layer.restype = i32
     built.lib.lstm_scan_smem_bytes.argtypes = [i32] * 4
     built.lib.lstm_scan_smem_bytes.restype = ctypes.c_longlong
+    built.lib.lstm_scan_warp_cell.argtypes = [i32] * 2
+    built.lib.lstm_scan_warp_cell.restype = i32
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_path(hidden: int, n_in: int = 0) -> str:
+    """The kernel a launch at (H, IN) runs (``n_in`` = 0 for ``lstm_scan``):
+    ``"warp_cell H=<H>"`` (H at compile time, weights in registers) or
+    ``"run_time H=<H>"``.  Builds the library at first use."""
+    warp = library().lib.lstm_scan_warp_cell(hidden, n_in)
+    return f"{'warp_cell' if warp else 'run_time'} H={hidden}"
 
 
 def _check(entry: str, batch: int, hidden: int, w_h, h0, c0, device) -> None:
@@ -173,9 +188,13 @@ def _launch(entry: str, inputs: list, w_h, h0, c0, *, t_len: int, n_in: int,
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     lstm_scan.launches += 1
+    lstm_scan.launches_by_path[kernel_path(hidden, n_in)] += 1
     return hs, h_f, c_f
 
 
 #: launches of the kernel, through either entry, since the count was last
 #: set to 0 (plain-version calls on CPU tensors do not count)
 lstm_scan.launches = 0
+#: the same launches by the kernel they ran (``kernel_path``); cleared with
+#: ``lstm_scan.launches_by_path.clear()``
+lstm_scan.launches_by_path = collections.Counter()

@@ -8,9 +8,12 @@ per head):
 in chunks of L steps: the intra-chunk part as products of L x L and L x P
 tiles, the inter-chunk part through the carried fp32 state.  The kernel
 (``csrc/ssd_scan.cu``, with its design notes) runs one CTA per (batch row,
-head) and keeps S in shared memory across the chunks; it reads the model's
-(B, T, H, P) and (B, T, G, N) tensors as they are, indexes each head's B/C
-group itself and runs a ragged last chunk at its real length.
+head, tile of 16 state rows), computes the chunk products on the tensor
+cores (the fp32 operands it derives split exactly into three bf16 parts)
+and keeps its S tile in registers across the chunks; it reads the model's (B, T, H, P) and
+(B, T, G, N) tensors as they are (views into one projection included),
+indexes each head's B/C group itself and runs a ragged last chunk at its
+real length.
 
 ``ssd_chunked`` is the plain version: the reference's pure-jnp chunked
 algorithm (``repro/models/ssm.py``) in PyTorch, the same steps in the same
@@ -42,11 +45,19 @@ def library():
 
     built = build(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    built.lib.ssd_scan.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    i64 = ctypes.c_longlong
+    built.lib.ssd_scan.argtypes = [ptr] * 8 + [i64] * 4 + [i32] * 8 + [ptr]
     built.lib.ssd_scan.restype = i32
-    built.lib.ssd_scan_smem_bytes.argtypes = [i32] * 3
-    built.lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    built.lib.ssd_scan_smem_bytes.argtypes = [i32] * 2
+    built.lib.ssd_scan_smem_bytes.restype = i64
+    built.lib.ssd_scan_ctas.argtypes = [i32] * 3
+    built.lib.ssd_scan_ctas.restype = i64
     return built
+
+
+#: the kernel's limits: chunks of at most MAX_CHUNK steps (four warps of 16
+#: rows), P and N whole multiples of 8, N at most MAX_STATE
+MAX_CHUNK, MAX_STATE = 64, 128
 
 
 def ssd_chunked(
@@ -144,6 +155,15 @@ def ssd_scan(
     return _launch(x, dt, a, bm, cm, s0, min(chunk, max(t_len, 1)))
 
 
+def _strided_ok(t: torch.Tensor) -> bool:
+    """Whether the kernel reads ``t`` (B, T, heads or groups, width) in
+    place: the last two dims contiguous, every row 16-byte aligned."""
+    size = t.element_size()
+    rows = all(t.stride(d) * size % 16 == 0 for d in (0, 1) if t.shape[d] > 1)
+    inner = t.stride(3) == 1 and (t.shape[2] == 1 or t.stride(2) == t.shape[3])
+    return rows and inner and t.data_ptr() % 16 == 0
+
+
 def _launch(x, dt, a, bm, cm, s0, chunk):
     """Launch the kernel on the current stream; raise if the launch is
     refused (``cudaGetLastError`` of the launch is non-zero)."""
@@ -151,20 +171,30 @@ def _launch(x, dt, a, bm, cm, s0, chunk):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     batch, t_len, heads, p = x.shape
     groups, n = bm.shape[2], bm.shape[3]
-    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if chunk > MAX_CHUNK or p % 8 or n % 8 or n > MAX_STATE:
+        raise ValueError(f"ssd_scan: the kernel takes chunk <= {MAX_CHUNK}, P and N multiples "
+                         f"of 8 and N <= {MAX_STATE}; got chunk={chunk}, P={p}, N={n}")
+    y = torch.empty(batch, t_len, heads, p, dtype=x.dtype, device=x.device)
     s_f = torch.empty(batch, heads, p, n, dtype=torch.float32, device=x.device)
     built = library()
-    smem = built.lib.ssd_scan_smem_bytes(chunk, p, n)
+    smem = built.lib.ssd_scan_smem_bytes(n, _DTYPES[x.dtype])
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"ssd_scan: chunk={chunk}, P={p}, N={n} needs {smem} B of "
-                         f"shared memory per block (> {MAX_SMEM_BYTES}); use a smaller chunk")
-    x, dt, a, bm, cm = (t.contiguous() for t in (x, dt, a, bm, cm))
+        raise ValueError(f"ssd_scan: N={n} needs {smem} B of shared memory per block "
+                         f"(> {MAX_SMEM_BYTES})")
+    # x, B and C are read in place where their layout allows (the SSM
+    # block's views into its projection do); anything else is copied once
+    if not _strided_ok(x):
+        x = x.clone(memory_format=torch.contiguous_format)
+    if not (_strided_ok(bm) and _strided_ok(cm) and bm.stride() == cm.stride()):
+        bm, cm = (t.clone(memory_format=torch.contiguous_format) for t in (bm, cm))
+    dt, a = dt.contiguous(), a.contiguous()
     s0 = None if s0 is None else s0.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = built.lib.ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
             None if s0 is None else s0.data_ptr(), y.data_ptr(), s_f.data_ptr(),
+            x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
             batch, t_len, heads, groups, p, n, chunk, _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

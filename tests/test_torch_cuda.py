@@ -10,8 +10,10 @@ The LSTM kernels K1 and K2 and their plain versions perform the same fp32
 operations in the same order, so they are held bit for bit
 (``torch.equal``), on both of the kernel's paths (W=32 at L <= 2 with the
 weights in registers, every other shape at run-time width), layer counts
-whose threads take turns inside a step, and every storage dtype; K3 is held at rtol/atol
-1e-5 (it normally agrees exactly).  The server tests hold the
+whose threads take turns inside a step, and every storage dtype.  K3 is
+held bit for bit too, on its warp-cell kernel (H=8 and H=32 at compile time,
+IN up to 32) and its run-time-width kernel, with a row's bits independent of
+B and ``block_b``.  The server tests hold the
 StreamServer on both engines of the card (``fused_step`` and ``kernel``)
 bit-equal to sequential pushes.
 
@@ -22,12 +24,15 @@ they are held at the reference's own tolerances for those kernels: rtol/atol
 compute in fp32 and round once, so they differ by at most one bf16 ulp
 (2^-7 of the value): rtol 8e-3, atol 1e-3.  K5 is also held at the edges of
 its splits of ``SPLIT_ROWS`` cache rows, and a row's output must not
-depend on the batch it is served in (bitwise).
+depend on the batch it is served in (bitwise).  K4 is held at the edges
+of its chunks (T = 1, 63, 65, 500) and its 16-row state tiles (P = 40),
+with B/C groups, a padded state width (N = 24, 8) and strided views.
 The LM engine runs the reduced golden fixtures on the card with both
 kernels and must match the reference's logits within 1e-4 and its tokens.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -42,6 +47,7 @@ from repro_torch.kernels.lstm_scan import (
     lstm_scan_layer_ref,
     lstm_scan_ref,
 )
+from repro_torch.kernels.lstm_scan.lstm_scan import kernel_path
 from repro_torch.kernels.lstm_stack import lstm_stack, lstm_stack_step
 from repro_torch.kernels.lstm_stack.ops import pack_stack
 from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
@@ -248,7 +254,7 @@ def test_scan_kernel_matches_plain(cuda, dtype, acts):
         torch.cuda.synchronize()
         for got, want in pairs:
             for a, b_ in zip(got, want):
-                torch.testing.assert_close(a, b_, **TOL)
+                assert torch.equal(a, b_), (hidden, t_len, batch)
 
 
 def test_scan_rows_are_independent_of_batch_grouping(cuda):
@@ -261,6 +267,83 @@ def test_scan_rows_are_independent_of_batch_grouping(cuda):
         row = lstm_scan(xw[:, i : i + 1].contiguous(), w_h, h0[i : i + 1], c0[i : i + 1])
         assert torch.equal(row[0], whole[0][:, i : i + 1])
         assert torch.equal(row[2], whole[2][i : i + 1])
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _scan_operands(hidden, n_in, batch, t_len, ct, wd, device, seed):
+    """Random K3 operands: xw for lstm_scan, x, W_x and b for
+    lstm_scan_layer, W_h and a non-zero state for both."""
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn(t_len, batch, 4 * hidden, generator=g).to(device)
+    x = torch.randn(batch, t_len, n_in, generator=g).to(ct).to(device)
+    w_x = (torch.randn(n_in, 4 * hidden, generator=g) * n_in**-0.5).to(wd).to(device)
+    w_h = (torch.randn(hidden, 4 * hidden, generator=g) * hidden**-0.5).to(wd).to(device)
+    b = (torch.randn(4 * hidden, generator=g) * 0.1).to(device)
+    h0 = (torch.randn(batch, hidden, generator=g) * 0.3).to(ct).to(device)
+    c0 = (torch.randn(batch, hidden, generator=g) * 0.3).to(device)
+    return xw, x, w_x, b, w_h, h0, c0
+
+
+def _hold_k3_bitwise(cuda, hidden, n_in, ct, wd, acts, t_lens, batches, blocks):
+    """Both K3 entries against their plain versions with torch.equal over
+    every (T, B, block_b)."""
+    fns = dict(sigma=acts.sigma, tanh=acts.tanh)
+    for t_len in t_lens:
+        for batch in batches:
+            xw, x, w_x, b, w_h, h0, c0 = _scan_operands(
+                hidden, n_in, batch, t_len, ct, wd, cuda, 100 * hidden + 10 * n_in + t_len + batch)
+            want = (*lstm_scan_ref(xw, w_h, h0, c0, **fns),
+                    *lstm_scan_layer_ref(x, w_x, b, w_h, h0, c0, **fns))
+            for block_b in blocks:
+                got = (*lstm_scan(xw, w_h, h0, c0, block_b=block_b, acts=acts),
+                       *lstm_scan_layer(x, w_x, b, w_h, h0, c0, block_b=block_b, acts=acts))
+                torch.cuda.synchronize()
+                for g_, w_ in zip(got, want):
+                    assert torch.equal(g_, w_), (hidden, n_in, ct, wd, t_len, batch, block_b)
+
+
+@pytest.mark.parametrize("ct,wd", [(F32, F32), (F32, BF16), (BF16, BF16)],
+                         ids=["fp32", "fp32-bf16w", "bf16"])
+@pytest.mark.parametrize("hidden,n_in", [(32, 1), (32, 8), (32, 32), (8, 1), (8, 5), (8, 8),
+                                         (8, 32)])
+def test_scan_warp_cell_is_bitwise(cuda, hidden, n_in, ct, wd):
+    """K3's compile-time widths (gw_nominal's layers: H=32 at IN 1 and 8,
+    H=8 at IN 8 and 32) run the warp-cell kernel in lstm_scan_layer and
+    equal the plain version bit for bit at B 1, 3, 64, block_b 1 and 2, T
+    1, 25 and 100 (several input chunks, a ragged last one); IN=5 runs the
+    8-long x chain with three zero terms.  The xw entry, held beside it,
+    runs the run-time-width kernel at every width."""
+    assert kernel_path(hidden, n_in) == f"warp_cell H={hidden}"
+    assert kernel_path(hidden) == f"run_time H={hidden}"
+    acts = {1: EXACT, 5: HARD, 8: PAPER_HW_KERNEL, 32: HARD}[n_in]
+    lstm_scan.launches_by_path.clear()
+    _hold_k3_bitwise(cuda, hidden, n_in, ct, wd, acts, (1, 25, 100), (1, 3, 64), (1, 2))
+    assert set(lstm_scan.launches_by_path) == {f"warp_cell H={hidden}", f"run_time H={hidden}"}
+
+
+@pytest.mark.parametrize("hidden,n_in", [(9, 1), (16, 8), (8, 40), (32, 33), (64, 16)])
+def test_scan_run_time_path_is_bitwise(cuda, hidden, n_in):
+    """Every other shape (gw_small's H=9, H=16 and 64, IN past 32 at H=8
+    and 32) runs the run-time-width kernel, bit for bit too."""
+    assert kernel_path(hidden, n_in) == f"run_time H={hidden}"
+    _hold_k3_bitwise(cuda, hidden, n_in, F32, F32, EXACT, (1, 25), (1, 3), (1, 2))
+    _hold_k3_bitwise(cuda, hidden, n_in, BF16, BF16, PAPER_HW_KERNEL, (7,), (2,), (1,))
+
+
+@pytest.mark.parametrize("hidden,n_in", [(8, 32), (32, 1)])
+def test_scan_warp_cell_rows_are_independent_of_batch_and_block(cuda, hidden, n_in):
+    """A row alone equals the same row in a batch of 64 run with block_b
+    1, 2 or 3 (the last CTA then holds one row), bitwise."""
+    _, x, w_x, b, w_h, h0, c0 = _scan_operands(hidden, n_in, 64, 20, F32, F32, cuda, 9)
+    for block_b in (1, 2, 3):
+        whole = lstm_scan_layer(x, w_x, b, w_h, h0, c0, block_b=block_b)
+        for i in (0, 31, 63):
+            row = lstm_scan_layer(x[i : i + 1], w_x, b, w_h, h0[i : i + 1], c0[i : i + 1])
+            assert torch.equal(row[0], whole[0][:, i : i + 1]), (block_b, i)
+            assert torch.equal(row[1], whole[1][i : i + 1]), (block_b, i)
+            assert torch.equal(row[2], whole[2][i : i + 1]), (block_b, i)
 
 
 @pytest.mark.parametrize("impl", ["fused_step", "kernel"])
@@ -388,6 +471,102 @@ def test_ssd_scan_kernel_matches_plain(cuda, groups, dtype):
         assert ssd_scan.launches == before + 1
         torch.testing.assert_close(y.float(), y_p.float(), **_tol(dtype, 2e-4))
         torch.testing.assert_close(s_f, s_p, rtol=2e-4, atol=2e-4)
+
+
+def _ssd_operands(g, batch, t_len, heads, groups, p, n, dtype, nonzero, device):
+    x = torch.randn(batch, t_len, heads, p, generator=g).to(dtype).to(device)
+    dt = torch.nn.functional.softplus(torch.randn(batch, t_len, heads, generator=g) - 1)
+    a = -torch.exp(torch.randn(heads, generator=g) * 0.5)
+    bm, cm = ((torch.randn(batch, t_len, groups, n, generator=g) * 0.3).to(dtype).to(device)
+              for _ in range(2))
+    s0 = (torch.randn(batch, heads, p, n, generator=g) * 0.3).to(device) if nonzero else None
+    return x, dt.to(device), a.to(device), bm, cm, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("t_len", [1, 63, 65, 500])
+def test_ssd_scan_kernel_at_tile_and_chunk_edges(cuda, t_len, dtype):
+    """T around the 64-step chunk; P=40 (two 16-row state tiles and a ragged
+    8-row one); G=3; N=24 and N=8 (state columns padded to a k16 step);
+    chunk 16 (rows past the chunk unused); zero and non-zero s0."""
+    g = torch.Generator().manual_seed(t_len)
+    for heads, groups, p, n, chunk, nonzero in ((24, 1, 64, 128, 64, False),
+                                                (6, 3, 40, 24, 64, True),
+                                                (4, 1, 16, 8, 64, True),
+                                                (6, 3, 64, 128, 16, True)):
+        args = _ssd_operands(g, 2, t_len, heads, groups, p, n, dtype, nonzero, cuda)
+        before = ssd_scan.launches
+        y, s_f = ssd_scan(*args, chunk=chunk)
+        y_p, s_p = ssd_chunked(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        what = (heads, groups, p, n, chunk, nonzero)
+        torch.testing.assert_close(y.float(), y_p.float(), **_tol(dtype, 2e-4),
+                                   msg=lambda m: f"{what} y: {m}")
+        torch.testing.assert_close(s_f, s_p, rtol=2e-4, atol=2e-4,
+                                   msg=lambda m: f"{what} state: {m}")
+
+
+def test_ssd_scan_bf16_roundings_do_not_lean_toward_zero(cuda):
+    """At mamba2-130m's prefill shape (B=8, T=512, H=24, P=64, N=128; four
+    seeds each of SiLU inputs as the SSM block makes them and of zero-mean
+    ones), the bf16 y elements that round apart from the plain version lie
+    toward zero and away from it alike: at most 55% toward zero
+    (chip_smoke.py's K4_LEAN_MAX) once 500 or more differ.  A sum that drops
+    its low bits toward zero leans one way and passes the one-ulp limit all
+    the same."""
+    shape_x, shape_bc = (8, 512, 24, 64), (8, 512, 1, 128)
+    differ = toward = 0
+    for seed in range(8):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        if seed % 2 == 0:  # x, B and C after SiLU
+            x, bm, cm = (torch.nn.functional.silu(torch.randn(*s, generator=g, device=cuda))
+                         .bfloat16() for s in (shape_x, shape_bc, shape_bc))
+            a = -torch.ones(24, device=cuda)
+        else:
+            x = torch.randn(*shape_x, generator=g, device=cuda).bfloat16()
+            bm, cm = ((torch.randn(*shape_bc, generator=g, device=cuda) * 0.3).bfloat16()
+                      for _ in range(2))
+            a = -torch.exp(torch.randn(24, generator=g, device=cuda) * 0.5)
+        dt = torch.nn.functional.softplus(torch.randn(8, 512, 24, generator=g, device=cuda))
+        y, _ = ssd_scan(x, dt, a, bm, cm, chunk=64)
+        y_p, _ = ssd_chunked(x, dt, a, bm, cm, chunk=64)
+        d = y.float() - y_p.float()
+        differ += int((d != 0).sum())
+        toward += int(((d != 0) & (d.sign() != y_p.float().sign())).sum())
+    assert differ < 500 or toward / differ <= 0.55, (toward, differ)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_ssd_scan_reads_projection_views_in_place(cuda, dtype):
+    """x, B and C as the SSM block hands them over (views into one
+    projection, token stride 1792): read in place, and equal bit for bit to
+    the same values made contiguous."""
+    mod = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
+    g = torch.Generator().manual_seed(3)
+    u = torch.randn(2, 130, 24 * 64 + 2 * 128, generator=g).to(dtype).to(cuda)
+    x = u[..., : 24 * 64].reshape(2, 130, 24, 64)
+    bm = u[..., 24 * 64 : 24 * 64 + 128].reshape(2, 130, 1, 128)
+    cm = u[..., 24 * 64 + 128 :].reshape(2, 130, 1, 128)
+    assert not x.is_contiguous() and all(mod._strided_ok(t) for t in (x, bm, cm))
+    dt = torch.nn.functional.softplus(torch.randn(2, 130, 24, generator=g)).to(cuda)
+    a = -torch.exp(torch.randn(24, generator=g) * 0.5).to(cuda)
+    got = ssd_scan(x, dt, a, bm, cm, chunk=64)
+    want = ssd_scan(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bad", ["chunk", "state", "head_dim"])
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda, bad):
+    g = torch.Generator().manual_seed(4)
+    p, n, chunk = {"chunk": (64, 128, 128), "state": (64, 136, 64),
+                   "head_dim": (12, 128, 64)}[bad]
+    args = _ssd_operands(g, 1, 200, 4, 1, p, n, torch.bfloat16, False, cuda)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ssd_scan(*args, chunk=chunk)
+    assert ssd_scan.launches == before
 
 
 @pytest.mark.parametrize("name,fixture", [("smollm-360m", "torch_port_lm_smollm.npz"),
