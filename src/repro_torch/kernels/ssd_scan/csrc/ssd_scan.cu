@@ -132,6 +132,7 @@ constexpr int kYS = kPT + 4;  // row stride of C @ S_prev^T (floats)
 constexpr int kXW = kPT + 8;  // row stride of the split xw (bf16)
 struct SsdLayout {
   size_t x, b, c, dt, stage, split, part, xw, xw_part, cum, ecum, w, yi, yp, total;
+  size_t ms, sf, xwf;  // SSD_CUDA_CORES only: M, S and xw in fp32
   int np, xs, ns, ss;
 };
 
@@ -157,6 +158,12 @@ __host__ __device__ inline SsdLayout ssd_layout(int N, int esize) {
   o.yi = o.w + kL * sizeof(float);
   o.yp = o.yi + size_t(kL) * kYS * sizeof(float);
   o.total = align16(o.yp + size_t(32) * kYS * sizeof(float));
+#ifdef SSD_CUDA_CORES
+  o.ms = o.total;
+  o.sf = align16(o.ms + size_t(kL) * (kL + 1) * sizeof(float));
+  o.xwf = align16(o.sf + size_t(kPT) * (o.np + 1) * sizeof(float));
+  o.total = align16(o.xwf + size_t(kL) * (kPT + 1) * sizeof(float));
+#endif
   return o;
 }
 
@@ -190,6 +197,12 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_
 }
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 // An operand pair of two adjacent elements p[0], p[1] (hi, and lo for fp32).
@@ -428,6 +441,24 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
       }
     }
   };
+#ifdef SSD_CUDA_CORES
+  float* ms_s = reinterpret_cast<float*>(smem + o.ms);    // [kL][kL + 1]
+  float* sf_s = reinterpret_cast<float*>(smem + o.sf);    // [kPT][np + 1]
+  float* xwf_s = reinterpret_cast<float*>(smem + o.xwf);  // [kL][kPT + 1]
+  const int SF = o.np + 1;
+  auto store_f32_state = [&]() {
+#pragma unroll
+    for (int i = 0; i < kNTW; ++i) {
+      const int nt = w + kWarps * i;
+      if (nt < n_tiles) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sf_s[(gq + 8 * (e >> 1)) * SF + 8 * nt + 2 * tq + (e & 1)] = sr[i][e];
+        }
+      }
+    }
+  };
+#endif
   if (!rows_group) {
     const float* s0 = a.s0 ? a.s0 + ((size_t(b) * H + h) * P + p0) * N : nullptr;
 #pragma unroll
@@ -439,7 +470,11 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         sr[i][e] = s0 != nullptr && nt < n_tiles && p < pw ? s0[size_t(p) * N + n] : 0.0f;
       }
     }
+#ifdef SSD_CUDA_CORES
+    store_f32_state();
+#else
     store_split_state();
+#endif
     stage(0, 0);
     cp_async_commit();
   }
@@ -482,6 +517,30 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
 #pragma unroll
         for (int t = 0; t < 4; ++t) cb[t][0] = cb[t][1] = cb[t][2] = cb[t][3] = 0.0f;
         if (16 * rb >= lc) return;
+#if defined(SSD_CB_FP32) || defined(SSD_CUDA_CORES)
+        // on the CUDA cores: each element one fp32 FMA chain over n, in order
+        const int ta = 16 * rb + gq, tb = ta + 8;
+#pragma unroll 1
+        for (int n = 0; n < N; n += 2) {
+          const float2 ca = ld2(cs + ta * NS + n), cc = ld2(cs + tb * NS + n);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (lo + j <= hi) {
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+#pragma unroll
+                for (int c2 = 0; c2 < 2; ++c2) {
+                  const float2 bv = ld2(bs + (16 * (lo + j) + 8 * q + 2 * tq + c2) * NS + n);
+                  float* acc = cb[2 * j + q];
+                  acc[c2] = __fmaf_rn(ca.y, bv.y, __fmaf_rn(ca.x, bv.x, acc[c2]));
+                  acc[2 + c2] = __fmaf_rn(cc.y, bv.y, __fmaf_rn(cc.x, bv.x, acc[2 + c2]));
+                }
+              }
+            }
+          }
+        }
+        return;
+#endif
         // two k16 steps an iteration, their fragments loaded first (np is a
         // multiple of 16; an odd last step runs alone); not unrolled further,
         // which held more registers and measured slower
@@ -616,6 +675,64 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         }
       };
 
+#ifdef SSD_CUDA_CORES
+      float cb0[4][4], cb1[4][4];
+      cb_tiles(cb0, rb0, lo0, hi0);
+      if (has1) cb_tiles(cb1, w, 0, w);
+      bar_sync(kBarCum, kThreads);  // cum, exp(cum) and (C e) @ S_prev^T of this chunk
+      // M = CB * exp(cum_t - cum_s) * dt_s into shared memory (the blocks
+      // above the diagonal stay 0 from the start)
+      auto store_m = [&](float (&cb)[4][4], int rb, int lo, int hi) {
+        const int ta = 16 * rb + gq;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (lo + j <= hi) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int t = ta + 8 * (e >> 1), s = 16 * (lo + j) + 8 * q + 2 * tq + (e & 1);
+                const float m = cb[2 * j + q][e];
+                ms_s[t * (kL + 1) + s] =
+                    s <= t ? __fmul_rn(__fmul_rn(m, expf(__fsub_rn(cum[t], cum[s]))), dts[s])
+                           : 0.0f;
+              }
+            }
+          }
+        }
+      };
+      store_m(cb0, rb0, lo0, hi0);
+      if (has1) store_m(cb1, w, 0, w);
+      bar_sync(kBarPart, 32 * kWarps);  // M complete
+      {
+        // y = M @ X + (C e) @ S_prev^T: 8 state rows of one chunk row a thread,
+        // M @ X one FMA chain over all kL rows s in order
+        const int t = tid >> 1, pb = 8 * (tid & 1);
+        if (t < lc) {
+          float acc[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+#pragma unroll 4
+          for (int s2 = 0; s2 < kL; ++s2) {
+            const float m = ms_s[t * (kL + 1) + s2];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(m, ldf(xs + s2 * XS + pb + j), acc[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int p = pb + j;
+            if (p < pw) {
+              const float v = __fadd_rn(acc[j], yi_s[t * kYS + p]);
+              if constexpr (kSplitIn) {
+                yg[(size_t(t0 + t) * H) * P + p] = v;
+              } else {
+                yg[(size_t(t0 + t) * H) * P + p] = __float2bfloat16_rn(v);
+              }
+            }
+          }
+        }
+      }
+#else
       float cb0[4][4], cb1[4][4], yo[2][4];
       cb_tiles(cb0, rb0, lo0, hi0);
       if (has1) cb_tiles(cb1, w, 0, w);
@@ -642,6 +759,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         store_y(yo, rb0, slot);
       }
       CHUNK_STAMP(3);
+#endif
     } else {
       if (w == 0 && lane == 0) {
         // cum: the inclusive prefix sum of alpha = dt * a in torch.cumsum's
@@ -680,25 +798,83 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
           wts[t] = dts[t] * expf(total - cum[t]);
         }
       }
+#ifdef SSD_CUDA_CORES
+      bar_sync(kBarState, 32 * kWarps);  // exp(cum) of this chunk
+      {
+        // (C e) @ S_prev^T, e = exp(cum): 8 state rows of one chunk row a
+        // thread, one FMA chain over n in order
+        const int st = tid - 32 * kWarps, t = st >> 1, pb = 8 * (st & 1);
+        if (t < lc) {
+          float acc[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+          const float e_t = ecum[t];
+#pragma unroll 4
+          for (int n = 0; n < N; ++n) {
+            const float ce = __fmul_rn(ldf(cs + t * NS + n), e_t);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(ce, sf_s[(pb + j) * SF + n], acc[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) yi_s[t * kYS + pb + j] = acc[j];
+        }
+      }
+      __threadfence_block();
+      bar_arrive(kBarCum, kThreads);
+      if (c + 1 < n_chunks) {
+        stage(c + 1, buf ^ 1);
+        cp_async_commit();
+      }
+      // the carry: S = exp(total) S + xw^T @ B, each element one FMA chain
+      // over the chunk's rows s in order
+      for (int i = tid - 32 * kWarps; i < kL * kPT; i += 32 * kWarps) {
+        const int s2 = i / kPT, pp = i % kPT;
+        xwf_s[s2 * (kPT + 1) + pp] = __fmul_rn(ldf(xs + s2 * XS + pp), wts[s2]);
+      }
+      bar_sync(kBarState, 32 * kWarps);  // xw, and every read of S_prev done
+      {
+        const float etot = expf(cum[kL - 1]);
+#pragma unroll
+        for (int i = 0; i < kNTW; ++i) {
+          const int nt = w + kWarps * i;
+          if (nt < n_tiles) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int pp = gq + 8 * (e >> 1), n = 8 * nt + 2 * tq + (e & 1);
+              float u = 0.0f;
+#pragma unroll 4
+              for (int s2 = 0; s2 < kL; ++s2) {
+                u = __fmaf_rn(xwf_s[s2 * (kPT + 1) + pp], ldf(bs + s2 * NS + n), u);
+              }
+              sr[i][e] = __fadd_rn(__fmul_rn(etot, sr[i][e]), u);
+            }
+          }
+        }
+      }
+      store_f32_state();
+#else
       // C @ S_prev^T for chunk rows 16w..16w + 15 and the tile's 16 state
       // rows, one k16 step of n at a time; each part of the split state in
       // its own accumulator, summed at the end, the small parts first (the
       // hi part's chain by mma_add measured no change in the rounding lean)
       if (16 * w < lc) {
+        const int soff = ((lane & 7) + 8 * (lane >> 4)) * SS + 8 * ((lane >> 3) & 1);
+#ifdef SSD_PR15_CS
+        // PR 15's chains (tools/ssd_drift.py): each part chained over the
+        // k16 steps into an accumulator of its own
         float yp[3][2][4];
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) yp[q][0][e] = yp[q][1][e] = 0.0f;
         }
-        const int soff = ((lane & 7) + 8 * (lane >> 4)) * SS + 8 * ((lane >> 3) & 1);
 #pragma unroll 2
         for (int k = 0; k < o.np; k += 16) {
           uint32_t ah[4], al[4];
           load_c_frag(cs, 16 * w, k, ah, al);
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
-            uint32_t sq[4];  // b0, b1 of state-row tiles pn = 0, 1: the split state's rows p
+            uint32_t sq[4];
             ldsm4(sq, s_part(q) + soff + k);
 #pragma unroll
             for (int pn = 0; pn < 2; ++pn) {
@@ -708,14 +884,50 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
           }
         }
 #pragma unroll
+        for (int pn = 0; pn < 2; ++pn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) yp[0][pn][e] = yp[0][pn][e] + (yp[1][pn][e] + yp[2][pn][e]);
+        }
+        float (&ys)[2][4] = yp[0];
+#else
+        // one k16 step's products of all three parts (small parts first)
+        // summed from zero, the steps added in IEEE fp32: an mma cuts its
+        // sum toward zero at the largest term, so chained over the 8 steps
+        // at N = 128 a part's sum lost up to an ulp of itself at each
+        float ys[2][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ys[0][e] = ys[1][e] = 0.0f;
+#pragma unroll 2
+        for (int k = 0; k < o.np; k += 16) {
+          uint32_t ah[4], al[4];
+          load_c_frag(cs, 16 * w, k, ah, al);
+          float st[2][4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[0][e] = st[1][e] = 0.0f;
+#pragma unroll
+          for (int q = 2; q >= 0; --q) {
+            uint32_t sq[4];  // b0, b1 of state-row tiles pn = 0, 1: the split state's rows p
+            ldsm4(sq, s_part(q) + soff + k);
+#pragma unroll
+            for (int pn = 0; pn < 2; ++pn) {
+              if (kSplitIn && q == 0) mma(st[pn], al, sq[2 * pn], sq[2 * pn + 1]);
+              mma(st[pn], ah, sq[2 * pn], sq[2 * pn + 1]);
+            }
+          }
+#pragma unroll
+          for (int pn = 0; pn < 2; ++pn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ys[pn][e] = __fadd_rn(ys[pn][e], st[pn][e]);
+          }
+        }
+#endif
+#pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int t = 16 * w + gq + 8 * half;
 #pragma unroll
           for (int pn = 0; pn < 2; ++pn) {
-            float2 v;
-            v.x = yp[0][pn][2 * half] + (yp[1][pn][2 * half] + yp[2][pn][2 * half]);
-            v.y = yp[0][pn][2 * half + 1] + (yp[1][pn][2 * half + 1] + yp[2][pn][2 * half + 1]);
-            *reinterpret_cast<float2*>(yi_s + t * kYS + 8 * pn + 2 * tq) = v;
+            *reinterpret_cast<float2*>(yi_s + t * kYS + 8 * pn + 2 * tq) =
+                make_float2(ys[pn][2 * half], ys[pn][2 * half + 1]);
           }
         }
       }
@@ -782,11 +994,21 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
 #pragma unroll
               for (int q = 0; q < 2; ++q) {
                 if (q == 0 || ntb < n_tiles) {
-                  float (&acc)[4] = u[i + q];
+#ifdef SSD_PR15_CARRY
+                  float (&acc)[4] = u[i + q];  // PR 15: chained over the k16 steps
+#else
+                  // this k16 step's products summed from zero, then added
+                  // to u in IEEE fp32 (as C @ S_prev^T above)
+                  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#endif
                   mma(acc, xq[2], bh[2 * q], bh[2 * q + 1]);
                   mma(acc, xq[1], bh[2 * q], bh[2 * q + 1]);
                   if constexpr (kSplitIn) mma(acc, xq[0], bl[2 * q], bl[2 * q + 1]);
                   mma(acc, xq[0], bh[2 * q], bh[2 * q + 1]);
+#ifndef SSD_PR15_CARRY
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) u[i + q][e] = __fadd_rn(u[i + q][e], acc[e]);
+#endif
                 }
               }
             }
@@ -803,6 +1025,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
       CHUNK_STAMP(3);
       store_split_state();
       CHUNK_STAMP(4);
+#endif
     }
   }
 #undef CHUNK_STAMP

@@ -43,7 +43,13 @@ def library():
     """Build (at first use) and load the kernel library; returns ``Built``."""
     from repro_torch.kernels._build import build
 
-    built = build(SOURCE)
+    return bind(build(SOURCE))
+
+
+def bind(built):
+    """Declare the C entries' argument types on a built library (also a
+    copy built with other ``-D`` macros, as ``tools/ssd_drift.py`` builds
+    them); returns it."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     i64 = ctypes.c_longlong
     built.lib.ssd_scan.argtypes = [ptr] * 8 + [i64] * 4 + [i32] * 8 + [ptr]
