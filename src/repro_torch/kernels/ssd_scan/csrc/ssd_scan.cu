@@ -1,4 +1,4 @@
-// Chunked Mamba-2 SSD scan for Hopper (sm_90a), on the tensor cores.
+// Chunked Mamba-2 SSD scan for Hopper (sm_90a), on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan/ssd_scan.py
 // `ssd_scan` (body `_ssd_kernel`).  Per batch row b and head h, with the
@@ -7,7 +7,7 @@
 // computed chunk by chunk (L steps each), with cum the inclusive prefix sum
 // of alpha inside the chunk:
 //     intra:  y  = [tril(exp(cum_t - cum_s)) * (C B^T) * dt_s] @ X
-//     inter:  y += exp(cum) * (C @ S_prev^T)
+//     inter:  y += (C * exp(cum)) @ S_prev^T
 //     carry:  S  = exp(cum_L) S_prev + (X * dt * exp(cum_L - cum))^T @ B
 // x, B and C arrive in the model dtype; dt and a are fp32; S is fp32
 // throughout; y is rounded once to x's dtype.  The plain version
@@ -25,68 +25,54 @@
 //
 // What bounds it on this card.  At mamba2-130m's prefill shape (B=8, T=512,
 // H=24, P=64, N=128, L=64) a call must move 34 MB (x and y in bf16, B, C,
-// dt and the fp32 final state): 10 us at 3.35 TB/s.  Its 4.5 GFLOP of chunk
-// products take 4.5 us on the bf16 tensor cores, so the bytes bound it.
+// dt and the fp32 final state): 10 us at 3.35 TB/s.  Its 4.5 GFLOP of fp32
+// chunk products (with C B^T's lower triangle once per head) take 67 us at
+// the 67 TFLOP/s of the CUDA cores: the operations bound it.
 //
-// What the design does about it.
-//   * Many CTAs per head: one CTA per (batch row, head, tile of kPT = 16
-//     state rows p), 768 CTAs at the serving shape (192 before).  Both
-//     outputs depend on the CTA's own S tile only:
-//         y[:, tile]  = M @ X[:, tile] + exp(cum) * (C @ S[tile]^T)
+// Why the CUDA cores.  Every element of the four products is one fp32 FMA
+// chain over its sum index in ascending order, and every elementwise step
+// is the plain version's operation in its order: that is what cuBLAS
+// computes for the plain version's einsums on this card (fp32, TF32 off),
+// so kernel and plain version agree bit for bit (tools/ssd_drift.py:
+// no bf16 y of mamba2-130m's prefill rounds apart).  PR 15's kernel ran
+// the products on the tensor cores (mma.sync, fp32 operands split into
+// three bf16 parts): 0.149 ms a launch, but an mma truncates its sum
+// toward zero, 6.5e-5 of the bf16 y rounded apart from the plain
+// version's, and mamba2-130m's teacher-forced logits drifted 3.9-4.1% of
+// the largest |logit| from the plain path's over 24 layers (0 now).  C B^T
+// alone on the CUDA cores halved the roundings apart (2.7e-5) and left
+// 2.8-3.3%: only matching every product brought the drift down.
+//
+// What the design does about the operations.
+//   * One CTA per (batch row, head, tile of kPT = 16 state rows p): 768
+//     CTAs at the serving shape, 2 per SM.  Both outputs depend on the
+//     CTA's own S tile only:
+//         y[:, tile]  = M @ X[:, tile] + (C e) @ S[tile]^T
 //         S[tile]     = exp(total) S[tile] + xw[:, tile]^T @ B
-//     so CTAs never talk.  M = tril(exp(cum_t - cum_s)) * (C B^T) * dt_s
-//     is recomputed by each tile's CTA: 64 x 64 x 128 multiply-adds per
-//     chunk on the tensor cores.
-//   * The four products run on the tensor cores (mma.sync m16n8k16, bf16
-//     in, fp32 accumulation).  bf16 operands (x, B, C of a bf16 model) are
-//     exact and enter once.  An fp32 operand the kernel derives (M, S, xw)
-//     is split exactly into three bf16 parts, hi + mid + lo = its 24 bits,
-//     and a product is the sum of each part times the other operand's high
-//     part: fp32 products, fp32 sums.  (A two-part split, 16 bits, with cum
-//     summed in another order, drifted mamba2-130m's teacher-forced logits
-//     5% from the plain path's over 24 layers.)  fp32 x, B and C (the fp32
-//     instantiation) are split into hi + lo, and their low parts meet the
-//     other operand's high part.
-//   * An mma's fp32 sum is truncated toward zero, not rounded.  Chained
-//     into one accumulator (the small parts' products into the hi sum, a
-//     chunk's carry into S, k step after k step), that made 65-67% of the
-//     bf16 y values that round apart from the plain version lie toward
-//     zero, a lean every later layer carries on.  So the small parts'
-//     products have accumulators of their own, the carry is summed apart
-//     from S, and the high parts' products of C B^T (8 k16 steps at N =
-//     128) and M @ X start from zero at every k16 step, added in IEEE fp32
-//     (mma_add); the lean left, 53-56%, is the truncation inside one step's
-//     sum (chip_smoke.py holds it under 55% over its cases).
+//     so CTAs never talk; each recomputes M = tril(exp(cum_t - cum_s)) *
+//     (C B^T) * dt_s of its head.
 //   * Eight warps in two groups that run side by side, meeting at one CTA
-//     barrier and one named barrier (cum and C @ S_prev^T ready) a chunk.
-//     The row group (warps 0-3) computes C B^T, M, M @ X and y.  The lower
-//     triangle is cut into (row block, column pair) units, three at most
-//     per warp: warp 0 takes block 0 and half of block 3, warp 1 block 1
-//     and a third of block 2, warps 2 and 3 the rest of blocks 2 and 3,
-//     adding the partial M @ X the others leave in shared memory.  M stays
-//     in registers: the accumulator layout of two 8-column tiles is the
-//     A-operand layout of a 16-deep step.  The state group (warps 4-7)
-//     stages the chunks, forms cum, computes C @ S_prev^T for the row group
-//     and runs the carry; warp 4 + v owns S columns n in 8-wide tiles v,
-//     v + 4, ...: S stays in those fp32 accumulator registers across all
-//     chunks and reaches device memory once, as the final state.  Its
-//     three-part bf16 copy in shared memory feeds C @ S_prev^T; xw is split
-//     once a chunk into shared memory for all four state warps.  Clock
-//     stamps showed why (tools/kernel_probe.py): with four warps doing
-//     everything in turn, a chunk took 17,000 cycles, 8,400 of them from
-//     the end of C B^T to the end of the carry, set by the triangle's
-//     longest rows.
-//   * bf16 fragments come from shared memory by ldmatrix (.trans where the
-//     operand is stored the other way round): one instruction for four
-//     8x8 tiles.
+//     barrier and one named barrier (cum and (C e) @ S_prev^T ready) a
+//     chunk.  The row group (warps 0-3) computes C B^T (a thread owns 4
+//     rows x 8 columns, columns 8 apart so a warp's loads of B hit
+//     different banks; a column block wholly above the diagonal is
+//     skipped), writes M to shared memory, then M @ X and y (a thread owns
+//     8 state rows of one chunk row).  The state group (warps 4-7) stages
+//     the chunks, forms cum, computes (C e) @ S_prev^T and runs the carry;
+//     thread t of it owns S row t / 8, columns 16 (t % 8) .. + 15, in
+//     registers across all chunks, with an fp32 copy in shared memory for
+//     (C e) @ S_prev^T.
+//   * Each inner loop loads 4 or 8 consecutive elements of a row at once
+//     and keeps the partial sums in registers: 32 FMAs per 12 loads in
+//     C B^T, 8 per load in M @ X, 32 per 9 in (C e) @ S_prev^T, 16 per 3 in
+//     the carry.
 //   * Staging is double-buffered with cp.async (16-byte copies of x, B and
 //     C at their model dtype, 4-byte copies of dt): the next chunk lands
 //     while this one computes.  cum is a sequential sum in torch.cumsum's
 //     order (below); exp(cum) and the carry weights dt * exp(total - cum)
 //     are computed once per chunk.
-//   * Shared-memory rows are padded so the fragment loads of a warp hit 32
-//     different banks.  About 105 KB per CTA in bf16 (2 CTAs, 16 warps per
-//     SM); 128 registers a thread, the most 2 CTAs of 256 threads allow.
+//   * About 112 KB of shared memory per CTA in bf16 (2 CTAs, 16 warps per
+//     SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,11 +86,15 @@ namespace {
 enum DType { kF32 = 0, kBF16 = 1 };
 
 constexpr int kWarps = 4;                  // warps in each group
-constexpr int kThreads = 64 * kWarps;      // the row group, then the state group
+constexpr int kGroup = 32 * kWarps;        // threads in each group
+constexpr int kThreads = 2 * kGroup;       // the row group, then the state group
 constexpr int kL = 16 * kWarps;            // chunk rows a CTA holds (the largest chunk)
 constexpr int kPT = 16;                    // state rows p per CTA
 constexpr int kMaxN = 128;                 // state columns at most
-constexpr int kNTW = kMaxN / 8 / kWarps;   // S column tiles per state warp
+constexpr int kSN = kMaxN * kPT / kGroup;  // S columns a state thread owns (16)
+constexpr int kYS = kPT + 4;               // row stride of (C e) @ S_prev^T (floats)
+constexpr int kMS = kL + 1;                // row stride of M (floats)
+constexpr int kXW = kPT + 1;               // row stride of xw (floats)
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
@@ -123,139 +113,70 @@ struct SsdArgs {
 
 // Byte offsets of the shared-memory carve-up and the padded row lengths
 // (in elements): two stage buffers of x [kL][xs], B and C [kL][ns] at the
-// model dtype and dt [kL]; the split state, hi, mid and lo [kPT][ss]
-// (bf16); the carry's xw = x * dt * exp(total - cum) split the same way
-// [3][kL][kXW] (bf16); cum, exp(cum) and the carry weights [kL]; C @ S_prev^T
-// [kL][kYS] fp32, from the state group to the row group; two partial
-// M @ X blocks [2][16][kYS] fp32, between row warps.
-constexpr int kYS = kPT + 4;  // row stride of C @ S_prev^T (floats)
-constexpr int kXW = kPT + 8;  // row stride of the split xw (bf16)
+// model dtype and dt [kL]; cum, exp(cum) and the carry weights [kL];
+// (C e) @ S_prev^T [kL][kYS], from the state group to the row group; M
+// [kL][kMS]; S [kPT][sf] and xw [kL][kXW], fp32.
 struct SsdLayout {
-  size_t x, b, c, dt, stage, split, part, xw, xw_part, cum, ecum, w, yi, yp, total;
-  size_t ms, sf, xwf;  // SSD_CUDA_CORES only: M, S and xw in fp32
-  int np, xs, ns, ss;
+  size_t x, b, c, dt, stage, cum, ecum, w, yi, m, s, xw, total;
+  int np, xs, ns, sf;
 };
 
 __host__ __device__ inline SsdLayout ssd_layout(int N, int esize) {
   SsdLayout o;
   const int pad = 16 / esize;  // rows stay 16-byte aligned and shift by 4 banks
-  o.np = (N + 15) & ~15;       // N rounded up to a whole k16 step (zero columns)
+  o.np = (N + 15) & ~15;       // N rounded up to 16 (zero columns)
   o.xs = kPT + pad;
   o.ns = o.np + pad;
-  o.ss = o.np + 8;
+  o.sf = o.np + 4;
   o.x = 0;
   o.b = align16(size_t(kL) * o.xs * esize);
   o.c = o.b + align16(size_t(kL) * o.ns * esize);
   o.dt = o.c + align16(size_t(kL) * o.ns * esize);
   o.stage = o.dt + align16(kL * sizeof(float));
-  o.part = align16(size_t(kPT) * o.ss * 2);  // bytes of one part
-  o.split = 2 * o.stage;                       // [3 parts]
-  o.xw_part = align16(size_t(kL) * kXW * 2);
-  o.xw = o.split + 3 * o.part;                 // [3 parts]
-  o.cum = o.xw + 3 * o.xw_part;
+  o.cum = 2 * o.stage;
   o.ecum = o.cum + kL * sizeof(float);
   o.w = o.ecum + kL * sizeof(float);
   o.yi = o.w + kL * sizeof(float);
-  o.yp = o.yi + size_t(kL) * kYS * sizeof(float);
-  o.total = align16(o.yp + size_t(32) * kYS * sizeof(float));
-#ifdef SSD_CUDA_CORES
-  o.ms = o.total;
-  o.sf = align16(o.ms + size_t(kL) * (kL + 1) * sizeof(float));
-  o.xwf = align16(o.sf + size_t(kPT) * (o.np + 1) * sizeof(float));
-  o.total = align16(o.xwf + size_t(kL) * (kPT + 1) * sizeof(float));
-#endif
+  o.m = align16(o.yi + size_t(kL) * kYS * sizeof(float));
+  o.s = align16(o.m + size_t(kL) * kMS * sizeof(float));
+  o.xw = align16(o.s + size_t(kPT) * o.sf * sizeof(float));
+  o.total = align16(o.xw + size_t(kL) * kXW * sizeof(float));
   return o;
 }
 
 // ---- helpers ---------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (x0, x1) -> bf16 pairs hi = bf16(x), lo = bf16(x - hi); the element with
-// the lower index in the low half, as mma expects.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y)));
-}
-
-// (x0, x1) -> three bf16 pairs with hi + mid + lo == x exactly: each
-// residual is exact in fp32, and the last has at most 8 significant bits.
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = __fsub_rn(x0, hf.x), r1 = __fsub_rn(x1, hf.y);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  hi = bf16x2_bits(h);
-  mid = bf16x2_bits(m);
-  lo = bf16x2_bits(__floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y)));
-}
-
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// An operand pair of two adjacent elements p[0], p[1] (hi, and lo for fp32).
-__device__ __forceinline__ void frag_adj(const __nv_bfloat16* p, uint32_t& hi, uint32_t& lo) {
-  hi = *reinterpret_cast<const uint32_t*>(p);
-  lo = 0;
-}
-__device__ __forceinline__ void frag_adj(const float* p, uint32_t& hi, uint32_t& lo) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  split2(v.x, v.y, hi, lo);
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// An operand pair of two elements at p0 and p1 (rows apart).
-__device__ __forceinline__ void frag_two(const __nv_bfloat16* p0, const __nv_bfloat16* p1,
-                                         uint32_t& hi, uint32_t& lo) {
-  hi = uint32_t(__bfloat16_as_ushort(*p0)) | (uint32_t(__bfloat16_as_ushort(*p1)) << 16);
-  lo = 0;
+// 4 (8) consecutive elements from shared memory, 8 (16)-byte aligned in bf16.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
 }
-__device__ __forceinline__ void frag_two(const float* p0, const float* p1, uint32_t& hi,
-                                         uint32_t& lo) {
-  split2(*p0, *p1, hi, lo);
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = unpack(q.x), b = unpack(q.y);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
 }
-
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulation.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm(  // a pure function of its operands: the compiler may schedule it
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <typename E>
+__device__ __forceinline__ void load8(const E* p, float* v) {
+  load4(p, *reinterpret_cast<float(*)[4]>(v));
+  load4(p + 4, *reinterpret_cast<float(*)[4]>(v + 4));
 }
 
-// d += a * b as a sum of its own: the mma starts from zero and its result
-// is added to d in IEEE fp32.  An mma truncates its sum toward zero (terms
-// aligned to the largest, the result not rounded), so a chain of mmas into
-// one accumulator drops a part of an ulp of the running sum at every step,
-// always toward zero; from zero it drops it of this step's products only,
-// and the adds round to nearest.
-__device__ __forceinline__ void mma_add(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma(s, a, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], s[e]);
-}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -268,22 +189,8 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// ldmatrix: four 8x8 b16 tiles; lane l gives the address of row l % 8 of
-// tile l / 8 and receives, of tile j in r[j], (row l / 4, cols 2(l % 4),
-// 2(l % 4) + 1), or with .trans (rows 2(l % 4), 2(l % 4) + 1, col l / 4)
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Named barrier `id` over `n` threads: sync waits, arrive only counts.
@@ -293,13 +200,9 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
-constexpr int kBarCum = 1;    // cum and exp(cum) of the chunk ready (state -> rows)
-constexpr int kBarState = 2;  // warp 4's cum and weights ready (the state group)
-constexpr int kBarPart = 3;   // partial M @ X of row blocks 2 and 3 ready (row warps)
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+constexpr int kBarCum = 1;    // cum, exp(cum) and (C e) @ S_prev^T ready (state -> rows)
+constexpr int kBarState = 2;  // within the state group: exp(cum), then xw, ready
+constexpr int kBarM = 3;      // within the row group: M ready
 
 __device__ __forceinline__ void zero_bytes(unsigned char* p, size_t bytes) {  // 16-byte units
   for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads) {
@@ -309,27 +212,22 @@ __device__ __forceinline__ void zero_bytes(unsigned char* p, size_t bytes) {  //
 
 // ---- the kernel ------------------------------------------------------------
 
-// E: element type of x, B, C and y (fp32 or bf16).  Fragment layouts of
-// mma.m16n8k16 (g = lane / 4, q = lane % 4): A a0 (row g, k 2q..2q+1), a1
-// (row g + 8), a2 (k + 8), a3 (row g + 8, k + 8); B b0 (k 2q..2q+1, col
-// g), b1 (k + 8); C c0, c1 (row g, cols 2q, 2q + 1), c2, c3 (row g + 8).
+// E: element type of x, B, C and y (fp32 or bf16).
 template <typename E>
 __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) {
-  constexpr bool kSplitIn = sizeof(E) == 4;  // fp32 x, B, C: split into hi + lo too
-  constexpr int kEpu = 16 / sizeof(E);        // elements per 16-byte copy
+  constexpr int kEpu = 16 / sizeof(E);  // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int P = a.P, N = a.N, T = a.T, H = a.H, L = a.L;
   const SsdLayout o = ssd_layout(N, sizeof(E));
-  const int XS = o.xs, NS = o.ns, SS = o.ss;
+  const int XS = o.xs, NS = o.ns, SF = o.sf;
   const int n_pt = (P + kPT - 1) / kPT;
   const int bh = blockIdx.x / n_pt, pt = blockIdx.x - bh * n_pt;
   const int b = bh / H, h = bh - b * H, grp = h / (H / a.G);
   const int p0 = pt * kPT, pw = min(kPT, P - p0);  // this CTA's state rows
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
   const bool rows_group = warp < kWarps;
   const int w = rows_group ? warp : warp - kWarps;  // the warp's index in its group
-  const int n_tiles = N / 8;
+  const int st = tid - kGroup;                      // the thread's index in the state group
   const float a_h = a.a[h];
   const E* xg = static_cast<const E*>(a.x) + size_t(b) * a.x_sb + size_t(h) * P + p0;
   const E* bg = static_cast<const E*>(a.bm) + size_t(b) * a.bc_sb + size_t(grp) * N;
@@ -339,37 +237,16 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
   float* ecum = reinterpret_cast<float*>(smem + o.ecum);
   float* wts = reinterpret_cast<float*>(smem + o.w);
   float* yi_s = reinterpret_cast<float*>(smem + o.yi);  // [kL][kYS]
-  float* yp_s = reinterpret_cast<float*>(smem + o.yp);  // [2][16][kYS]
+  float* m_s = reinterpret_cast<float*>(smem + o.m);    // [kL][kMS]
+  float* s_s = reinterpret_cast<float*>(smem + o.s);    // [kPT][SF]
+  float* xw_s = reinterpret_cast<float*>(smem + o.xw);  // [kL][kXW]
   auto x_s = [&](int buf) { return reinterpret_cast<E*>(smem + buf * o.stage + o.x); };
   auto b_s = [&](int buf) { return reinterpret_cast<E*>(smem + buf * o.stage + o.b); };
   auto c_s = [&](int buf) { return reinterpret_cast<E*>(smem + buf * o.stage + o.c); };
   auto dt_s = [&](int buf) { return reinterpret_cast<float*>(smem + buf * o.stage + o.dt); };
-  // part 0 (hi), 1 (mid), 2 (lo) of the split state, [kPT][SS], and of
-  // the split xw, [kL][kXW] (bf16); only the state group reads or writes them
-  auto s_part = [&](int part) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + o.split + part * o.part);
-  };
-  auto xw_part = [&](int part) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + o.xw + part * o.xw_part);
-  };
 
-  // the A operand of C, chunk rows r0..r0 + 15, k step k: ldmatrix for bf16,
-  // hi + lo pairs for fp32
-  auto load_c_frag = [&](const E* cs, int r0, int k, uint32_t (&ah)[4], uint32_t (&al)[4]) {
-    if constexpr (kSplitIn) {
-      const E* cp = cs + (r0 + gq) * NS + k + 2 * tq;
-      frag_adj(cp, ah[0], al[0]);
-      frag_adj(cp + 8 * NS, ah[1], al[1]);
-      frag_adj(cp + 8, ah[2], al[2]);
-      frag_adj(cp + 8 * NS + 8, ah[3], al[3]);
-    } else {
-      ldsm4(ah, cs + (r0 + (lane & 15)) * NS + k + 8 * (lane >> 4));
-      al[0] = al[1] = al[2] = al[3] = 0;
-    }
-  };
-
-  // every pad row and column reads as 0 (x past pw, B and C past N, the
-  // split state past N, rows past L); staging writes only real elements
+  // every pad row and column reads as 0 (x past pw, B and C past N, M
+  // above the diagonal, rows past L); staging writes only real elements
   zero_bytes(smem, o.total);
   __syncthreads();
 
@@ -421,60 +298,23 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
     }
   };
 
-  // the state group's S tile in accumulator layout: sr[i] is column tile
-  // nt = w + 4i, elements (p = gq, gq + 8) x (n = 8nt + 2tq, + 1)
-  float sr[kNTW][4];
-  auto store_split_state = [&]() {
+  // the state group's S: row sp, columns n0 .. n0 + kSN - 1 (those below N),
+  // in registers across all chunks; its fp32 copy in shared memory feeds
+  // (C e) @ S_prev^T
+  const int sp = st >> 3, n0 = kSN * (st & 7);
+  const int sn = rows_group ? 0 : max(0, min(kSN, N - n0));
+  float sr[kSN];
+  auto store_state = [&]() {
 #pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      const int nt = w + kWarps * i;
-      if (nt < n_tiles) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int off = (gq + 8 * half) * SS + 8 * nt + 2 * tq;
-          uint32_t hi, mid, lo;
-          split3(sr[i][2 * half], sr[i][2 * half + 1], hi, mid, lo);
-          *reinterpret_cast<uint32_t*>(s_part(0) + off) = hi;
-          *reinterpret_cast<uint32_t*>(s_part(1) + off) = mid;
-          *reinterpret_cast<uint32_t*>(s_part(2) + off) = lo;
-        }
-      }
+    for (int j = 0; j < kSN; ++j) {
+      if (j < sn) s_s[sp * SF + n0 + j] = sr[j];
     }
   };
-#ifdef SSD_CUDA_CORES
-  float* ms_s = reinterpret_cast<float*>(smem + o.ms);    // [kL][kL + 1]
-  float* sf_s = reinterpret_cast<float*>(smem + o.sf);    // [kPT][np + 1]
-  float* xwf_s = reinterpret_cast<float*>(smem + o.xwf);  // [kL][kPT + 1]
-  const int SF = o.np + 1;
-  auto store_f32_state = [&]() {
-#pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      const int nt = w + kWarps * i;
-      if (nt < n_tiles) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sf_s[(gq + 8 * (e >> 1)) * SF + 8 * nt + 2 * tq + (e & 1)] = sr[i][e];
-        }
-      }
-    }
-  };
-#endif
   if (!rows_group) {
-    const float* s0 = a.s0 ? a.s0 + ((size_t(b) * H + h) * P + p0) * N : nullptr;
+    const float* s0 = a.s0 ? a.s0 + ((size_t(b) * H + h) * P + p0 + sp) * N + n0 : nullptr;
 #pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      const int nt = w + kWarps * i;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = gq + 8 * (e >> 1), n = 8 * nt + 2 * tq + (e & 1);
-        sr[i][e] = s0 != nullptr && nt < n_tiles && p < pw ? s0[size_t(p) * N + n] : 0.0f;
-      }
-    }
-#ifdef SSD_CUDA_CORES
-    store_f32_state();
-#else
-    store_split_state();
-#endif
+    for (int j = 0; j < kSN; ++j) sr[j] = s0 != nullptr && j < sn && sp < pw ? s0[j] : 0.0f;
+    store_state();
     stage(0, 0);
     cp_async_commit();
   }
@@ -489,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
   for (int c = 0; c < n_chunks; ++c) {
     const int buf = c & 1, t0 = c * L, lc = min(L, T - t0);
     if (!rows_group) cp_async_wait_all();  // chunk c: the one group in flight
-    __syncthreads();  // chunk c staged, S_prev split, chunk c - 1 done
+    __syncthreads();  // chunk c staged, S_prev stored, chunk c - 1 done
     CHUNK_STAMP(0);
     const E* xs = x_s(buf);
     const E* bs = b_s(buf);
@@ -497,269 +337,81 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
     const float* dts = dt_s(buf);
 
     if (rows_group) {
-      // The lower triangle in units of (row block rb, column pair kk <= rb):
-      // block rb has rb + 1 of them, so each warp takes a share: warp 0
-      // block 0 and pairs 0-1 of block 3, warp 1 block 1 and pair 0 of
-      // block 2, warp 2 pairs 1-2 of block 2, warp 3 pairs 2-3 of block 3
-      // (three units at most, four for one warp before).  Warps 0 and 1
-      // hand their partial M @ X of blocks 3 and 2 over in shared memory.
-      // Segment 0: (rb0, pairs lo0..hi0); warps 0 and 1 also segment 1:
-      // their own block, pairs 0..w.
-      const int rb0 = w == 0 ? 3 : w == 1 ? 2 : w;
-      const int lo0 = w == 0 ? 0 : w == 1 ? 0 : w - 1;
-      const int hi0 = w == 0 ? 1 : w == 1 ? 0 : w;
-      const bool part0 = w < 2;      // segment 0 is a partial, finished by warp rb0
-      const bool has1 = w < 2;       // segment 1: block w, pairs 0..w, finished here
-      // C B^T of a segment: column tiles 2lo..2hi + 1 of row block rb, each
-      // k16 step of n added by mma_add (cb[2j + q]: tile 2(lo + j) + q); no
-      // cum
-      auto cb_tiles = [&](float (&cb)[4][4], int rb, int lo, int hi) {
+      // C B^T: rows 4rg .. 4rg + 3, columns cg + 8j; column j is needed
+      // where it is on or below the diagonal of the thread's last row
+      const int rg = tid >> 3, cgc = tid & 7;
+      const int jn = 4 * rg + 3 < cgc ? 0 : min(8, (4 * rg + 3 - cgc) / 8 + 1);
+      float cb[4][8];
 #pragma unroll
-        for (int t = 0; t < 4; ++t) cb[t][0] = cb[t][1] = cb[t][2] = cb[t][3] = 0.0f;
-        if (16 * rb >= lc) return;
-#if defined(SSD_CB_FP32) || defined(SSD_CUDA_CORES)
-        // on the CUDA cores: each element one fp32 FMA chain over n, in order
-        const int ta = 16 * rb + gq, tb = ta + 8;
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cb[i][j] = 0.0f;
+      }
+      if (4 * rg < lc) {
 #pragma unroll 1
-        for (int n = 0; n < N; n += 2) {
-          const float2 ca = ld2(cs + ta * NS + n), cc = ld2(cs + tb * NS + n);
+        for (int n = 0; n < N; n += 4) {
+          float cv[4][4], bv[8][4];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            if (lo + j <= hi) {
-#pragma unroll
-              for (int q = 0; q < 2; ++q) {
-#pragma unroll
-                for (int c2 = 0; c2 < 2; ++c2) {
-                  const float2 bv = ld2(bs + (16 * (lo + j) + 8 * q + 2 * tq + c2) * NS + n);
-                  float* acc = cb[2 * j + q];
-                  acc[c2] = __fmaf_rn(ca.y, bv.y, __fmaf_rn(ca.x, bv.x, acc[c2]));
-                  acc[2 + c2] = __fmaf_rn(cc.y, bv.y, __fmaf_rn(cc.x, bv.x, acc[2 + c2]));
-                }
-              }
-            }
-          }
-        }
-        return;
-#endif
-        // two k16 steps an iteration, their fragments loaded first (np is a
-        // multiple of 16; an odd last step runs alone); not unrolled further,
-        // which held more registers and measured slower
-#pragma unroll 1
-        for (int k = 0; k < o.np; k += 32) {
-          const bool two = k + 16 < o.np;
-          uint32_t ah[2][4], al[2][4];
-          load_c_frag(cs, 16 * rb, k, ah[0], al[0]);
-          if (two) load_c_frag(cs, 16 * rb, k + 16, ah[1], al[1]);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int pr = lo + j;
-            if (pr <= hi) {
-              uint32_t bh[2][4], bl[2][4];
-#pragma unroll
-              for (int ks = 0; ks < 2; ++ks) {
-                if (ks == 0 || two) {
-                  const int kk = k + 16 * ks;
-                  if constexpr (kSplitIn) {
-#pragma unroll
-                    for (int q = 0; q < 2; ++q) {
-                      const E* bp = bs + (16 * pr + 8 * q + gq) * NS + kk + 2 * tq;
-                      frag_adj(bp, bh[ks][2 * q], bl[ks][2 * q]);
-                      frag_adj(bp + 8, bh[ks][2 * q + 1], bl[ks][2 * q + 1]);
-                    }
-                  } else {
-                    ldsm4(bh[ks], bs + (16 * pr + (lane & 7) + 8 * (lane >> 4)) * NS + kk +
-                                      8 * ((lane >> 3) & 1));
-                  }
-                }
-              }
-#pragma unroll
-              for (int ks = 0; ks < 2; ++ks) {
-                if (ks == 0 || two) {
-#pragma unroll
-                  for (int q = 0; q < 2; ++q) {
-                    mma_add(cb[2 * j + q], ah[ks], bh[ks][2 * q], bh[ks][2 * q + 1]);
-                    if constexpr (kSplitIn) {
-                      mma(cb[2 * j + q], ah[ks], bl[ks][2 * q], bl[ks][2 * q + 1]);
-                      mma(cb[2 * j + q], al[ks], bh[ks][2 * q], bh[ks][2 * q + 1]);
-                    }
-                  }
-                }
-              }
-            }
-          }
-        }
-      };
-      // M = CB * exp(cum_t - cum_s) * dt_s on and below the diagonal, 0
-      // above; then M @ X over the segment's pairs into yo.  The high
-      // parts' products go to yo one k16 step at a time (mma_add), the mid
-      // and low parts' into yl, added to yo once in IEEE fp32: added into
-      // the hi sum, an mma would cut their low bits off, always toward zero
-      auto m_times_x = [&](float (&cb)[4][4], int rb, int lo, int hi, float (&yo)[2][4]) {
-        float yl[2][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) yo[0][e] = yo[1][e] = yl[0][e] = yl[1][e] = 0.0f;
-        if (16 * rb >= lc) return;
-        const int ta = 16 * rb + gq, tb = ta + 8;
-        const float cum_a = cum[ta], cum_b = cum[tb];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kk = lo + j;
-          if (kk > hi) break;
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int s0 = 16 * kk + 8 * q + 2 * tq;  // columns s0 and s0 + 1
-            const float2 cs2 = *reinterpret_cast<const float2*>(cum + s0);
-            const float2 ds2 = *reinterpret_cast<const float2*>(dts + s0);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int t = e < 2 ? ta : tb, s = s0 + (e & 1);
-              const float cum_s = e & 1 ? cs2.y : cs2.x, dt_s = e & 1 ? ds2.y : ds2.x;
-              float& m = cb[2 * j + q][e];
-              m = s <= t ? m * expf((e < 2 ? cum_a : cum_b) - cum_s) * dt_s : 0.0f;
-            }
-          }
-          uint32_t mh[4], mm[4], ml[4];
-          split3(cb[2 * j][0], cb[2 * j][1], mh[0], mm[0], ml[0]);
-          split3(cb[2 * j][2], cb[2 * j][3], mh[1], mm[1], ml[1]);
-          split3(cb[2 * j + 1][0], cb[2 * j + 1][1], mh[2], mm[2], ml[2]);
-          split3(cb[2 * j + 1][2], cb[2 * j + 1][3], mh[3], mm[3], ml[3]);
-          uint32_t xh[4], xl[4];  // b0, b1 of state-row tiles pn = 0, 1
-          if constexpr (kSplitIn) {
-#pragma unroll
-            for (int pn = 0; pn < 2; ++pn) {
-              const E* xp = xs + (16 * kk + 2 * tq) * XS + 8 * pn + gq;
-              frag_two(xp, xp + XS, xh[2 * pn], xl[2 * pn]);
-              frag_two(xp + 8 * XS, xp + 9 * XS, xh[2 * pn + 1], xl[2 * pn + 1]);
-            }
-          } else {
-            ldsm4_t(xh, xs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * XS +
-                            8 * (lane >> 4));
-          }
-#pragma unroll
-          for (int pn = 0; pn < 2; ++pn) {
-            mma(yl[pn], ml, xh[2 * pn], xh[2 * pn + 1]);
-            mma(yl[pn], mm, xh[2 * pn], xh[2 * pn + 1]);
-            if constexpr (kSplitIn) mma(yl[pn], mh, xl[2 * pn], xl[2 * pn + 1]);
-            mma_add(yo[pn], mh, xh[2 * pn], xh[2 * pn + 1]);
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          yo[0][e] = __fadd_rn(yo[0][e], yl[0][e]);
-          yo[1][e] = __fadd_rn(yo[1][e], yl[1][e]);
-        }
-      };
-      // y = M @ X (+ a partner's partial) + exp(cum) * (C @ S_prev^T) of
-      // block rb, real rows and columns only
-      auto store_y = [&](float (&yo)[2][4], int rb, const float* partial) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int tl = gq + 8 * half, t = 16 * rb + tl;
-          if (t < lc) {
-            const float e_c = ecum[t];
-#pragma unroll
-            for (int pn = 0; pn < 2; ++pn) {
-              const int p = 8 * pn + 2 * tq;
-              if (p < pw) {
-                float v0 = yo[pn][2 * half], v1 = yo[pn][2 * half + 1];
-                if (partial != nullptr) {
-                  const float2 pp = *reinterpret_cast<const float2*>(partial + tl * kYS + p);
-                  v0 += pp.x;
-                  v1 += pp.y;
-                }
-                const float2 yi = *reinterpret_cast<const float2*>(yi_s + t * kYS + p);
-                store2(yg + (size_t(t0 + t) * H) * P + p, v0 + e_c * yi.x, v1 + e_c * yi.y);
-              }
-            }
-          }
-        }
-      };
-
-#ifdef SSD_CUDA_CORES
-      float cb0[4][4], cb1[4][4];
-      cb_tiles(cb0, rb0, lo0, hi0);
-      if (has1) cb_tiles(cb1, w, 0, w);
-      bar_sync(kBarCum, kThreads);  // cum, exp(cum) and (C e) @ S_prev^T of this chunk
-      // M = CB * exp(cum_t - cum_s) * dt_s into shared memory (the blocks
-      // above the diagonal stay 0 from the start)
-      auto store_m = [&](float (&cb)[4][4], int rb, int lo, int hi) {
-        const int ta = 16 * rb + gq;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (lo + j <= hi) {
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int t = ta + 8 * (e >> 1), s = 16 * (lo + j) + 8 * q + 2 * tq + (e & 1);
-                const float m = cb[2 * j + q][e];
-                ms_s[t * (kL + 1) + s] =
-                    s <= t ? __fmul_rn(__fmul_rn(m, expf(__fsub_rn(cum[t], cum[s]))), dts[s])
-                           : 0.0f;
-              }
-            }
-          }
-        }
-      };
-      store_m(cb0, rb0, lo0, hi0);
-      if (has1) store_m(cb1, w, 0, w);
-      bar_sync(kBarPart, 32 * kWarps);  // M complete
-      {
-        // y = M @ X + (C e) @ S_prev^T: 8 state rows of one chunk row a thread,
-        // M @ X one FMA chain over all kL rows s in order
-        const int t = tid >> 1, pb = 8 * (tid & 1);
-        if (t < lc) {
-          float acc[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-#pragma unroll 4
-          for (int s2 = 0; s2 < kL; ++s2) {
-            const float m = ms_s[t * (kL + 1) + s2];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(m, ldf(xs + s2 * XS + pb + j), acc[j]);
-          }
+          for (int i = 0; i < 4; ++i) load4(cs + (4 * rg + i) * NS + n, cv[i]);
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const int p = pb + j;
-            if (p < pw) {
-              const float v = __fadd_rn(acc[j], yi_s[t * kYS + p]);
-              if constexpr (kSplitIn) {
-                yg[(size_t(t0 + t) * H) * P + p] = v;
-              } else {
-                yg[(size_t(t0 + t) * H) * P + p] = __float2bfloat16_rn(v);
+            if (j < jn) load4(bs + (cgc + 8 * j) * NS + n, bv[j]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                if (j < jn) cb[i][j] = __fmaf_rn(cv[i][k], bv[j][k], cb[i][j]);
               }
             }
           }
         }
       }
-#else
-      float cb0[4][4], cb1[4][4], yo[2][4];
-      cb_tiles(cb0, rb0, lo0, hi0);
-      if (has1) cb_tiles(cb1, w, 0, w);
       CHUNK_STAMP(1);
-      bar_sync(kBarCum, kThreads);  // cum, exp(cum) and C @ S_prev^T of this chunk
+      bar_sync(kBarCum, kThreads);  // cum, exp(cum) and (C e) @ S_prev^T of this chunk
       CHUNK_STAMP(2);
-      m_times_x(cb0, rb0, lo0, hi0, yo);
-      float* slot = yp_s + (rb0 - 2) * 16 * kYS;  // blocks 2 and 3
-      if (part0) {
+      // M = (C B^T * exp(cum_t - cum_s)) * dt_s on and below the diagonal
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+      for (int i = 0; i < 4; ++i) {
+        const int t = 4 * rg + i;
+        if (t < lc) {
 #pragma unroll
-          for (int pn = 0; pn < 2; ++pn) {
-            *reinterpret_cast<float2*>(slot + (gq + 8 * half) * kYS + 8 * pn + 2 * tq) =
-                make_float2(yo[pn][2 * half], yo[pn][2 * half + 1]);
+          for (int j = 0; j < 8; ++j) {
+            const int s = cgc + 8 * j;
+            if (j < jn) {
+              m_s[t * kMS + s] =
+                  s <= t ? __fmul_rn(__fmul_rn(cb[i][j], expf(__fsub_rn(cum[t], cum[s]))), dts[s])
+                         : 0.0f;
+            }
           }
         }
-        __threadfence_block();
-        bar_arrive(kBarPart, 32 * kWarps);
-        m_times_x(cb1, w, 0, w, yo);
-        store_y(yo, w, nullptr);
-      } else {
-        bar_sync(kBarPart, 32 * kWarps);  // the partner's pairs of this block
-        store_y(yo, rb0, slot);
+      }
+      bar_sync(kBarM, kGroup);
+      // y = M @ X + (C e) @ S_prev^T: state rows pb .. pb + 7 of chunk row t
+      const int t = tid >> 1, pb = 8 * (tid & 1);
+      if (t < lc) {
+        float yv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) yv[j] = 0.0f;
+#pragma unroll 2
+        for (int s = 0; s < kL; ++s) {
+          const float m = m_s[t * kMS + s];
+          float xv[8];
+          load8(xs + s * XS + pb, xv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) yv[j] = __fmaf_rn(m, xv[j], yv[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (pb + j < pw) {
+            store1(yg + (size_t(t0 + t) * H) * P + pb + j,
+                   __fadd_rn(yv[j], yi_s[t * kYS + pb + j]));
+          }
+        }
       }
       CHUNK_STAMP(3);
-#endif
     } else {
       if (w == 0 && lane == 0) {
         // cum: the inclusive prefix sum of alpha = dt * a in torch.cumsum's
@@ -798,143 +450,37 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
           wts[t] = dts[t] * expf(total - cum[t]);
         }
       }
-#ifdef SSD_CUDA_CORES
-      bar_sync(kBarState, 32 * kWarps);  // exp(cum) of this chunk
+      bar_sync(kBarState, kGroup);  // exp(cum) of this chunk
       {
-        // (C e) @ S_prev^T, e = exp(cum): 8 state rows of one chunk row a
-        // thread, one FMA chain over n in order
-        const int st = tid - 32 * kWarps, t = st >> 1, pb = 8 * (st & 1);
+        // (C e) @ S_prev^T, e = exp(cum): state rows pb .. pb + 7 of chunk
+        // row t, each one FMA chain over n
+        const int t = st >> 1, pb = 8 * (st & 1);
         if (t < lc) {
           float acc[8];
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
           const float e_t = ecum[t];
-#pragma unroll 4
-          for (int n = 0; n < N; ++n) {
-            const float ce = __fmul_rn(ldf(cs + t * NS + n), e_t);
+#pragma unroll 1
+          for (int n = 0; n < N; n += 4) {
+            float cv[4];
+            load4(cs + t * NS + n, cv);
+            float sv[8][4];
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(ce, sf_s[(pb + j) * SF + n], acc[j]);
+            for (int j = 0; j < 8; ++j) load4(s_s + (pb + j) * SF + n, sv[j]);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float ce = __fmul_rn(cv[k], e_t);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(ce, sv[j][k], acc[j]);
+            }
           }
 #pragma unroll
           for (int j = 0; j < 8; ++j) yi_s[t * kYS + pb + j] = acc[j];
         }
       }
-      __threadfence_block();
-      bar_arrive(kBarCum, kThreads);
-      if (c + 1 < n_chunks) {
-        stage(c + 1, buf ^ 1);
-        cp_async_commit();
-      }
-      // the carry: S = exp(total) S + xw^T @ B, each element one FMA chain
-      // over the chunk's rows s in order
-      for (int i = tid - 32 * kWarps; i < kL * kPT; i += 32 * kWarps) {
-        const int s2 = i / kPT, pp = i % kPT;
-        xwf_s[s2 * (kPT + 1) + pp] = __fmul_rn(ldf(xs + s2 * XS + pp), wts[s2]);
-      }
-      bar_sync(kBarState, 32 * kWarps);  // xw, and every read of S_prev done
-      {
-        const float etot = expf(cum[kL - 1]);
-#pragma unroll
-        for (int i = 0; i < kNTW; ++i) {
-          const int nt = w + kWarps * i;
-          if (nt < n_tiles) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int pp = gq + 8 * (e >> 1), n = 8 * nt + 2 * tq + (e & 1);
-              float u = 0.0f;
-#pragma unroll 4
-              for (int s2 = 0; s2 < kL; ++s2) {
-                u = __fmaf_rn(xwf_s[s2 * (kPT + 1) + pp], ldf(bs + s2 * NS + n), u);
-              }
-              sr[i][e] = __fadd_rn(__fmul_rn(etot, sr[i][e]), u);
-            }
-          }
-        }
-      }
-      store_f32_state();
-#else
-      // C @ S_prev^T for chunk rows 16w..16w + 15 and the tile's 16 state
-      // rows, one k16 step of n at a time; each part of the split state in
-      // its own accumulator, summed at the end, the small parts first (the
-      // hi part's chain by mma_add measured no change in the rounding lean)
-      if (16 * w < lc) {
-        const int soff = ((lane & 7) + 8 * (lane >> 4)) * SS + 8 * ((lane >> 3) & 1);
-#ifdef SSD_PR15_CS
-        // PR 15's chains (tools/ssd_drift.py): each part chained over the
-        // k16 steps into an accumulator of its own
-        float yp[3][2][4];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) yp[q][0][e] = yp[q][1][e] = 0.0f;
-        }
-#pragma unroll 2
-        for (int k = 0; k < o.np; k += 16) {
-          uint32_t ah[4], al[4];
-          load_c_frag(cs, 16 * w, k, ah, al);
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            uint32_t sq[4];
-            ldsm4(sq, s_part(q) + soff + k);
-#pragma unroll
-            for (int pn = 0; pn < 2; ++pn) {
-              mma(yp[q][pn], ah, sq[2 * pn], sq[2 * pn + 1]);
-              if (kSplitIn && q == 0) mma(yp[1][pn], al, sq[2 * pn], sq[2 * pn + 1]);
-            }
-          }
-        }
-#pragma unroll
-        for (int pn = 0; pn < 2; ++pn) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) yp[0][pn][e] = yp[0][pn][e] + (yp[1][pn][e] + yp[2][pn][e]);
-        }
-        float (&ys)[2][4] = yp[0];
-#else
-        // one k16 step's products of all three parts (small parts first)
-        // summed from zero, the steps added in IEEE fp32: an mma cuts its
-        // sum toward zero at the largest term, so chained over the 8 steps
-        // at N = 128 a part's sum lost up to an ulp of itself at each
-        float ys[2][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ys[0][e] = ys[1][e] = 0.0f;
-#pragma unroll 2
-        for (int k = 0; k < o.np; k += 16) {
-          uint32_t ah[4], al[4];
-          load_c_frag(cs, 16 * w, k, ah, al);
-          float st[2][4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[0][e] = st[1][e] = 0.0f;
-#pragma unroll
-          for (int q = 2; q >= 0; --q) {
-            uint32_t sq[4];  // b0, b1 of state-row tiles pn = 0, 1: the split state's rows p
-            ldsm4(sq, s_part(q) + soff + k);
-#pragma unroll
-            for (int pn = 0; pn < 2; ++pn) {
-              if (kSplitIn && q == 0) mma(st[pn], al, sq[2 * pn], sq[2 * pn + 1]);
-              mma(st[pn], ah, sq[2 * pn], sq[2 * pn + 1]);
-            }
-          }
-#pragma unroll
-          for (int pn = 0; pn < 2; ++pn) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) ys[pn][e] = __fadd_rn(ys[pn][e], st[pn][e]);
-          }
-        }
-#endif
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int t = 16 * w + gq + 8 * half;
-#pragma unroll
-          for (int pn = 0; pn < 2; ++pn) {
-            *reinterpret_cast<float2*>(yi_s + t * kYS + 8 * pn + 2 * tq) =
-                make_float2(ys[pn][2 * half], ys[pn][2 * half + 1]);
-          }
-        }
-      }
       CHUNK_STAMP(1);
       __threadfence_block();
-      bar_sync(kBarState, 32 * kWarps);  // warp 4's cum and weights, for the carry
-      bar_arrive(kBarCum, kThreads);     // and for the row group, which waits there
+      bar_arrive(kBarCum, kThreads);  // for the row group, which waits there
       CHUNK_STAMP(2);
 
       // the next chunk lands while this one computes (its buffer's last
@@ -944,104 +490,47 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         cp_async_commit();
       }
 
-      // the carry: S = exp(total) S + xw^T @ B, xw = x * dt * exp(total - cum),
-      // split once into three bf16 parts by the whole state group (all kL
-      // rows: past lc, x and the weights are 0)
-      for (int i = tid - 32 * kWarps; i < kL * (kPT / 2); i += 32 * kWarps) {
-        const int sr_ = i / (kPT / 2), pp = 2 * (i % (kPT / 2));  // row s, columns pp, pp + 1
-        const float ws = wts[sr_];
-        uint32_t hi, mid, lo;
-        split3(ldf(xs + sr_ * XS + pp) * ws, ldf(xs + sr_ * XS + pp + 1) * ws, hi, mid, lo);
-        *reinterpret_cast<uint32_t*>(xw_part(0) + sr_ * kXW + pp) = hi;
-        *reinterpret_cast<uint32_t*>(xw_part(1) + sr_ * kXW + pp) = mid;
-        *reinterpret_cast<uint32_t*>(xw_part(2) + sr_ * kXW + pp) = lo;
+      // the carry: S = exp(total) S + xw^T @ B, xw = x * (dt * exp(total -
+      // cum)), over all kL rows (past lc, x and the weights are 0)
+      for (int i = st; i < kL * kPT; i += kGroup) {
+        const int s = i / kPT, p = i - s * kPT;
+        xw_s[s * kXW + p] = __fmul_rn(ldf(xs + s * XS + p), wts[s]);
       }
-      bar_sync(kBarState, 32 * kWarps);  // the split xw, for every state warp
-      // xw^T @ B into accumulators u of its own, each part's products
-      // (small parts first) chained over the chunk's k16 steps, then S =
-      // exp(total) S + u in IEEE fp32, the plain version's order: chained
-      // into S itself, every mma would cut the low bits of the small terms
-      // off at S's exponent, always toward zero
-      const float etot = expf(cum[kL - 1]);
-      float u[kNTW][4];
+      bar_sync(kBarState, kGroup);  // xw, and every read of S_prev, done
+      if (sn > 0) {
+        float u[kSN];
 #pragma unroll
-      for (int i = 0; i < kNTW; ++i) u[i][0] = u[i][1] = u[i][2] = u[i][3] = 0.0f;
+        for (int j = 0; j < kSN; ++j) u[j] = 0.0f;
+#pragma unroll 2
+        for (int s = 0; s < kL; ++s) {
+          const float xv = xw_s[s * kXW + sp];
+          float bv[kSN];
+          load8(bs + s * NS + n0, bv);
+          if (sn > 8) {
+            load8(bs + s * NS + n0 + 8, bv + 8);
+          } else {
 #pragma unroll
-      for (int kk = 0; kk < kWarps; ++kk) {
-        if (16 * kk < lc) {
-          // the A operand xw^T (rows p, k = s) of each part by ldmatrix.trans
-          uint32_t xq[3][4];
-          const int xoff = (16 * kk + (lane & 7) + 8 * (lane >> 4)) * kXW + 8 * ((lane >> 3) & 1);
-#pragma unroll
-          for (int q = 0; q < 3; ++q) ldsm4_t(xq[q], xw_part(q) + xoff);
-          const int s = 16 * kk + 2 * tq;
-#pragma unroll
-          for (int i = 0; i < kNTW; i += 2) {  // column tiles w + 4i and w + 4(i + 1)
-            const int nta = w + kWarps * i, ntb = nta + kWarps;
-            if (nta < n_tiles) {
-              uint32_t bh[4], bl[4];
-              if constexpr (kSplitIn) {
-#pragma unroll
-                for (int q = 0; q < 2; ++q) {
-                  const E* bp = bs + s * NS + 8 * (q ? ntb : nta) + gq;
-                  frag_two(bp, bp + NS, bh[2 * q], bl[2 * q]);
-                  frag_two(bp + 8 * NS, bp + 9 * NS, bh[2 * q + 1], bl[2 * q + 1]);
-                }
-              } else {
-                const int nt = lane < 16 || ntb >= n_tiles ? nta : ntb;
-                ldsm4_t(bh, bs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * NS + 8 * nt);
-              }
-#pragma unroll
-              for (int q = 0; q < 2; ++q) {
-                if (q == 0 || ntb < n_tiles) {
-#ifdef SSD_PR15_CARRY
-                  float (&acc)[4] = u[i + q];  // PR 15: chained over the k16 steps
-#else
-                  // this k16 step's products summed from zero, then added
-                  // to u in IEEE fp32 (as C @ S_prev^T above)
-                  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#endif
-                  mma(acc, xq[2], bh[2 * q], bh[2 * q + 1]);
-                  mma(acc, xq[1], bh[2 * q], bh[2 * q + 1]);
-                  if constexpr (kSplitIn) mma(acc, xq[0], bl[2 * q], bl[2 * q + 1]);
-                  mma(acc, xq[0], bh[2 * q], bh[2 * q + 1]);
-#ifndef SSD_PR15_CARRY
-#pragma unroll
-                  for (int e = 0; e < 4; ++e) u[i + q][e] = __fadd_rn(u[i + q][e], acc[e]);
-#endif
-                }
-              }
-            }
+            for (int j = 8; j < kSN; ++j) bv[j] = 0.0f;
           }
+#pragma unroll
+          for (int j = 0; j < kSN; ++j) u[j] = __fmaf_rn(xv, bv[j], u[j]);
         }
-      }
+        const float etot = expf(cum[kL - 1]);
 #pragma unroll
-      for (int i = 0; i < kNTW; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sr[i][e] = __fadd_rn(__fmul_rn(sr[i][e], etot), u[i][e]);
+        for (int j = 0; j < kSN; ++j) sr[j] = __fadd_rn(__fmul_rn(etot, sr[j]), u[j]);
       }
-      // every state warp has read S_prev's split copy (C @ S_prev^T) before
-      // the barrier above
       CHUNK_STAMP(3);
-      store_split_state();
+      store_state();
       CHUNK_STAMP(4);
-#endif
     }
   }
 #undef CHUNK_STAMP
 
-  if (!rows_group) {
-    float* sf = a.s_f + ((size_t(b) * H + h) * P + p0) * N;
+  if (!rows_group && sp < pw) {
+    float* sf = a.s_f + ((size_t(b) * H + h) * P + p0 + sp) * N + n0;
 #pragma unroll
-    for (int i = 0; i < kNTW; ++i) {
-      const int nt = w + kWarps * i;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = gq + 8 * half;
-        if (nt < n_tiles && p < pw) {
-          store2(sf + size_t(p) * N + 8 * nt + 2 * tq, sr[i][2 * half], sr[i][2 * half + 1]);
-        }
-      }
+    for (int j = 0; j < kSN; ++j) {
+      if (j < sn) sf[j] = sr[j];
     }
   }
 }

@@ -1,12 +1,9 @@
-"""Which of K4's chained tensor-core sums sets mamba2's drift, on the card.
+"""K4's roundings against its plain version, and mamba2's drift, on the card.
 
-Builds ``kernels/ssd_scan/csrc/ssd_scan.cu`` five times (beside the normal
-build in ``build/kernels/``, keyed apart by their ``-D`` macros): as it
-stands, where C @ S_prev^T and the carry xw^T @ B sum each k16 step's
-products from zero and add the steps in IEEE fp32, and with
-``SSD_PR15_CS`` and/or ``SSD_PR15_CARRY``, which put back the chains of
-PR 15's kernel (each part's products chained over the k16 steps into one
-accumulator), and with ``SSD_CB_FP32``, C B^T on the CUDA cores in fp32.  For each build it prints:
+For this tree's ``kernels/ssd_scan/csrc/ssd_scan.cu``, and for the same
+file of another checkout when ``--other DIR`` names one (built with the
+same flags beside the normal build in ``build/kernels/``, keyed apart by
+its content; the C entry must match this tree's), it prints:
 
 * the share of bf16 y that rounds apart from ``ssd_chunked`` at mamba2-130m's
   prefill shape (B=8, T=512, H=24, P=64, N=128, chunk 64; model-like
@@ -19,13 +16,16 @@ accumulator), and with ``SSD_CB_FP32``, C B^T on the CUDA cores in fp32.  For ea
 * K4's time per launch at that shape (CUDA events, median of 20; the
   builds timed in turns, then in reverse order).
 
-    PYTHONPATH=src python3 tools/ssd_drift.py
+    PYTHONPATH=src python3 tools/ssd_drift.py [--other /path/to/other/checkout]
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import json
+import shutil
+import tempfile
 import statistics
 import sys
 from pathlib import Path
@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.kernels.ssd_scan  # noqa: E402,F401
 from repro_torch.configs import get_arch  # noqa: E402
@@ -44,12 +45,6 @@ from repro_torch.serve.engine import LmEngine  # noqa: E402
 
 k4 = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
 
-VARIANTS = {
-    "this tree": (),
-    "C B^T on the CUDA cores": ("SSD_CB_FP32",),
-    "all four on the CUDA cores": ("SSD_CUDA_CORES",),
-    "PR 15 both (PR 15's kernel)": ("SSD_PR15_CS", "SSD_PR15_CARRY"),
-}
 BATCH, PROMPT, NEW = 8, 512, 64
 
 
@@ -83,15 +78,30 @@ def roundings(dev) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", help="root of another checkout whose K4 to compare")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("ssd_drift: needs a CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0))
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc each
-        built = pool.map(lambda d: k4.bind(build(k4.SOURCE, defines=d)), VARIANTS.values())
-        builds = dict(zip(VARIANTS, built))
+    sources = {"this tree": k4.SOURCE}
+    tmp = None
+    if args.other:
+        # a copy of the other tree's source (it builds against this tree's
+        # shared headers, which the build passes with -I)
+        tmp = Path(tempfile.mkdtemp())
+        sources["other tree"] = tmp / k4.SOURCE.name
+        shutil.copy(Path(args.other) / k4.SOURCE.relative_to(ROOT), sources["other tree"])
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each
+            built = pool.map(lambda src: k4.bind(build(src)), sources.values())
+            builds = dict(zip(sources, built))
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp)
     # the prompts and weights of chip_smoke.py phase 13 (smollm's prompts
     # are drawn first from the same generator)
     rng = np.random.default_rng(0)
