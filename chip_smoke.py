@@ -207,6 +207,225 @@ def check_push_many(make_engine, windows: np.ndarray, T: int) -> int:
             np.testing.assert_array_equal(g, w, err_msg="push_many vs sequential pushes")
     return n_streams
 
+def rowwise_bound(m: int, k: int, n: int, bias: bool) -> tuple[float, str]:
+    """Least time the card needs for one row-wise product: bytes (x, w, b
+    read once, out written once, fp32) over the memory rate vs 2 operations
+    per multiply-add (and 1 per bias add) over the fp32 peak."""
+    n_bytes = (m * k + k * n + (n if bias else 0) + m * n) * 4
+    ops = 2 * m * n * k + (m * n if bias else 0)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def push_times(engine, windows: np.ndarray, n: int = 200) -> list:
+    """Host ms of ``n`` T=1 pushes at B=1, each synchronised (a window
+    completion every ``window`` pushes runs the decoder)."""
+    import torch
+
+    out = []
+    for i in range(n):
+        pos = i % windows.shape[1]
+        t1 = time.perf_counter()
+        engine.push(windows[:1, pos : pos + 1])
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t1) * 1e3)
+    return out
+
+
+def gw_graph_phases(params, cfg, windows, T, dev, smi, all_packs, state, compare) -> dict:
+    """Phases 15-18: the GW side's CUDA graphs against eager runs, the
+    pool's batched window decode, the row-wise product kernel and
+    ``fuse_gates`` against their plain versions, and eager vs replay
+    timings.  Returns the row-wise kernel's ``kernels`` entry (its
+    ``launches`` filled in by the caller) and the report."""
+    import torch
+    from repro_torch.core.executor import plan_stack
+    from repro_torch.kernels.lstm_stack.lstm_stack import lstm_stack
+    from repro_torch.kernels.lstm_stack.step import lstm_stack_step, lstm_stack_step_plain
+    from repro_torch.kernels.rowwise import rowwise_matmul, rowwise_matmul_plain
+    from repro_torch.serve.engine import StreamingAnomalyEngine, _pad_width
+
+    report: dict = {}
+    # -- phase 15: graph replay vs eager, GW ---------------------------------
+    t0 = time.perf_counter()
+    ex = StreamingAnomalyEngine(params, cfg, batch=1)._exec_enc
+    gen = torch.Generator().manual_seed(15)
+    widths = sorted({_pad_width(n) for n in range(1, 33)})
+    for width in widths:
+        for t_len in (1, 25):
+            x = torch.randn(width, t_len, 1, generator=gen).to(dev)
+            st0 = state(ex.packed, width)
+            want = ex.step(x, st0)
+            graph = ex.step_graph(width)
+            first = tuple(t.clone() for t in graph(x, st0))  # runs eagerly, then captures
+            before = lstm_stack_step.launches
+            got = graph(x, st0)  # a replay
+            torch.cuda.synchronize()
+            if lstm_stack_step.launches - before != 1:
+                raise AssertionError(f"step graph width {width}: a replay counted "
+                                     f"{lstm_stack_step.launches - before} K2 launches")
+            compare(first, want, f"step graph width {width} T={t_len}, first call")
+            compare(got, want, f"step graph width {width} T={t_len}, replay")
+    rng = np.random.RandomState(15)
+    finish = {}
+    for k in (1, 3, 8, 32):
+        x = rng.randn(k, 2 * T, 1).astype(np.float32)
+        ids = [f"f{i}" for i in range(k)]
+        runs = []
+        for graphs in (False, True):
+            eng = StreamingAnomalyEngine(params, cfg, batch=1, graphs=graphs)
+            got = []
+            for w in range(2):  # the second window replays the finish graph
+                res = eng.push_many(ids, x[:, w * T : (w + 1) * T])
+                got.append(np.concatenate([res[sid][0] for sid in ids]))
+            runs.append(got)
+        for w in range(2):
+            np.testing.assert_array_equal(runs[1][w], runs[0][w],
+                                          err_msg=f"batched finish k={k} window {w}: "
+                                                  "replay vs eager")
+        finish[k] = _pad_width(k)
+    log(f"phase 15 graph replay == eager: GW step at widths {widths} (T=1 and 25; first "
+        f"call and replay), batched finish at group sizes {sorted(finish)} (widths "
+        f"{sorted(set(finish.values()))}) ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 16: the pool over 32 streams completing together ---------------
+    t0 = time.perf_counter()
+    n = 32
+    x = rng.randn(n, 2 * T, 1).astype(np.float32)
+    ids = [f"p{i}" for i in range(n)]
+    pool = StreamingAnomalyEngine(params, cfg, batch=1)
+    got = {sid: [] for sid in ids}
+    decodes = []
+    for a, b in ((0, T - 1), (T - 1, T), (T, 2 * T - 1), (2 * T - 1, 2 * T)):
+        before = lstm_stack.launches
+        res = pool.push_many(ids, x[:, a:b])
+        decodes.append(lstm_stack.launches - before)
+        for sid in ids:
+            got[sid] += res[sid]
+    if decodes != [0, 1, 0, 1]:
+        raise AssertionError(f"push_many over {n} streams: K1 decodes per piece {decodes}, "
+                             "want one per window completion")
+    seq = StreamingAnomalyEngine(params, cfg, batch=1)
+    want = {}
+    for i, sid in enumerate(ids):
+        seq.reset()
+        want[sid] = [sc for pos in range(0, 2 * T, 25) for sc in
+                     seq.push(x[i : i + 1, pos : pos + 25])]
+    assert_bit_equal(got, want, f"push_many over {n} streams")
+    log(f"phase 16 pool ok: {n} streams completing windows together, one decode per "
+        f"completion ({decodes}), bit-equal to sequential pushes "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 17: the row-wise product and fuse_gates against their plain versions
+    t0 = time.perf_counter()
+    dec = all_packs[("fp32", "fp32")]["dec"]
+    w0 = dec.stacked["w_x"][0].float()
+    head_w, head_b = params["dense"]["w"].float(), params["dense"]["b"]
+    rw_cases = []
+    for batch in (1, 32):
+        rows = batch * T
+        rw_cases += [
+            ("decoder projection", torch.randn(rows, w0.shape[0], generator=gen), w0, None),
+            ("decoder projection bf16", torch.randn(rows, w0.shape[0], generator=gen)
+             .to(torch.bfloat16), w0, None),
+            ("dense head", torch.randn(rows, head_w.shape[0], generator=gen), head_w, head_b),
+            ("error sum", torch.rand(batch, T, generator=gen), torch.ones(T, 1), None),
+        ]
+    rw_err, rw_rows = 0.0, []
+    for name, xr, wr, br in rw_cases:
+        xr, wr = xr.to(dev), wr.to(dev)
+        got = rowwise_matmul(xr, wr, br)
+        want = rowwise_matmul_plain(xr, wr, br)
+        torch.cuda.synchronize()
+        rw_err = max(rw_err, (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"rowwise_matmul {name} {tuple(xr.shape)}: kernel differs "
+                                 f"from its plain version")
+        if xr.dtype == torch.float32 and name != "error sum":
+            kernel = lambda: rowwise_matmul(xr, wr, br)  # noqa: E731
+            lib = (lambda: torch.addmm(br, xr, wr)) if br is not None else \
+                (lambda: xr @ wr)  # noqa: E731
+            dev_ms = device_ms(kernel, reps=50, kernel="rowwise_kernel")
+            call_ms = median_ms(kernel, reps=50)
+            lib_dev = device_ms(lib, reps=50)
+            b_ms, b_by = rowwise_bound(xr.shape[0], xr.shape[1], wr.shape[1], br is not None)
+            rw_rows.append({
+                "what": name, "M": xr.shape[0], "K": xr.shape[1], "N": wr.shape[1],
+                "ms": dev_ms if dev_ms is not None else call_ms,
+                "ms_source": "profiler" if dev_ms is not None else "events",
+                "call_ms": call_ms,
+                "plain_ms": median_ms(lambda: rowwise_matmul_plain(xr, wr, br), reps=5),
+                "library_ms": lib_dev if lib_dev is not None else median_ms(lib, reps=50),
+                "bound_ms": b_ms, "bound_by": b_by})
+    n_fused = 0
+    for key in (("fp32", "fp32"), ("bf16", "fp32"), ("bf16", "bf16")):
+        for seg, pk in all_packs[key].items():
+            st = pk.stacked
+            for t_len in (1, 25):
+                for batch in (1, 8):
+                    xs = pk.pad_input(torch.randn(batch, t_len, pk.in_dims[0],
+                                                  generator=gen).to(dev))
+                    h0, c0 = state(pk, batch)
+                    got = lstm_stack_step(xs, st["w_x"], st["w_h"], st["b"], h0, c0,
+                                          fuse_gates=True)
+                    want = lstm_stack_step_plain(xs, st["w_x"], st["w_h"], st["b"], h0, c0,
+                                                 fuse_gates=True)
+                    torch.cuda.synchronize()
+                    compare(got, want, f"K2 fuse_gates {key} {seg} T={t_len} B={batch}")
+                    n_fused += 1
+    int8 = all_packs[("int8", "fp32")]["enc"]
+    h0, c0 = state(int8, 1)
+    xs = int8.pad_input(torch.randn(1, 1, 1, generator=gen).to(dev))
+    for refuse in (
+        lambda: lstm_stack_step(xs, int8.stacked["w_x"], int8.stacked["w_h"], int8.stacked["b"],
+                                h0, c0, scales=int8.stacked["scales"], fuse_gates=True),
+        lambda: plan_stack(dataclasses.replace(cfg, weight_dtype="int8").layer_cfgs()[:2],
+                           impl="fused_step", fuse_gates=True),
+    ):
+        try:
+            refuse()
+        except ValueError:
+            continue
+        raise AssertionError("fuse_gates with an int8 pack was not refused")
+    log(f"phase 17 rowwise_matmul ok: {len(rw_cases)} cases (the decoder's projection in "
+        f"fp32 and bf16, the dense head, the error sums; B=1 and 32), bit-equal to the "
+        f"plain version; K2 fuse_gates ok: {n_fused} cases (fp32/bf16 packs), bit-equal, "
+        f"int8 refused ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 18: eager vs replay timing, GW ---------------------------------
+    t0 = time.perf_counter()
+    engines = {"eager": StreamingAnomalyEngine(params, cfg, batch=1, graphs=False),
+               "replay": StreamingAnomalyEngine(params, cfg, batch=1)}
+    push = {mode: [] for mode in engines}
+    for mode in ("eager", "replay", "replay", "eager"):  # in turns
+        push[mode] += push_times(engines[mode], windows)
+    report["push_T1_B1"] = {
+        mode: {"median_ms": statistics.median(v), "p99_ms": float(np.percentile(v, 99)),
+               "n": len(v)} for mode, v in push.items()}
+    threaded, errors = threaded_run(
+        lambda: StreamingAnomalyEngine(params, cfg, batch=1, graphs=False),
+        StreamingAnomalyEngine(params, cfg, batch=1, graphs=False),
+        np.random.RandomState(18), T, "eager fused_step")
+    if errors:
+        raise AssertionError(f"eager fused_step server: {errors} engine-step errors")
+    report["server_eager_threaded"] = threaded
+    log(smi)
+    log(f"phase 18 GW timing: T=1 push B=1 " + ", ".join(
+        f"{m} median {r['median_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms"
+        for m, r in report["push_T1_B1"].items())
+        + f"; eager server p50 {threaded['p50_us']:.0f} us p99 {threaded['p99_us']:.0f} us "
+        f"({time.perf_counter() - t0:.1f} s)")
+    head = rw_rows[0]  # the decoder's projection of one window (B=1)
+    entry = {"name": "rowwise_matmul", "route": "cuda",
+             "source": "src/repro_torch/kernels/rowwise/csrc/rowwise.cu",
+             "replaces": "src/repro/kernels/lstm_stack/ops.py:198 and "
+                         "src/repro/core/autoencoder.py:222",
+             "launches": None, "max_abs_err": rw_err,
+             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"], "shapes": rw_rows}
+    return entry, report
+
 
 def scan_bound(H: int, T: int, B: int, IN: int = 0) -> tuple[float, str]:
     """Least time the card needs for one K3 call: bytes (xw, or x, W_x and
@@ -398,9 +617,24 @@ def server_phases(impl: str, make_engine, sgold: dict, T: int) -> dict:
                      f"{impl} server, health screen")
     errors += srv.stats.engine_errors
 
-    # (e) threaded, real clock: four producers submit T=1 chunks for 32
-    # streams at a fixed rate; stop(drain=True) must finish in time and
-    # every completed window must be scored
+    # (e) threaded, real clock
+    threaded, n_errors = threaded_run(make_engine, seq, rng, T, impl)
+    errors += n_errors
+    if errors:
+        raise AssertionError(f"{impl} server: {errors} engine-step errors")
+    return {"threaded": threaded,
+            "fake_clock_32_streams": {"windows": windows_b, "summary": stats_b},
+            "rejected": rejected}
+
+
+def threaded_run(make_engine, seq, rng, T: int, what: str) -> tuple[dict, int]:
+    """The StreamServer threaded, real clock: four producers submit T=1
+    chunks for 32 streams at a fixed rate; stop(drain=True) must finish in
+    time, every completed window must be scored, and the first streams'
+    scores must equal sequential pushes.  Returns (enqueue-to-score
+    latency and rate, engine-step errors)."""
+    from repro_torch.serve.server import ServerConfig, StreamServer
+
     n, rate = 32, 1000.0  # chunks per second per producer
     r_data = rng.randn(n, 2 * T, 1).astype(np.float32)
     srv = StreamServer(make_engine(), ServerConfig(deadline_us=200.0))
@@ -422,28 +656,23 @@ def server_phases(impl: str, make_engine, sgold: dict, T: int) -> dict:
     for p in producers:
         p.join(300.0)
         if p.is_alive():
-            raise AssertionError(f"{impl} server: a producer thread did not finish")
+            raise AssertionError(f"{what} server: a producer thread did not finish")
     if not srv.stop(drain=True, deadline_s=120.0):
-        raise AssertionError(f"{impl} server: stop(drain=True) missed its deadline")
+        raise AssertionError(f"{what} server: stop(drain=True) missed its deadline")
     wall = time.perf_counter() - t0
     scores = srv.pop_scores()
     n_windows = sum(len(v) for v in scores.values())
     st = srv.stats
     if n_windows != 2 * n or not st.processed == st.submitted == 2 * T * n:
-        raise AssertionError(f"{impl} server: {n_windows} windows scored of {2 * n}, "
+        raise AssertionError(f"{what} server: {n_windows} windows scored of {2 * n}, "
                              f"{st.processed} of {st.submitted} chunks")
     assert_bit_equal({k: scores[f"r{k}"] for k in range(4)}, sequential_scores(
         seq, {k: [r_data[k, t : t + 1] for t in range(2 * T)] for k in range(4)}),
-        f"{impl} server, threaded")
-    errors += st.engine_errors
-    if errors:
-        raise AssertionError(f"{impl} server: {errors} engine-step errors")
+        f"{what} server, threaded")
     lat = st.latency
-    return {"threaded": {"summary": st.summary(), "p50_us": lat.percentile(50),
-                         "p99_us": lat.percentile(99), "max_us": lat.max_us,
-                         "wall_s": wall, "chunks_per_s": st.processed / wall},
-            "fake_clock_32_streams": {"windows": windows_b, "summary": stats_b},
-            "rejected": rejected}
+    return ({"summary": st.summary(), "p50_us": lat.percentile(50),
+             "p99_us": lat.percentile(99), "max_us": lat.max_us,
+             "wall_s": wall, "chunks_per_s": st.processed / wall}, st.engine_errors)
 
 
 # -- the LM side: K5 (decode attention) and K4 (SSD scan) -----------------
@@ -638,10 +867,13 @@ def k4_phase(dev) -> float:
     return max(err.values())
 
 
-def lm_phases(dev, smi: str) -> list:
-    """Phases 10-14: K5 and K4 against their plain versions, the reduced LM
-    golden fixtures, full-width serving of smollm-360m and mamba2-130m, and
-    timing.  Returns the ``kernels`` entries of K5 and K4."""
+def lm_phases(dev, smi: str) -> tuple[list, dict]:
+    """Phases 10-14 and 19: K5 and K4 against their plain versions, the
+    reduced LM golden fixtures, full-width serving of smollm-360m and
+    mamba2-130m (graph replay, held against the eager kernel path bit for
+    bit and against the plain path), timing, and eager vs replay timing.
+    Returns the ``kernels`` entries of K5 and K4 and the eager vs replay
+    report."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -703,7 +935,7 @@ def lm_phases(dev, smi: str) -> list:
     # the main path of this slice: every count is set to 0 just before each
     # serving run and read just after it
     rng = np.random.default_rng(0)
-    report, path_launches = {}, {"decode_attn": 0, "ssd_scan": 0}
+    report, path_launches, graphs_report = {}, {"decode_attn": 0, "ssd_scan": 0}, {}
     per_step, per_prefill = {}, {}  # measured on the serving runs (1 prefill, LM_NEW - 1 steps)
     params = None
     for name, prompt_len in (("smollm-360m", LM_PROMPT), ("mamba2-130m", LM_PROMPT),
@@ -767,18 +999,61 @@ def lm_phases(dev, smi: str) -> list:
             if st["max_abs_diff"] > limit:
                 raise AssertionError(f"{name} {what}: kernel path logits differ from the plain "
                                      f"path's by {st['max_abs_diff']:.4g} > {limit:.4g}")
-        pre_ms = []
-        for _ in range(3):
+        # graph replay vs the eager kernel path: the same logits bit for
+        # bit, the same greedy tokens
+        eager = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev, graphs=False)
+        e_step_ms: list = []
+        e_step = eager.step
+
+        def timed_eager_step(cache, toks):
             t1 = time.perf_counter()
-            eng.prefill(prompts)
+            out = e_step(cache, toks)
             torch.cuda.synchronize()
-            pre_ms.append((time.perf_counter() - t1) * 1e3)
+            e_step_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        eager.step = timed_eager_step
+        e_pre, e_steps = eager.teacher_forced(prompts, tokens)
+        eager.step = e_step
+        torch.cuda.synchronize()
+        if not (torch.equal(k_pre, e_pre) and torch.equal(k_steps, e_steps)):
+            raise AssertionError(f"{name}: replayed teacher-forced logits differ from the eager "
+                                 f"kernel path's (max {(k_steps - e_steps).abs().max().item()})")
+        np.testing.assert_array_equal(eager.generate(prompts, LM_NEW), tokens,
+                                      err_msg=f"{name}: greedy tokens, eager vs replay")
+        pre_ms = {"eager": [], "replay": []}
+        for mode in ("eager", "replay", "replay", "eager"):  # in turns
+            e = eager if mode == "eager" else eng
+            for _ in range(3):
+                t1 = time.perf_counter()
+                e.prefill(prompts)
+                torch.cuda.synchronize()
+                pre_ms[mode].append((time.perf_counter() - t1) * 1e3)
         # device time of a prefill and of one decode step (every kernel the
         # profiler records, summed); the rest of the host time the card idles
-        _, cache = eng.prefill(prompts)
-        busy_pre = device_ms(lambda: eng.prefill(prompts), reps=2)
-        busy_step = device_ms(lambda: eng.step(cache, tokens[:, :1]), reps=5)
-        prefill_ms, decode_ms = statistics.median(pre_ms), statistics.median(step_ms)
+        busy = {}
+        for mode, e in (("replay", eng), ("eager", eager)):
+            _, cache = e.prefill(prompts)
+            busy[mode] = (device_ms(lambda: e.prefill(prompts), reps=2),
+                          device_ms(lambda: e.step(cache, tokens[:, :1]), reps=5))
+        busy_pre, busy_step = busy["replay"]
+        prefill_ms, decode_ms = statistics.median(pre_ms["replay"]), statistics.median(step_ms)
+        e_prefill_ms, e_decode_ms = statistics.median(pre_ms["eager"]), statistics.median(e_step_ms)
+        e_busy_pre, e_busy_step = busy["eager"]
+        graphs_report[f"{name}_p{prompt_len}"] = {
+            "replay": {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+                       "prefill_device_ms": busy_pre, "decode_step_device_ms": busy_step,
+                       "prefill_idle_share": None if busy_pre is None
+                       else 1 - busy_pre / prefill_ms,
+                       "decode_idle_share": None if busy_step is None
+                       else 1 - busy_step / decode_ms},
+            "eager": {"prefill_ms": e_prefill_ms, "decode_ms_per_step": e_decode_ms,
+                      "prefill_device_ms": e_busy_pre, "decode_step_device_ms": e_busy_step,
+                      "prefill_idle_share": None if e_busy_pre is None
+                      else 1 - e_busy_pre / e_prefill_ms,
+                      "decode_idle_share": None if e_busy_step is None
+                      else 1 - e_busy_step / e_decode_ms},
+            "bit_equal": True}
         report[f"{name}_p{prompt_len}"] = {
             "batch": LM_BATCH, "prompt": prompt_len, "new_tokens": LM_NEW,
             "generate_s": wall, "tokens_per_s": LM_BATCH * LM_NEW / wall,
@@ -790,8 +1065,9 @@ def lm_phases(dev, smi: str) -> list:
         log(f"phase 13 {name} prompt {prompt_len} ok: B={LM_BATCH}, {LM_NEW} tokens in "
             f"{wall:.3f} s ({LM_BATCH * LM_NEW / wall:.0f} tok/s), prefill {prefill_ms:.2f} ms "
             f"(device {busy_pre} ms), decode {decode_ms:.3f} ms per step (device {busy_step} "
-            f"ms), launches {c}, kernel vs plain path under teacher forcing {stats} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"ms), launches {c}, kernel vs plain path under teacher forcing {stats}; "
+            f"replay bit-equal to the eager kernel path (eager: prefill {e_prefill_ms:.2f} ms, "
+            f"decode {e_decode_ms:.3f} ms per step) ({time.perf_counter() - t0:.1f} s)")
     params = None
     log(smi)
     log(json.dumps({"lm_e2e": report}))
@@ -885,7 +1161,7 @@ def lm_phases(dev, smi: str) -> list:
     log(f"phase 14 LM kernel timing ok ({time.perf_counter() - t0:.1f} s)")
 
     head5, head4 = k5_rows[-1], k4_rows[0]  # the last decode step; the 512-token prefill
-    return [
+    kernels = [
         {"name": "decode_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/decode_attn.py:96",
@@ -903,6 +1179,7 @@ def lm_phases(dev, smi: str) -> list:
          "library_note": "none: no single PyTorch call computes the SSD scan",
          "launches_per_prefill": per_prefill, "shapes": k4_rows},
     ]
+    return kernels, graphs_report
 
 
 def main() -> int:
@@ -928,6 +1205,7 @@ def main() -> int:
     from repro_torch.kernels.lstm_stack.ops import pack_stack, project_layer0
     from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
     from repro_torch.kernels.lstm_stack.step import lstm_stack_step, lstm_stack_step_plain
+    from repro_torch.kernels.rowwise import rowwise_matmul
     from repro_torch.serve.engine import AnomalyStreamEngine, StreamingAnomalyEngine
 
     # the wrapper modules, whose plain-version references the serving
@@ -935,6 +1213,7 @@ def main() -> int:
     k1_mod = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
     k2_mod = sys.modules["repro_torch.kernels.lstm_stack.step"]
     k3_mod = sys.modules["repro_torch.kernels.lstm_scan.lstm_scan"]
+    rw_mod = sys.modules["repro_torch.kernels.rowwise.rowwise"]
     import repro_torch.kernels.decode_attn  # noqa: F401
     import repro_torch.kernels.ssd_scan  # noqa: F401
     k5_mod = sys.modules["repro_torch.kernels.decode_attn.decode_attn"]
@@ -952,7 +1231,7 @@ def main() -> int:
 
     # -- phase 2: build, one nvcc per source, started together --------------
     t0 = time.perf_counter()
-    to_build = (library, k3_mod.library, k5_mod.library, k4_mod.library)
+    to_build = (library, k3_mod.library, k5_mod.library, k4_mod.library, rw_mod.library)
     with concurrent.futures.ThreadPoolExecutor(len(to_build)) as pool:
         libs = list(pool.map(lambda build: build(), to_build))
     ptxas = {}
@@ -1075,9 +1354,10 @@ def main() -> int:
     def refuse_plain(*args, **kwargs):
         raise AssertionError("the main path reached a plain version on the card")
 
-    saved = (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain)
-    k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain = refuse_plain, refuse_plain
-    lstm_stack.launches = lstm_stack_step.launches = 0
+    saved = (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, rw_mod.rowwise_matmul_plain)
+    (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain,
+     rw_mod.rowwise_matmul_plain) = refuse_plain, refuse_plain, refuse_plain
+    lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
     t0 = time.perf_counter()
     windows = golden["windows"]
     n_bg = int(golden["n_background"])
@@ -1108,8 +1388,9 @@ def main() -> int:
                                 windows, T)
     torch.cuda.synchronize()
     launches = {"lstm_stack_wavefront": lstm_stack.launches,
-                "lstm_stack_step": lstm_stack_step.launches}
-    k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain = saved
+                "lstm_stack_step": lstm_stack_step.launches,
+                "rowwise_matmul": rowwise_matmul.launches}
+    k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, rw_mod.rowwise_matmul_plain = saved
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"the serving path never launched {name}")
@@ -1120,13 +1401,15 @@ def main() -> int:
     # launches per scored window by streaming mode, and per batch score call
     per_window = {}
     for mode, chunk in (("push_T1", 1), ("push_T25", 25)):
-        lstm_stack.launches = lstm_stack_step.launches = 0
+        lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
         for pos in range(0, T, chunk):
             eng.push(windows[:1, pos : pos + chunk])
-        per_window[mode] = (lstm_stack.launches, lstm_stack_step.launches)
-    lstm_stack.launches = lstm_stack_step.launches = 0
+        per_window[mode] = (lstm_stack.launches, lstm_stack_step.launches,
+                            rowwise_matmul.launches)
+    lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
     eng.score(windows)
-    per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches)
+    per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches,
+                                                 rowwise_matmul.launches)
 
     # -- phase 6: K3 against its plain version -----------------------------
     # every warp-cell instantiation (H=8 and H=32 with x chains of 1, 8 and
@@ -1273,7 +1556,7 @@ def main() -> int:
         lstm_scan.launches = 0
         for pos in range(0, T, chunk):
             keng.push(windows[:1, pos : pos + chunk])
-        per_window[mode] += (lstm_scan.launches,)
+        per_window[mode] += (lstm_scan.launches,)  # index 3
     lstm_scan.launches = 0
     kb.score(windows)
     per_window[f"score_call_B{len(windows)}"] += (lstm_scan.launches,)
@@ -1409,7 +1692,17 @@ def main() -> int:
     }}))
     log(f"phase 9 timing ok ({time.perf_counter() - t0:.1f} s)")
 
-    lm_kernels = lm_phases(dev, smi)  # phases 10-14
+    rw_entry, gw_graphs = gw_graph_phases(params, cfg, windows, T, dev, smi,  # phases 15-18
+                                          all_packs, state, compare)
+    rw_entry["launches"] = launches["rowwise_matmul"]
+    rw_entry["launches_per_window"] = {m: v[2] for m, v in per_window.items()}
+    if not rw_entry["launches"]:
+        raise AssertionError("the serving path never launched rowwise_matmul")
+
+    lm_kernels, lm_graphs = lm_phases(dev, smi)  # phases 10-14, 19
+    log(smi)
+    log(json.dumps({"graphs": {"gw": gw_graphs, "lm": lm_graphs,
+                               "server_replay_threaded": server_report["fused_step"]["threaded"]}}))
 
     kernels = []
     for name, err, replaces, mode in (
@@ -1438,12 +1731,13 @@ def main() -> int:
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "launches_per_window": {m: v[2] for m, v in per_window.items()},
+        "launches_per_window": {m: v[3] for m, v in per_window.items()},
         "launches_by_kernel": {path: dict(c["lstm_scan_by_kernel"])
                                for path, c in path_launches.items()},
         "shapes": rows["lstm_scan"],
     })
     kernels += lm_kernels
+    kernels.append(rw_entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -134,8 +134,20 @@ def decode(params: Params, latent: torch.Tensor, cfg: AutoencoderConfig,
     h_seq = latent[:, None, :].expand(latent.shape[0], t, latent.shape[1])
     out = executor(h_seq, initial_state, return_state=return_state)
     h_seq, finals = out if return_state else (out, None)
-    rec = h_seq.to(cfg.dtype) @ params["dense"]["w"] + params["dense"]["b"]
+    rec = _dense_head(params["dense"], h_seq, cfg)
     return (rec, finals) if return_state else rec
+
+
+def _dense_head(dense: Params, h_seq: torch.Tensor, cfg: AutoencoderConfig) -> torch.Tensor:
+    """TimeDistributed Dense: ``h @ w`` at the compute dtype, then ``+ b``
+    in fp32, with each row's sum in a fixed order (``rowwise_matmul``), so a
+    window's reconstruction does not depend on the rows decoded with it."""
+    from repro_torch.kernels.rowwise import rowwise_matmul
+
+    batch, t_len, hidden = h_seq.shape
+    w = dense["w"]
+    rec = rowwise_matmul(h_seq.reshape(batch * t_len, hidden).to(cfg.dtype), w.float())
+    return (rec.to(cfg.dtype) + dense["b"]).reshape(batch, t_len, w.shape[1])
 
 
 def reconstruction_error_from_latent(params: Params, latent: torch.Tensor,
@@ -145,10 +157,16 @@ def reconstruction_error_from_latent(params: Params, latent: torch.Tensor,
 
     The single definition of the score tail: one-shot scoring and the
     streaming engine (whose latent comes from resident encoder state) both
-    route through here."""
+    route through here.  Each row's error is summed in a fixed order
+    (``rowwise_matmul`` against a column of ones), so a row's score does
+    not depend on the batch."""
+    from repro_torch.kernels.rowwise import rowwise_matmul
+
     rec = decode(params, latent, cfg, t=x.shape[1], executor=exec_dec).to(x.dtype)
     err = (rec.to(torch.float32) - x.to(torch.float32)) ** 2
-    return torch.mean(err, dim=(1, 2))
+    n = err.shape[1] * err.shape[2]
+    ones = torch.ones(n, 1, dtype=torch.float32, device=err.device)
+    return rowwise_matmul(err.reshape(err.shape[0], n), ones)[:, 0] / n
 
 
 def reconstruction_error(params: Params, x: torch.Tensor, cfg: AutoencoderConfig,

@@ -62,6 +62,9 @@ class StackPlan:
     block_b: int | None = None
     #: in-kernel activation fake-quant on the layer hand-off; None = off
     act_bits: int | None = None
+    #: chunked-step backends only: the step kernel's single [x;h] @ [W_x;W_h]
+    #: chain per gate (None = separate chains; never with int8 packs)
+    fuse_gates: bool | None = None
 
     @property
     def backend(self) -> BackendSpec:
@@ -103,7 +106,8 @@ class StackPlan:
         """One-line human summary."""
         dims = "->".join(str(c.hidden) for c in self.cfgs) or "(identity)"
         knobs = "".join(
-            f" {k}={getattr(self, k)}" for k in ("chunk_len", "block_b", "act_bits")
+            f" {k}={getattr(self, k)}"
+            for k in ("chunk_len", "block_b", "act_bits", "fuse_gates")
             if getattr(self, k) is not None
         )
         return (f"impl={self.impl} layers={self.n_layers} [{dims}] "
@@ -113,7 +117,8 @@ class StackPlan:
 @functools.lru_cache(maxsize=128)
 def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
                        weight_dtype: str | None, chunk_len: int | None,
-                       block_b: int | None, act_bits: int | None) -> StackPlan:
+                       block_b: int | None, act_bits: int | None,
+                       fuse_gates: bool | None) -> StackPlan:
     spec = get_backend(impl)  # raises for unknown impl, even on empty segments
     if not cfgs:
         return StackPlan(cfgs=(), impl=IDENTITY)
@@ -135,6 +140,11 @@ def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
     if chunk_len is not None and not spec.chunked_step:
         raise ValueError(
             f"chunk_len only applies to chunked-step backends (impl='fused_step'); "
+            f"got impl={impl!r}"
+        )
+    if fuse_gates is not None and "fuse_gates" not in spec.knobs:
+        raise ValueError(
+            f"fuse_gates only applies to the chunked-step backend (impl='fused_step'); "
             f"got impl={impl!r}"
         )
     if spec.chunked_step:
@@ -162,8 +172,15 @@ def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
 
         _check_homogeneous(cfgs)
         resolved_wd = resolve_weight_dtype(cfgs[0])
+    if fuse_gates and resolved_wd == "int8":
+        raise ValueError(
+            "fuse_gates=True is incompatible with int8 packs: s_x and s_h scale two "
+            "different fp32 accumulators, which one fused [x;h] chain would mix; drop "
+            "fuse_gates or the int8 weight_dtype"
+        )
     return StackPlan(cfgs=cfgs, impl=impl, weight_dtype=resolved_wd,
-                     chunk_len=chunk_len, block_b=block_b, act_bits=act_bits)
+                     chunk_len=chunk_len, block_b=block_b, act_bits=act_bits,
+                     fuse_gates=fuse_gates)
 
 
 def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
@@ -179,15 +196,11 @@ def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
     in-kernel activation quant, and a knob on a backend that does not take
     it.  Plans are memoised on their full argument tuple.
 
-    ``fuse_gates`` and ``tune`` exist so that reference call sites fail
-    loudly: both belong to later slices of the port.
+    ``fuse_gates`` (``fused_step`` only) runs each gate of the step kernel
+    as one chain over ``[x ; h]`` (see ``kernels/lstm_stack/step.py``); int8
+    packs refuse it.  ``tune`` exists so that reference call sites fail
+    loudly: it belongs to a later slice of the port.
     """
-    if fuse_gates is not None:
-        raise ValueError(
-            "fuse_gates (the step kernel's single [x;h] @ [W_x;W_h] product) is "
-            "not ported yet; it comes with a later slice of the port (ROADMAP "
-            "queue 1, items 5 and 9)"
-        )
     if tune != "default":
         raise ValueError(
             f"tune={tune!r} is not ported yet; the autotuner and the balanced "
@@ -195,19 +208,20 @@ def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
             "items 8 and 9)"
         )
     return _plan_stack_cached(tuple(cfgs), impl, weight_dtype, chunk_len,
-                              block_b, act_bits)
+                              block_b, act_bits, fuse_gates)
 
 
 class StackExecutor:
     """A plan bound to parameters: the only call-time surface.  Construct
     via ``StackPlan.bind``."""
 
-    __slots__ = ("plan", "params", "packed")
+    __slots__ = ("plan", "params", "packed", "_graphs")
 
     def __init__(self, plan: StackPlan, params: tuple, packed: Any = None) -> None:
         self.plan = plan
         self.params = params
         self.packed = packed
+        self._graphs: dict = {}  # batch width -> StepGraph (step_graph)
 
     def __call__(self, xs: torch.Tensor, initial_state=None, *,
                  return_state: bool = True):
@@ -251,6 +265,16 @@ class StackExecutor:
         (the streaming engines' per-push call)."""
         return self.step_with_output(xs, state)[1]
 
+    def step_graph(self, batch: int) -> "StepGraph":
+        """The bound step at batch width ``batch`` as CUDA graphs, one per
+        chunk length up to the plan's ``chunk_len`` (the counterpart of the
+        reference's ``step_jit``): made at first use, kept by this executor
+        (``update_params`` returns one with none)."""
+        graph = self._graphs.get(batch)
+        if graph is None:
+            graph = self._graphs[batch] = StepGraph(self, batch)
+        return graph
+
     def last_hidden(self, state) -> torch.Tensor:
         """Last layer's current hidden at real width: the latent the GW
         autoencoder's RepeatVector bridge consumes."""
@@ -278,6 +302,55 @@ class StackExecutor:
 
     def __repr__(self) -> str:
         return f"StackExecutor({self.plan.describe()})"
+
+
+class StepGraph:
+    """``StackExecutor.step`` at one batch width, captured as one CUDA
+    graph per chunk length T <= ``chunk_len`` over static buffers.
+
+    The state is resident: ``state`` is the pair of (L, batch, W) buffers
+    every graph of this width reads and overwrites in place, so a replay
+    gives the bits of ``step`` and allocates nothing.  ``__call__(xs,
+    state)`` copies ``xs`` (and ``state``, unless it is the resident pair)
+    in, replays, and returns the resident pair.  Packed chunked-step
+    backends on the card only.
+    """
+
+    def __init__(self, ex: StackExecutor, batch: int):
+        plan = ex.plan
+        if not (plan.backend.chunked_step and plan.backend.state_layout == "packed"):
+            raise ValueError(f"step_graph needs a chunked-step packed backend (fused_step), "
+                             f"not impl={plan.impl!r}")
+        if ex.device.type != "cuda":
+            raise ValueError(f"step_graph captures CUDA graphs; the executor is on {ex.device}")
+        self.ex, self.batch = ex, batch
+        self.state = ex.zero_state(batch)
+        self._calls: dict = {}  # T -> (x buffer, CapturedCall)
+
+    def __call__(self, xs: torch.Tensor, state):
+        from .graphs import CapturedCall
+
+        t_len = xs.shape[1]
+        if xs.shape[0] != self.batch or t_len > self.ex.plan.chunk_len:
+            raise ValueError(f"step_graph({self.batch}): chunk {tuple(xs.shape)} is not "
+                             f"(batch={self.batch}, T <= {self.ex.plan.chunk_len}, in_dim)")
+        if state is not self.state:
+            for dst, src in zip(self.state, state):
+                dst.copy_(src)
+        entry = self._calls.get(t_len)
+        if entry is not None:
+            entry[0].copy_(xs)
+            entry[1].replay()
+            return self.state
+        x_buf = torch.empty(xs.shape, dtype=xs.dtype, device=self.state[0].device)
+        x_buf.copy_(xs)
+
+        def step():
+            for dst, src in zip(self.state, self.ex.step(x_buf, self.state)):
+                dst.copy_(src)
+
+        self._calls[t_len] = (x_buf, CapturedCall(step, x_buf.device))
+        return self.state
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +390,8 @@ def _fused_seq_call(ex: StackExecutor, xs, state):
     if plan.backend.chunked_step and xs.shape[1] <= plan.chunk_len:
         from repro_torch.kernels.lstm_stack.step import lstm_stack_step_op
 
-        return lstm_stack_step_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
+        return lstm_stack_step_op(packed.pad_input(xs), packed.stacked, h, c,
+                                  fuse_gates=plan.fuse_gates, **kw)
     from repro_torch.kernels.lstm_stack.ops import lstm_stack_op
 
     return lstm_stack_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
@@ -334,4 +408,4 @@ register_backend(BackendSpec(
 register_backend(BackendSpec(
     name="fused_step", packs=True, quantized=True, kernel_acts=True,
     state_layout="packed", chunked_step=True, act_quant=True,
-    knobs=("chunk_len", "block_b"), forward=_forward_fused))
+    knobs=("chunk_len", "block_b", "fuse_gates"), forward=_forward_fused))

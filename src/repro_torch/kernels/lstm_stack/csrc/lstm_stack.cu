@@ -82,6 +82,7 @@ struct Args {
   void* h_f;            // (L, B, W) compute dtype
   float* c_f;           // (L, B, W)
   int T, B, L, W, rows, act, act_bits;
+  int fuse;             // step only: each gate's sum one 2W-long chain over [x; h]
 };
 
 constexpr int kMaxThreads = 1024;  // per CTA, weights in shared memory
@@ -169,9 +170,25 @@ __device__ __forceinline__ void dot2_regs(const float* x, const float (&wx)[kW],
   hh = ah;
 }
 
-template <typename WT>
-__device__ __forceinline__ float dot_flat(const float* h, const WT* col, int W, int W4) {
+// fuse_gates: one chain over [x; h] . [w_x; w_h], the x terms first.
+template <int kW>
+__device__ __forceinline__ float dotcat_regs(const float* x, const float (&wx)[kW],
+                                             const float* h, const float (&wh)[kW]) {
+  float xv[kW], hv[kW];
+  load_row<kW>(x, xv);
+  load_row<kW>(h, hv);
   float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) acc = add(acc, mul(xv[k], wx[k]));
+#pragma unroll
+  for (int k = 0; k < kW; ++k) acc = add(acc, mul(hv[k], wh[k]));
+  return acc;
+}
+
+// continues the chain `acc` (0 starts one)
+template <typename WT>
+__device__ __forceinline__ float dot_flat(const float* h, const WT* col, int W, int W4,
+                                          float acc = 0.0f) {
   for (int k = 0; k < W; ++k) acc = add(acc, mul(h[k], to_f(col[size_t(k) * W4])));
   return acc;
 }
@@ -331,6 +348,16 @@ lstm_stack_kernel(const Args a) {
       const float* x = streamed ? nullptr
                      : l == 0   ? in_rd + r * W
                                 : h_rd + (size_t(l - 1) * R + r) * W;
+      if (kStep && a.fuse) {  // no int8 scales (refused); no rounding of layer 0's sum
+        float g;
+        if constexpr (kW > 0) {
+          g = dotcat_regs<kW>(x, wxr, h_own, whr);
+        } else {
+          const size_t col = size_t(l) * W * W4 + j;
+          g = dot_flat(h_own, wh_s + col, W, W4, dot_flat(x, wx_s + col, W, W4));
+        }
+        return add(g, kW > 0 ? bias0 : b_s[l * W4 + j]);
+      }
       float gx = 0.0f, hh;
       col_dots<WT, kW>(x, wxr, wx_s, h_own, whr, wh_s, l, j, W, gx, hh);
       const float s_h = kW > 0 ? s_h0 : sc_s[l * 8 + 4 + gate];
@@ -457,7 +484,7 @@ int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream) {
 Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
                const void* scales, const void* h0, const void* c0, void* hs,
                void* h_f, void* c_f, int T, int B, int L, int W, int rows,
-               int act, int act_bits) {
+               int act, int act_bits, int fuse) {
   Args a;
   a.x = x;
   a.w_x = w_x;
@@ -476,6 +503,7 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
   a.rows = rows;
   a.act = act;
   a.act_bits = act_bits;
+  a.fuse = fuse;
   return a;
 }
 
@@ -488,17 +516,20 @@ extern "C" int lstm_stack_wavefront(
     void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
     int weight_dtype, int act, int act_bits, void* stream) {
   const Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits);
+                           L, W, rows, act, act_bits, 0);
   return dispatch<false>(a, compute_dtype, weight_dtype, stream);
 }
 
+// fuse_gates (step only, 0 or 1): each gate's sum one 2W-long chain over
+// [x_or_h_prev ; h_l] . [w_x ; w_h], then + b; scales must be null.
 extern "C" int lstm_stack_step(
     const void* xs, const void* w_x, const void* w_h, const void* b,
     const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
     void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
-    int weight_dtype, int act, int act_bits, void* stream) {
+    int weight_dtype, int act, int act_bits, int fuse_gates, void* stream) {
+  if (fuse_gates && scales != nullptr) return cudaErrorInvalidValue;
   const Args a = make_args(xs, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits);
+                           L, W, rows, act, act_bits, fuse_gates);
   return dispatch<true>(a, compute_dtype, weight_dtype, stream);
 }
 

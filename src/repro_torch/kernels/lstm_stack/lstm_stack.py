@@ -49,9 +49,9 @@ def library():
 
     built = build(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("lstm_stack_wavefront", "lstm_stack_step"):
+    for name, n_int in (("lstm_stack_wavefront", 9), ("lstm_stack_step", 10)):
         fn = getattr(built.lib, name)
-        fn.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+        fn.argtypes = [ptr] * 10 + [i32] * n_int + [ptr]
         fn.restype = i32
     built.lib.lstm_stack_smem_bytes.argtypes = [i32] * 5
     built.lib.lstm_stack_smem_bytes.restype = ctypes.c_longlong
@@ -106,7 +106,7 @@ def kernel_act_id(acts: ActivationSet) -> int:
 
 def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            t_len: int, acts: ActivationSet, act_bits: int | None,
-           block_b: int | None) -> None:
+           block_b: int | None, fuse_gates: bool = False) -> None:
     """Launch one of the two kernels on the current stream; raise if the
     launch is refused (``cudaGetLastError`` of the launch is non-zero)."""
     n_layers, width, batch = w_h.shape[0], w_h.shape[1], h0.shape[1]
@@ -132,13 +132,14 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
     # and 16-byte aligned (a fresh allocation is; an offset view is copied)
     ops = [t if t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0)
            else t.clone(memory_format=torch.contiguous_format) for t in ops]
+    step_args = (int(fuse_gates),) if entry == "lstm_stack_step" else ()
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         err = getattr(built.lib, entry)(
             *[None if t is None else t.data_ptr() for t in ops],
             hs.data_ptr(), h_f.data_ptr(), c_f.data_ptr(),
             t_len, batch, n_layers, width, rows, _COMPUTE[h0.dtype],
-            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, stream,
+            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, *step_args, stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

@@ -3,9 +3,9 @@
 Public entry points:
 
 * ``lstm_stack_op(xs, stacked, h0, c0)``: batch-major wrapper over a packed
-  stack.  It runs layer 0's ``mvm_x`` as one matmul outside the kernel
-  (compute dtype, then fp32, then per-gate scales, then the bias, then
-  time-major) and launches the wavefront kernel on the rest.
+  stack.  It runs layer 0's ``mvm_x`` outside the kernel through the
+  row-wise product kernel (compute dtype, then fp32, then per-gate scales,
+  then the bias, time-major) and launches the wavefront kernel on the rest.
 * ``pack_stack(params_list, cfgs)``: one-time packing of a (possibly
   heterogeneous) stack to one common width, with a ``weight_dtype`` axis
   (fp32 | bf16 | int8); int8 packs quantize each gate of each matrix onto a
@@ -98,17 +98,25 @@ def check_packed_weight_dtype(stacked: dict, weight_dtype: str,
 
 
 def project_layer0(xs: torch.Tensor, stacked: dict, weight_dtype: str) -> torch.Tensor:
-    """Layer 0's gate stream for the wavefront kernel (paper mvm_x): one
-    matmul at the compute dtype, widened to fp32, per-gate int8 scales, then
-    the bias, time-major.  (B, T, W) -> (T, B, 4W) fp32."""
-    w0 = stacked["w_x"][0]
-    if w0.dtype != xs.dtype:
-        w0 = w0.to(xs.dtype)
-    xw0 = (xs @ w0).to(torch.float32)
+    """Layer 0's gate stream for the wavefront kernel (paper mvm_x): the
+    product at the compute dtype, widened to fp32, per-gate int8 scales,
+    then the bias, time-major.  (B, T, W) -> (T, B, 4W) fp32.
+
+    The product runs through ``rowwise_matmul``: each sum in the step
+    kernel's order (``seq_dot``), rounded once to the compute dtype, so a
+    row's stream does not depend on the batch (cuBLAS picks its reduction
+    by shape) and equals the step kernel's in-kernel product."""
+    from repro_torch.kernels.rowwise import rowwise_matmul
+
+    batch, t_len, width = xs.shape
+    w0 = stacked["w_x"][0].to(xs.dtype).to(torch.float32)
+    x_tb = xs.transpose(0, 1).reshape(t_len * batch, width)
+    xw0 = rowwise_matmul(x_tb, w0).to(xs.dtype).to(torch.float32)
+    xw0 = xw0.reshape(t_len, batch, w0.shape[1])
     if weight_dtype == "int8":
         scales = normalize_scales(stacked["scales"], stacked["w_h"].shape[0])
         xw0 = apply_gate_scales(xw0, scales[0, 0])
-    return (xw0 + stacked["b"][0]).transpose(0, 1).contiguous()
+    return xw0 + stacked["b"][0]
 
 
 def lstm_stack_op(

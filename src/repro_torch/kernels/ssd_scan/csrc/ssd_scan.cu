@@ -26,53 +26,55 @@
 // What bounds it on this card.  At mamba2-130m's prefill shape (B=8, T=512,
 // H=24, P=64, N=128, L=64) a call must move 34 MB (x and y in bf16, B, C,
 // dt and the fp32 final state): 10 us at 3.35 TB/s.  Its 4.5 GFLOP of fp32
-// chunk products (with C B^T's lower triangle once per head) take 67 us at
-// the 67 TFLOP/s of the CUDA cores: the operations bound it.
+// chunk products (with C B^T's lower triangle once per group) take 67 us
+// at the 67 TFLOP/s of the CUDA cores: the operations bound it.
 //
 // Why the CUDA cores.  Every element of the four products is one fp32 FMA
 // chain over its sum index in ascending order, and every elementwise step
 // is the plain version's operation in its order: that is what cuBLAS
 // computes for the plain version's einsums on this card (fp32, TF32 off),
-// so kernel and plain version agree bit for bit (tools/ssd_drift.py:
-// no bf16 y of mamba2-130m's prefill rounds apart).  PR 15's kernel ran
-// the products on the tensor cores (mma.sync, fp32 operands split into
-// three bf16 parts): 0.149 ms a launch, but an mma truncates its sum
-// toward zero, 6.5e-5 of the bf16 y rounded apart from the plain
-// version's, and mamba2-130m's teacher-forced logits drifted 3.9-4.1% of
-// the largest |logit| from the plain path's over 24 layers (0 now).  C B^T
-// alone on the CUDA cores halved the roundings apart (2.7e-5) and left
-// 2.8-3.3%: only matching every product brought the drift down.
+// so kernel and plain version agree bit for bit (tools/ssd_drift.py: no
+// bf16 y of mamba2-130m's prefill rounds apart).  PR 15's kernel ran the
+// products on the tensor cores (mma.sync, fp32 operands split into three
+// bf16 parts): 0.149 ms a launch, but an mma truncates its sum toward
+// zero, 6.5e-5 of the bf16 y rounded apart from the plain version's, and
+// mamba2-130m's teacher-forced logits drifted 3.9-4.1% of the largest
+// |logit| from the plain path's over 24 layers (0 now).  C B^T alone on
+// the CUDA cores halved the roundings apart (2.7e-5) and left 2.8-3.3%:
+// only matching every product brought the drift down.
 //
 // What the design does about the operations.
-//   * One CTA per (batch row, head, tile of kPT = 16 state rows p): 768
-//     CTAs at the serving shape, 2 per SM.  Both outputs depend on the
+//   * C B^T depends on the group, not the head: a first kernel
+//     (ssd_cb_kernel, one CTA per (batch row, group, chunk)) computes its
+//     lower triangle once into a scratch the wrapper allocates, where the
+//     heads of a group (24 at mamba2-130m) and their state tiles would
+//     otherwise each recompute it.
+//   * The scan kernel: one CTA per (batch row, head, tile of kPT = 16 state
+//     rows p), 768 CTAs at the serving shape.  Both outputs depend on the
 //     CTA's own S tile only:
 //         y[:, tile]  = M @ X[:, tile] + (C e) @ S[tile]^T
 //         S[tile]     = exp(total) S[tile] + xw[:, tile]^T @ B
-//     so CTAs never talk; each recomputes M = tril(exp(cum_t - cum_s)) *
-//     (C B^T) * dt_s of its head.
+//     so CTAs never talk.
 //   * Eight warps in two groups that run side by side, meeting at one CTA
-//     barrier and one named barrier (cum and (C e) @ S_prev^T ready) a
-//     chunk.  The row group (warps 0-3) computes C B^T (a thread owns 4
-//     rows x 8 columns, columns 8 apart so a warp's loads of B hit
-//     different banks; a column block wholly above the diagonal is
-//     skipped), writes M to shared memory, then M @ X and y (a thread owns
-//     8 state rows of one chunk row).  The state group (warps 4-7) stages
-//     the chunks, forms cum, computes (C e) @ S_prev^T and runs the carry;
-//     thread t of it owns S row t / 8, columns 16 (t % 8) .. + 15, in
-//     registers across all chunks, with an fp32 copy in shared memory for
-//     (C e) @ S_prev^T.
+//     barrier and two named barriers (cum ready; M ready) a chunk.  Both
+//     groups turn the staged C B^T into M = (C B^T * exp(cum_t - cum_s)) *
+//     dt_s in place, half the elements each.  The row group (warps 0-3)
+//     then computes y: a thread owns 8 state rows of one chunk row, M @ X
+//     and (C e) @ S_prev^T, two FMA chains each, added once.  The state
+//     group (warps 4-7) stages the
+//     chunks, forms cum and runs the carry; thread t of it owns S row t /
+//     8, columns 16 (t % 8) .. + 15, in registers across all chunks, with
+//     an fp32 copy in shared memory (two, by chunk parity) for the row
+//     group's (C e) @ S_prev^T.
 //   * Each inner loop loads 4 or 8 consecutive elements of a row at once
-//     and keeps the partial sums in registers: 32 FMAs per 12 loads in
-//     C B^T, 8 per load in M @ X, 32 per 9 in (C e) @ S_prev^T, 16 per 3 in
-//     the carry.
-//   * Staging is double-buffered with cp.async (16-byte copies of x, B and
-//     C at their model dtype, 4-byte copies of dt): the next chunk lands
-//     while this one computes.  cum is a sequential sum in torch.cumsum's
-//     order (below); exp(cum) and the carry weights dt * exp(total - cum)
-//     are computed once per chunk.
-//   * About 112 KB of shared memory per CTA in bf16 (2 CTAs, 16 warps per
-//     SM).
+//     and keeps 8 or 16 independent partial sums in registers.
+//   * Staging is double-buffered with cp.async (16-byte copies of x, B, C
+//     and C B^T, 4-byte copies of dt): the next chunk lands while this one
+//     computes.  cum is a sequential sum in torch.cumsum's order (below);
+//     exp(cum) and the carry weights dt * exp(total - cum) are computed
+//     once per chunk.
+//   * About 130 KB of shared memory per CTA in bf16: one CTA, 8 warps, per
+//     SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,9 +94,9 @@ constexpr int kL = 16 * kWarps;            // chunk rows a CTA holds (the larges
 constexpr int kPT = 16;                    // state rows p per CTA
 constexpr int kMaxN = 128;                 // state columns at most
 constexpr int kSN = kMaxN * kPT / kGroup;  // S columns a state thread owns (16)
-constexpr int kYS = kPT + 4;               // row stride of (C e) @ S_prev^T (floats)
-constexpr int kMS = kL + 1;                // row stride of M (floats)
+constexpr int kCB = kL + 4;                // row stride of the staged C B^T, then M (floats)
 constexpr int kXW = kPT + 1;               // row stride of xw (floats)
+constexpr int kCbThreads = 256;            // threads of the C B^T kernel
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
@@ -107,17 +109,18 @@ struct SsdArgs {
   const float* s0;   // (B, H, P, N), or null for a zero state
   void* y;           // (B, T, H, P) model dtype
   float* s_f;        // (B, H, P, N)
+  float* cb;         // (B, G, chunks, kL, kL): C B^T of each chunk, lower triangle, 0 above
   long long x_sb, x_st, bc_sb, bc_st;
   int B, T, H, G, P, N, L;
 };
 
 // Byte offsets of the shared-memory carve-up and the padded row lengths
 // (in elements): two stage buffers of x [kL][xs], B and C [kL][ns] at the
-// model dtype and dt [kL]; cum, exp(cum) and the carry weights [kL];
-// (C e) @ S_prev^T [kL][kYS], from the state group to the row group; M
-// [kL][kMS]; S [kPT][sf] and xw [kL][kXW], fp32.
+// model dtype, dt [kL] and C B^T [kL][kCB] (then M, in place) fp32; cum,
+// exp(cum) and the carry weights [kL]; S [2][kPT][sf] and xw [kL][kXW],
+// fp32.
 struct SsdLayout {
-  size_t x, b, c, dt, stage, cum, ecum, w, yi, m, s, xw, total;
+  size_t x, b, c, dt, cb, stage, cum, ecum, w, s, xw, total;
   int np, xs, ns, sf;
 };
 
@@ -132,22 +135,33 @@ __host__ __device__ inline SsdLayout ssd_layout(int N, int esize) {
   o.b = align16(size_t(kL) * o.xs * esize);
   o.c = o.b + align16(size_t(kL) * o.ns * esize);
   o.dt = o.c + align16(size_t(kL) * o.ns * esize);
-  o.stage = o.dt + align16(kL * sizeof(float));
+  o.cb = o.dt + align16(kL * sizeof(float));
+  o.stage = o.cb + align16(size_t(kL) * kCB * sizeof(float));
   o.cum = 2 * o.stage;
   o.ecum = o.cum + kL * sizeof(float);
   o.w = o.ecum + kL * sizeof(float);
-  o.yi = o.w + kL * sizeof(float);
-  o.m = align16(o.yi + size_t(kL) * kYS * sizeof(float));
-  o.s = align16(o.m + size_t(kL) * kMS * sizeof(float));
-  o.xw = align16(o.s + size_t(kPT) * o.sf * sizeof(float));
+  o.s = align16(o.w + kL * sizeof(float));
+  o.xw = align16(o.s + 2 * size_t(kPT) * o.sf * sizeof(float));
   o.total = align16(o.xw + size_t(kL) * kXW * sizeof(float));
   return o;
 }
+
+// Row length (elements) of the C B^T kernel's copies of B and C: rows
+// shift by one bank (bf16 pairs) or two (fp32 pairs).
+__host__ __device__ inline int cb_row(int N) { return ((N + 15) & ~15) + 2; }
 
 // ---- helpers ---------------------------------------------------------------
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// two consecutive elements, widened (8- or 4-byte aligned)
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
 __device__ __forceinline__ float2 unpack(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
@@ -200,9 +214,9 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
-constexpr int kBarCum = 1;    // cum, exp(cum) and (C e) @ S_prev^T ready (state -> rows)
-constexpr int kBarState = 2;  // within the state group: exp(cum), then xw, ready
-constexpr int kBarM = 3;      // within the row group: M ready
+constexpr int kBarCum = 1;    // cum and exp(cum) ready (state -> rows)
+constexpr int kBarState = 2;  // within the state group: the carry weights, then xw, ready
+constexpr int kBarM = 3;      // M ready (both groups -> rows)
 
 __device__ __forceinline__ void zero_bytes(unsigned char* p, size_t bytes) {  // 16-byte units
   for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads) {
@@ -210,11 +224,53 @@ __device__ __forceinline__ void zero_bytes(unsigned char* p, size_t bytes) {  //
   }
 }
 
-// ---- the kernel ------------------------------------------------------------
+// ---- the kernels -----------------------------------------------------------
+
+// C B^T of one (batch row, group, chunk): element (t, s) = sum_n C[t, n]
+// B[s, n], one FMA chain over n in order, for s <= t < the chunk's length;
+// every other element of the kL x kL block 0.
+template <typename E>
+__global__ void __launch_bounds__(kCbThreads) ssd_cb_kernel(const SsdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int N = a.N, L = a.L, T = a.T;
+  const int n_chunks = (T + L - 1) / L;
+  const int bg_ = blockIdx.x / n_chunks, c = blockIdx.x - bg_ * n_chunks;
+  const int b = bg_ / a.G, g = bg_ - b * a.G;
+  const int t0 = c * L, lc = min(L, T - t0), R = cb_row(N);
+  E* cs = reinterpret_cast<E*>(smem);
+  E* bs = cs + kL * R;
+  for (int i = threadIdx.x; i < 2 * kL * R * int(sizeof(E)) / 4; i += kCbThreads) {
+    reinterpret_cast<uint32_t*>(smem)[i] = 0u;  // R is even: whole words
+  }
+  __syncthreads();
+  const E* cg = static_cast<const E*>(a.cm) + size_t(b) * a.bc_sb + size_t(g) * N;
+  const E* bg = static_cast<const E*>(a.bm) + size_t(b) * a.bc_sb + size_t(g) * N;
+  for (int i = threadIdx.x; i < lc * N; i += kCbThreads) {
+    const int t = i / N, n = i - t * N;
+    cs[t * R + n] = cg[size_t(t0 + t) * a.bc_st + n];
+    bs[t * R + n] = bg[size_t(t0 + t) * a.bc_st + n];
+  }
+  __syncthreads();
+  float* out = a.cb + size_t(blockIdx.x) * kL * kL;
+  for (int e = threadIdx.x; e < kL * kL; e += kCbThreads) {
+    const int t = e / kL, s = e - t * kL;
+    float acc = 0.0f;
+    if (s <= t && t < lc) {
+      const E* cr = cs + t * R;
+      const E* br = bs + s * R;
+#pragma unroll 4
+      for (int n = 0; n < N; n += 2) {
+        const float2 cv = ld2(cr + n), bv = ld2(br + n);
+        acc = __fmaf_rn(cv.y, bv.y, __fmaf_rn(cv.x, bv.x, acc));
+      }
+    }
+    out[e] = acc;
+  }
+}
 
 // E: element type of x, B, C and y (fp32 or bf16).
 template <typename E>
-__global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs a) {
   constexpr int kEpu = 16 / sizeof(E);  // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int P = a.P, N = a.N, T = a.T, H = a.H, L = a.L;
@@ -228,25 +284,29 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
   const bool rows_group = warp < kWarps;
   const int w = rows_group ? warp : warp - kWarps;  // the warp's index in its group
   const int st = tid - kGroup;                      // the thread's index in the state group
+  const int n_chunks = (T + L - 1) / L;
   const float a_h = a.a[h];
   const E* xg = static_cast<const E*>(a.x) + size_t(b) * a.x_sb + size_t(h) * P + p0;
   const E* bg = static_cast<const E*>(a.bm) + size_t(b) * a.bc_sb + size_t(grp) * N;
   const E* cg = static_cast<const E*>(a.cm) + size_t(b) * a.bc_sb + size_t(grp) * N;
   const float* dtg = a.dt + size_t(b) * T * H + h;
+  const float* cbg = a.cb + (size_t(b) * a.G + grp) * n_chunks * kL * kL;
   float* cum = reinterpret_cast<float*>(smem + o.cum);
   float* ecum = reinterpret_cast<float*>(smem + o.ecum);
   float* wts = reinterpret_cast<float*>(smem + o.w);
-  float* yi_s = reinterpret_cast<float*>(smem + o.yi);  // [kL][kYS]
-  float* m_s = reinterpret_cast<float*>(smem + o.m);    // [kL][kMS]
-  float* s_s = reinterpret_cast<float*>(smem + o.s);    // [kPT][SF]
   float* xw_s = reinterpret_cast<float*>(smem + o.xw);  // [kL][kXW]
   auto x_s = [&](int buf) { return reinterpret_cast<E*>(smem + buf * o.stage + o.x); };
   auto b_s = [&](int buf) { return reinterpret_cast<E*>(smem + buf * o.stage + o.b); };
   auto c_s = [&](int buf) { return reinterpret_cast<E*>(smem + buf * o.stage + o.c); };
   auto dt_s = [&](int buf) { return reinterpret_cast<float*>(smem + buf * o.stage + o.dt); };
+  auto cb_s = [&](int buf) { return reinterpret_cast<float*>(smem + buf * o.stage + o.cb); };
+  // S after chunk c - 1 (S_prev of chunk c) in s_s(c & 1), [kPT][SF]
+  auto s_s = [&](int parity) {
+    return reinterpret_cast<float*>(smem + o.s) + parity * kPT * SF;
+  };
 
-  // every pad row and column reads as 0 (x past pw, B and C past N, M
-  // above the diagonal, rows past L); staging writes only real elements
+  // every pad row and column reads as 0 (x past pw, B and C past N, rows
+  // past L); staging writes only real elements
   zero_bytes(smem, o.total);
   __syncthreads();
 
@@ -285,6 +345,13 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
       }
     }
     for (int t = st; t < lc; t += nst) cp_async4(dts + t, dtg + size_t(t0 + t) * H);
+    // C B^T of the chunk, all kL rows (0 past lc and above the diagonal)
+    const float* cbc = cbg + size_t(c) * kL * kL;
+    float* cbs = cb_s(buf);
+    for (int i = st; i < kL * kL / 4; i += nst) {
+      const int t = i / (kL / 4), u = i - t * (kL / 4);
+      cp_async16(cbs + t * kCB + 4 * u, cbc + t * kL + 4 * u);
+    }
     if (lc < L) {
       const size_t xr = size_t(XS) * sizeof(E), nr = size_t(NS) * sizeof(E);
       for (size_t i = st; i < (L - lc) * xr / 16; i += nst) {
@@ -299,28 +366,27 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
   };
 
   // the state group's S: row sp, columns n0 .. n0 + kSN - 1 (those below N),
-  // in registers across all chunks; its fp32 copy in shared memory feeds
-  // (C e) @ S_prev^T
+  // in registers across all chunks
   const int sp = st >> 3, n0 = kSN * (st & 7);
   const int sn = rows_group ? 0 : max(0, min(kSN, N - n0));
   float sr[kSN];
-  auto store_state = [&]() {
+  auto store_state = [&](int parity) {
+    float* ss = s_s(parity);
 #pragma unroll
     for (int j = 0; j < kSN; ++j) {
-      if (j < sn) s_s[sp * SF + n0 + j] = sr[j];
+      if (j < sn) ss[sp * SF + n0 + j] = sr[j];
     }
   };
   if (!rows_group) {
     const float* s0 = a.s0 ? a.s0 + ((size_t(b) * H + h) * P + p0 + sp) * N + n0 : nullptr;
 #pragma unroll
     for (int j = 0; j < kSN; ++j) sr[j] = s0 != nullptr && j < sn && sp < pw ? s0[j] : 0.0f;
-    store_state();
+    store_state(0);
     stage(0, 0);
     cp_async_commit();
   }
 
   E* yg = static_cast<E*>(a.y) + size_t(b) * T * H * P + size_t(h) * P + p0;
-  const int n_chunks = (T + L - 1) / L;
   // clock stamps (-DKERNEL_PROBE builds only): lane 0 of every warp of
   // CTAs 0 and 400, the phases of each of the first 16 chunks
   [[maybe_unused]] const bool stamps = (blockIdx.x == 0 || blockIdx.x == 400) && lane == 0;
@@ -336,78 +402,61 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
     const E* cs = c_s(buf);
     const float* dts = dt_s(buf);
 
+    // M = (C B^T * exp(cum_t - cum_s)) * dt_s on and below the diagonal,
+    // in place (0 above it, as staged), by both groups: element e is
+    // thread e % kThreads's
+    float* ms = cb_s(buf);
+    auto make_m = [&]() {
+      for (int e = tid; e < kL * kL; e += kThreads) {
+        const int t = e / kL, s = e - t * kL;
+        if (s <= t && t < lc) {
+          float* m = ms + t * kCB + s;
+          *m = __fmul_rn(__fmul_rn(*m, expf(__fsub_rn(cum[t], cum[s]))), dts[s]);
+        }
+      }
+    };
+
     if (rows_group) {
-      // C B^T: rows 4rg .. 4rg + 3, columns cg + 8j; column j is needed
-      // where it is on or below the diagonal of the thread's last row
-      const int rg = tid >> 3, cgc = tid & 7;
-      const int jn = 4 * rg + 3 < cgc ? 0 : min(8, (4 * rg + 3 - cgc) / 8 + 1);
-      float cb[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) cb[i][j] = 0.0f;
-      }
-      if (4 * rg < lc) {
-#pragma unroll 1
-        for (int n = 0; n < N; n += 4) {
-          float cv[4][4], bv[8][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) load4(cs + (4 * rg + i) * NS + n, cv[i]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            if (j < jn) load4(bs + (cgc + 8 * j) * NS + n, bv[j]);
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                if (j < jn) cb[i][j] = __fmaf_rn(cv[i][k], bv[j][k], cb[i][j]);
-              }
-            }
-          }
-        }
-      }
+      bar_sync(kBarCum, kThreads);  // cum and exp(cum) of this chunk
       CHUNK_STAMP(1);
-      bar_sync(kBarCum, kThreads);  // cum, exp(cum) and (C e) @ S_prev^T of this chunk
+      make_m();
+      bar_sync(kBarM, kThreads);    // every element of M
       CHUNK_STAMP(2);
-      // M = (C B^T * exp(cum_t - cum_s)) * dt_s on and below the diagonal
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = 4 * rg + i;
-        if (t < lc) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int s = cgc + 8 * j;
-            if (j < jn) {
-              m_s[t * kMS + s] =
-                  s <= t ? __fmul_rn(__fmul_rn(cb[i][j], expf(__fsub_rn(cum[t], cum[s]))), dts[s])
-                         : 0.0f;
-            }
-          }
-        }
-      }
-      bar_sync(kBarM, kGroup);
-      // y = M @ X + (C e) @ S_prev^T: state rows pb .. pb + 7 of chunk row t
+      // y = M @ X + (C e) @ S_prev^T: state rows pb .. pb + 7 of chunk row
+      // t, each product one FMA chain (over s, then over n), added once
       const int t = tid >> 1, pb = 8 * (tid & 1);
       if (t < lc) {
-        float yv[8];
+        float yv[8], yi[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) yv[j] = 0.0f;
-#pragma unroll 2
+        for (int j = 0; j < 8; ++j) yv[j] = yi[j] = 0.0f;
+        const float* mr = ms + t * kCB;
+#pragma unroll 8
         for (int s = 0; s < kL; ++s) {
-          const float m = m_s[t * kMS + s];
           float xv[8];
           load8(xs + s * XS + pb, xv);
+          const float m = mr[s];
 #pragma unroll
           for (int j = 0; j < 8; ++j) yv[j] = __fmaf_rn(m, xv[j], yv[j]);
+        }
+        const float e_t = ecum[t];
+        const float* ss = s_s(buf);
+#pragma unroll 2
+        for (int n = 0; n < N; n += 4) {
+          float cv[4], sv[8][4];
+          load4(cs + t * NS + n, cv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) load4(ss + (pb + j) * SF + n, sv[j]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float ce = __fmul_rn(cv[k], e_t);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) yi[j] = __fmaf_rn(ce, sv[j][k], yi[j]);
+          }
         }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (pb + j < pw) {
-            store1(yg + (size_t(t0 + t) * H) * P + pb + j,
-                   __fadd_rn(yv[j], yi_s[t * kYS + pb + j]));
+            store1(yg + (size_t(t0 + t) * H) * P + pb + j, __fadd_rn(yv[j], yi[j]));
           }
         }
       }
@@ -450,38 +499,13 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
           wts[t] = dts[t] * expf(total - cum[t]);
         }
       }
-      bar_sync(kBarState, kGroup);  // exp(cum) of this chunk
-      {
-        // (C e) @ S_prev^T, e = exp(cum): state rows pb .. pb + 7 of chunk
-        // row t, each one FMA chain over n
-        const int t = st >> 1, pb = 8 * (st & 1);
-        if (t < lc) {
-          float acc[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-          const float e_t = ecum[t];
-#pragma unroll 1
-          for (int n = 0; n < N; n += 4) {
-            float cv[4];
-            load4(cs + t * NS + n, cv);
-            float sv[8][4];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) load4(s_s + (pb + j) * SF + n, sv[j]);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float ce = __fmul_rn(cv[k], e_t);
-#pragma unroll
-              for (int j = 0; j < 8; ++j) acc[j] = __fmaf_rn(ce, sv[j][k], acc[j]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) yi_s[t * kYS + pb + j] = acc[j];
-        }
-      }
-      CHUNK_STAMP(1);
       __threadfence_block();
       bar_arrive(kBarCum, kThreads);  // for the row group, which waits there
-      CHUNK_STAMP(2);
+      bar_sync(kBarState, kGroup);    // warp 4's cum and weights, for this group
+      make_m();
+      __threadfence_block();
+      bar_arrive(kBarM, kThreads);    // this group's elements of M
+      CHUNK_STAMP(1);
 
       // the next chunk lands while this one computes (its buffer's last
       // reads were in chunk c - 1, before this chunk's barrier)
@@ -489,6 +513,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         stage(c + 1, buf ^ 1);
         cp_async_commit();
       }
+      CHUNK_STAMP(2);
 
       // the carry: S = exp(total) S + xw^T @ B, xw = x * (dt * exp(total -
       // cum)), over all kL rows (past lc, x and the weights are 0)
@@ -496,12 +521,12 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         const int s = i / kPT, p = i - s * kPT;
         xw_s[s * kXW + p] = __fmul_rn(ldf(xs + s * XS + p), wts[s]);
       }
-      bar_sync(kBarState, kGroup);  // xw, and every read of S_prev, done
+      bar_sync(kBarState, kGroup);  // xw ready
       if (sn > 0) {
         float u[kSN];
 #pragma unroll
         for (int j = 0; j < kSN; ++j) u[j] = 0.0f;
-#pragma unroll 2
+#pragma unroll 4
         for (int s = 0; s < kL; ++s) {
           const float xv = xw_s[s * kXW + sp];
           float bv[kSN];
@@ -520,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
         for (int j = 0; j < kSN; ++j) sr[j] = __fadd_rn(__fmul_rn(etot, sr[j]), u[j]);
       }
       CHUNK_STAMP(3);
-      store_state();
+      store_state(buf ^ 1);
       CHUNK_STAMP(4);
     }
   }
@@ -538,14 +563,22 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const SsdArgs a) 
 // CTAs of a launch: one per (batch row, head, tile of kPT state rows).
 inline int grid_ctas(int B, int H, int P) { return B * H * ((P + kPT - 1) / kPT); }
 
-template <typename T>
+template <typename T, bool kCbKernel>
 struct Instance {};  // one shared-memory table each
 
 template <typename T>
 cudaError_t launch(const SsdArgs& a, cudaStream_t stream) {
+  const int n_chunks = (a.T + a.L - 1) / a.L;
+  const size_t cb_smem = 2 * size_t(kL) * cb_row(a.N) * sizeof(T);
+  auto cb_kernel = ssd_cb_kernel<T>;
+  cudaError_t err = set_smem_once<Instance<T, true>>(cb_kernel, cb_smem);
+  if (err != cudaSuccess) return err;
+  cb_kernel<<<a.B * a.G * n_chunks, kCbThreads, cb_smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const size_t smem = ssd_layout(a.N, sizeof(T)).total;
   auto kernel = ssd_scan_kernel<T>;
-  cudaError_t err = set_smem_once<Instance<T>>(kernel, smem);
+  err = set_smem_once<Instance<T, false>>(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid_ctas(a.B, a.H, a.P), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -553,13 +586,15 @@ cudaError_t launch(const SsdArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns cudaGetLastError() of the launch (0 on success).  x, B and C
-// share `dtype` and are read at the batch and token strides given (in
-// elements; heads and state columns contiguous, every row 16-byte
-// aligned); dt, s0, y and s_f are contiguous; s0 may be null.  Requires
-// H % G == 0, T >= 1, 1 <= L <= 64, P % 8 == 0, N % 8 == 0 and N <= 128.
+// Returns cudaGetLastError() of the two launches (0 on success).  x, B
+// and C share `dtype` and are read at the batch and token strides given
+// (in elements; heads and state columns contiguous, every row 16-byte
+// aligned); dt, s0, y and s_f are contiguous; s0 may be null; cb is fp32
+// scratch of ssd_scan_scratch_floats(B, G, T, L) floats, 16-byte aligned.
+// Requires H % G == 0, T >= 1, 1 <= L <= 64, P % 8 == 0, N % 8 == 0 and
+// N <= 128.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* a, const void* bm,
-                        const void* cm, const void* s0, void* y, void* s_f,
+                        const void* cm, const void* s0, void* y, void* s_f, void* cb,
                         long long x_sb, long long x_st, long long bc_sb, long long bc_st,
                         int B, int T, int H, int G, int P, int N, int L, int dtype,
                         void* stream) {
@@ -576,6 +611,7 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* a, const void
   args.s0 = static_cast<const float*>(s0);
   args.y = y;
   args.s_f = static_cast<float*>(s_f);
+  args.cb = static_cast<float*>(cb);
   args.x_sb = x_sb;
   args.x_st = x_st;
   args.bc_sb = bc_sb;
@@ -598,5 +634,11 @@ extern "C" long long ssd_scan_smem_bytes(int N, int dtype) {
   return static_cast<long long>(ssd_layout(N, dtype == kF32 ? 4 : 2).total);
 }
 
-// CTAs of one launch (the grid the launch uses).
+// CTAs of the scan kernel's launch (the grid the launch uses).
 extern "C" long long ssd_scan_ctas(int B, int H, int P) { return grid_ctas(B, H, P); }
+
+// fp32 elements of the C B^T scratch: a kL x kL block per (batch row,
+// group, chunk).
+extern "C" long long ssd_scan_scratch_floats(int B, int G, int T, int L) {
+  return static_cast<long long>(B) * G * ((T + L - 1) / L) * kL * kL;
+}

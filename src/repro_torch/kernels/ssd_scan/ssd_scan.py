@@ -1,4 +1,4 @@
-"""Chunked Mamba-2 SSD scan: one CUDA launch per call.
+"""Chunked Mamba-2 SSD scan: two CUDA launches per call.
 
 The state-space-duality recurrence (per batch row and head, scalar decay
 per head):
@@ -6,14 +6,15 @@ per head):
     S_t = exp(dt_t a) S_{t-1} + dt_t (x_t outer B_t),    y_t = C_t . S_t
 
 in chunks of L steps: the intra-chunk part as products of L x L and L x P
-tiles, the inter-chunk part through the carried fp32 state.  The kernel
-(``csrc/ssd_scan.cu``, with its design notes) runs one CTA per (batch row,
-head, tile of 16 state rows), computes the chunk products on the tensor
-cores (the fp32 operands it derives split exactly into three bf16 parts)
-and keeps its S tile in registers across the chunks; it reads the model's (B, T, H, P) and
-(B, T, G, N) tensors as they are (views into one projection included),
-indexes each head's B/C group itself and runs a ragged last chunk at its
-real length.
+tiles, the inter-chunk part through the carried fp32 state.  The kernels
+(``csrc/ssd_scan.cu``, with their design notes) compute C B^T once per
+(batch row, group, chunk) into a scratch, then run one CTA per (batch row,
+head, tile of 16 state rows) that keeps its S tile in registers across the
+chunks.  Every product is an fp32 FMA chain in the plain version's order on
+the CUDA cores, so the kernel's results equal the plain version's on the
+card bit for bit.  It reads the model's (B, T, H, P) and (B, T, G, N)
+tensors as they are (views into one projection included), indexes each
+head's B/C group itself and runs a ragged last chunk at its real length.
 
 ``ssd_chunked`` is the plain version: the reference's pure-jnp chunked
 algorithm (``repro/models/ssm.py``) in PyTorch, the same steps in the same
@@ -43,21 +44,17 @@ def library():
     """Build (at first use) and load the kernel library; returns ``Built``."""
     from repro_torch.kernels._build import build
 
-    return bind(build(SOURCE))
-
-
-def bind(built):
-    """Declare the C entries' argument types on a built library (also a
-    copy built with other ``-D`` macros, as ``tools/ssd_drift.py`` builds
-    them); returns it."""
+    built = build(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     i64 = ctypes.c_longlong
-    built.lib.ssd_scan.argtypes = [ptr] * 8 + [i64] * 4 + [i32] * 8 + [ptr]
+    built.lib.ssd_scan.argtypes = [ptr] * 9 + [i64] * 4 + [i32] * 8 + [ptr]
     built.lib.ssd_scan.restype = i32
     built.lib.ssd_scan_smem_bytes.argtypes = [i32] * 2
     built.lib.ssd_scan_smem_bytes.restype = i64
     built.lib.ssd_scan_ctas.argtypes = [i32] * 3
     built.lib.ssd_scan_ctas.restype = i64
+    built.lib.ssd_scan_scratch_floats.argtypes = [i32] * 4
+    built.lib.ssd_scan_scratch_floats.restype = i64
     return built
 
 
@@ -195,11 +192,15 @@ def _launch(x, dt, a, bm, cm, s0, chunk):
         bm, cm = (t.clone(memory_format=torch.contiguous_format) for t in (bm, cm))
     dt, a = dt.contiguous(), a.contiguous()
     s0 = None if s0 is None else s0.contiguous()
+    # C B^T of every (batch row, group, chunk), made by the first of the
+    # call's two kernels for the second
+    cb = torch.empty(built.lib.ssd_scan_scratch_floats(batch, groups, t_len, chunk),
+                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = built.lib.ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-            None if s0 is None else s0.data_ptr(), y.data_ptr(), s_f.data_ptr(),
+            None if s0 is None else s0.data_ptr(), y.data_ptr(), s_f.data_ptr(), cb.data_ptr(),
             x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
             batch, t_len, heads, groups, p, n, chunk, _DTYPES[x.dtype], stream)
     if err != 0:

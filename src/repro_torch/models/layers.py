@@ -117,8 +117,8 @@ def sdpa(
     v: torch.Tensor,              # (B, Sk, Hkv, D)
     *,
     causal: bool,
-    q_offset: int = 0,            # absolute position of q[0] (decode)
-    kv_len: int | None = None,    # valid cache length (masks padded tail)
+    q_offset: int | torch.Tensor = 0,        # absolute position of q[0] (decode)
+    kv_len: int | torch.Tensor | None = None,  # valid cache length (masks padded tail)
     window: int | None = None,    # sliding-window width (tokens back)
 ) -> torch.Tensor:
     """Masked GQA scaled-dot-product attention (plain PyTorch).
@@ -180,14 +180,17 @@ def attention_decode(
     x: torch.Tensor,              # (B, 1, d)
     cache_k: torch.Tensor,        # (B, S_max, Hkv, D): written in place at pos
     cache_v: torch.Tensor,
-    pos: int,                     # index of the new token
+    pos: torch.Tensor | int,      # index of the new token (0-d int32 tensor)
     cfg: ArchConfig,
     *,
     window: int | None = None,
     use_kernel: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode: write this token's K/V into the cache at ``pos``
-    (in place), attend over the valid prefix ``[0, pos]``.
+    (in place), attend over the valid prefix ``[0, pos]``.  ``pos`` is read
+    with device ops only (no host copy), so the step can be captured in a
+    CUDA graph; the caller keeps it inside the cache (``LmEngine`` checks
+    the range on the host before the step).
 
     ``use_kernel=True`` runs the decode-attention kernel (K5), which has no
     window mask: a window with the kernel raises instead of being dropped
@@ -202,21 +205,19 @@ def attention_decode(
         raise ValueError(
             f"attention_decode: the decode-attention kernel has no window mask "
             f"(window={window}); pass use_kernel=False for a windowed cache")
-    if not 0 <= pos < cache_k.shape[1]:
-        raise ValueError(f"attention_decode: pos {pos} outside a cache of "
-                         f"{cache_k.shape[1]} rows")
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).reshape(1)
     q, k, v = _proj_qkv(p, x, x, cfg)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta)  # (1, hd/2)
+    cos, sin = rope_tables(pos, hd, cfg.rope_theta)  # (1, hd/2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    row = pos.long()
+    cache_k.index_copy_(1, row, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, row, v.to(cache_v.dtype))
     kv_len = pos + 1
     if use_kernel:
         from repro_torch.kernels.decode_attn import decode_attn_op
 
-        lengths = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
+        lengths = kv_len.expand(b).contiguous()
         out = decode_attn_op(q[:, 0], cache_k, cache_v, lengths)[:, None]
     else:
         out = sdpa(q, cache_k, cache_v, causal=False, q_offset=pos, kv_len=kv_len,

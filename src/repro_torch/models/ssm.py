@@ -200,7 +200,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     (``max_len`` and ``dtype`` are unused: the state is fp32)."""
     one = init_ssm_state(cfg, batch, device=device)
     return {"state": {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
-                      for k, v in one.items()}, "pos": 0}
+                      for k, v in one.items()},
+            "pos": torch.zeros((), dtype=torch.int32, device=resolve_device(device))}
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = None,
@@ -219,13 +220,15 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = No
         states.append(st)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     state = {k: torch.stack([st[k] for st in states]) for k in ("conv", "ssd")}
-    return x @ params["lm_head"], {"state": state, "pos": s}
+    pos = torch.full((), s, dtype=torch.int32, device=x.device)
+    return x @ params["lm_head"], {"state": state, "pos": pos}
 
 
 def decode_step(params: dict, cache: dict, batch: dict,
                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """One new token; batch["tokens"]: (B, 1).  Updates the per-layer state
-    in ``cache`` in place.  Decode runs no kernel of this package."""
+    in ``cache`` and advances its ``pos`` (a 0-d int32 tensor, as in the
+    transformer's cache) in place.  Decode runs no kernel of this package."""
     x = _embed(params, batch["tokens"])
     state = cache["state"]
     for i in range(cfg.n_layers):
@@ -236,4 +239,5 @@ def decode_step(params: dict, cache: dict, batch: dict,
         state["conv"][i] = st["conv"]
         state["ssd"][i] = st["ssd"]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"], {**cache, "pos": cache["pos"] + 1}
+    cache["pos"].add_(1)
+    return x @ params["lm_head"], cache

@@ -8,10 +8,13 @@ Layer parameters keep the reference's stacked (L, ...) tree, so converting
 the reference's params is a copy; the forward functions loop over the
 layers and index the stack.  Prefill attends with ``sdpa`` up to
 ``_FLASH_THRESHOLD`` tokens and with ``flash_attention`` above it.  The KV
-cache is (L, B, S_max, Hkv, D) per K and V plus the next position ``pos``
-(a Python int); ``decode_step`` writes each layer's new row in place and
-attends through the decode-attention kernel (K5) unless the caller asks
-for the plain path or the model has a sliding window.
+cache is (L, B, S_max, Hkv, D) per K and V plus the next position ``pos``,
+a 0-d int32 tensor on the cache's device as in the reference: the decode
+step reads it only with device ops, so a step can be captured once and
+replayed (``serve/engine.LmEngine``).  ``decode_step`` writes each layer's
+new row and advances ``pos`` in place and attends through the
+decode-attention kernel (K5) unless the caller asks for the plain path or
+the model has a sliding window.
 """
 
 from __future__ import annotations
@@ -116,7 +119,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | N
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     dtype = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
@@ -134,17 +138,18 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
         cache["k"][i, :, :s] = k.to(cfg.dtype)
         cache["v"][i, :, :s] = v.to(cfg.dtype)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-    cache["pos"] = s
+    cache["pos"].fill_(s)
     return x @ _head(params, cfg), cache
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
                 *, use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
     """One new token against the cache; batch["tokens"]: (B, 1).  Writes the
-    token's K/V rows into ``cache`` in place and returns (logits (B, 1,
-    V_padded), the cache with ``pos`` advanced).  Attention runs through
-    the decode-attention kernel when ``use_kernel`` and the model has no
-    sliding window."""
+    token's K/V rows into ``cache`` and advances its ``pos`` in place (the
+    caller keeps ``pos`` inside the cache: ``LmEngine`` checks it on the
+    host) and returns (logits (B, 1, V_padded), the cache).  Attention runs
+    through the decode-attention kernel when ``use_kernel`` and the model
+    has no sliding window."""
     x = embed_inputs(params, {"tokens": batch["tokens"]}, cfg)  # (B, 1, d)
     pos = cache["pos"]
     kernel = use_kernel and cfg.sliding_window is None
@@ -156,4 +161,5 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
         x = x + out
         x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ _head(params, cfg), {**cache, "pos": pos + 1}
+    pos.add_(1)
+    return x @ _head(params, cfg), cache

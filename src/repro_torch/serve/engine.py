@@ -16,12 +16,22 @@ Streaming state lifecycle (``StreamingAnomalyEngine``):
     resets to zero (default, matches one-shot window scoring) or carries
     on (``carry_state=True``, the continuous-stream mode)
 
-The kernels return fresh state tensors on every push; nothing a caller
-holds is ever overwritten in place.
+On the card the serving calls replay CUDA graphs, as the reference runs
+them as compiled programs (``core/graphs.py``): ``push`` replays the
+executor's step graph (``StackExecutor.step_graph``) for chunks up to the
+plan's ``chunk_len`` and ``push_many`` one gather -> step -> scatter graph
+per pool width (the reference's ``_coalesced_step``); streams that
+complete a window in the same piece are scored by one decode padded up the
+width ladder (the reference's ``_finish_streams``), captured per width.
+Graphs need a packed backend (``fused_step``/``fused_stack``); the
+``kernel`` backend, longer chunks and the CPU run eagerly.  Resident state
+lives in the graphs' and the pool's buffers and is updated in place; a
+snapshot copies it out.
 
 ``LmEngine``: LM serving for the ``dense`` and ``ssm`` families: one
 batched prefill, then greedy decode steps against the cache, with the
-decode-attention (K5) and SSD-scan (K4) kernels on their paths.
+decode-attention (K5) and SSD-scan (K4) kernels on their paths; on the
+card each prefill shape and each decode batch replays a captured graph.
 
 Fault tolerance (``StreamingAnomalyEngine``): ``snapshot``/``restore``
 carry every stream's state, partial windows and the threshold through the
@@ -34,6 +44,7 @@ the reference, so a snapshot written by one restores in the other.
 from __future__ import annotations
 
 import logging
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -48,7 +59,9 @@ from repro_torch.core.autoencoder import (
     segment_executors,
 )
 from repro_torch.core.backends import get_backend, resolve_impl
+from repro_torch.core.graphs import CapturedCall
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import tree_map
 from repro_torch.serve.health import (
     SNAPSHOT_VERSION,
     SnapshotMismatchError,
@@ -118,6 +131,15 @@ def _params_to(params: dict, device: torch.device) -> dict:
             for k, v in params.items()}
 
 
+def _copy_tree(dst: dict, src: dict) -> None:
+    """Copy every tensor of the nested dict ``src`` into ``dst``'s."""
+    for key, value in src.items():
+        if isinstance(value, dict):
+            _copy_tree(dst[key], value)
+        else:
+            dst[key].copy_(value)
+
+
 def _windows(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
@@ -176,14 +198,95 @@ class AnomalyStreamEngine:
         return self.score(windows) > self.threshold
 
 
-@dataclass
-class _StreamSlot:
-    """One named stream's resident state in the ``push_many`` pool: its
-    encoder state at B=1, the chunks of its partial window, the fill."""
+def _flatten(state, packed: bool) -> list:
+    """State leaves in the reference's flattening order: ``[h, c]`` of the
+    packed layout, ``[h0, c0, h1, c1, ...]`` of the layers layout."""
+    return list(state) if packed else [t for layer in state for t in layer]
 
-    state: object
-    chunks: list = field(default_factory=list)
-    filled: int = 0
+
+def _unflatten(leaves: list, packed: bool):
+    if packed:
+        return tuple(leaves)
+    return [tuple(leaves[i : i + 2]) for i in range(0, len(leaves), 2)]
+
+
+class _Pool:
+    """Every ``push_many`` stream's encoder state as one row of a
+    batch-major native state (the leaves' batch axis ``ax``).  Row ``ZERO``
+    stays zero: the pad rows of a padded step read it.  Row ``SINK`` takes
+    the pad rows' results.  Streams get the rows above; the rows keep their
+    addresses while the pool does not grow, so a captured step gathers and
+    scatters them in place.  ``graphs`` holds the graphs captured over
+    these buffers (dropped when the pool grows)."""
+
+    ZERO, SINK = 0, 1
+
+    def __init__(self, executor, packed: bool, capacity: int = 64):
+        self.ex, self.packed, self.ax = executor, packed, 1 if packed else 0
+        self.leaves = _flatten(executor.zero_state(capacity + 2), packed)
+        self.graphs: dict = {}
+        self.release_all()
+
+    def release_all(self) -> None:
+        self.free = list(range(self.leaves[0].shape[self.ax] - 1, 1, -1))  # pop() gives the lowest
+
+    def alloc(self) -> int:
+        if not self.free:
+            self._grow()
+        row = self.free.pop()
+        for leaf in self.leaves:
+            leaf.narrow(self.ax, row, 1).zero_()
+        return row
+
+    def release(self, row: int) -> None:
+        self.free.append(row)
+
+    def _grow(self) -> None:
+        rows = self.leaves[0].shape[self.ax]
+        grown = _flatten(self.ex.zero_state(2 * rows), self.packed)
+        for new, old in zip(grown, self.leaves):
+            new.narrow(self.ax, 0, rows).copy_(old)
+        self.leaves, self.graphs = grown, {}
+        self.free = list(range(2 * rows - 1, rows - 1, -1)) + self.free
+
+    def row_state(self, row: int):
+        """One row as a B=1 native state (views into the pool)."""
+        return _unflatten([leaf.narrow(self.ax, row, 1) for leaf in self.leaves], self.packed)
+
+    def set_row(self, row: int, state) -> None:
+        for leaf, src in zip(self.leaves, _flatten(state, self.packed)):
+            leaf.narrow(self.ax, row, 1).copy_(src)
+
+    def gather(self, idx: torch.Tensor):
+        return _unflatten([leaf.index_select(self.ax, idx) for leaf in self.leaves],
+                          self.packed)
+
+    def scatter(self, idx: torch.Tensor, state) -> None:
+        for leaf, src in zip(self.leaves, _flatten(state, self.packed)):
+            leaf.index_copy_(self.ax, idx, src)
+
+    def zero_rows(self, idx: torch.Tensor) -> None:
+        for leaf in self.leaves:
+            leaf.index_fill_(self.ax, idx, 0)
+
+
+class _StreamSlot:
+    """One named stream of the ``push_many`` pool: its row, the chunks of
+    its partial window, the fill.  ``state`` reads the row as a B=1 native
+    state (views) and assigns it by copy."""
+
+    def __init__(self, pool: _Pool, row: int):
+        self.pool, self.row = pool, row
+        self.chunks: list = []
+        self.filled = 0
+
+    @property
+    def state(self):
+        return self.pool.row_state(self.row)
+
+    @state.setter
+    def state(self, value) -> None:
+        self.pool.set_row(self.row, value)
 
 
 class StreamingAnomalyEngine:
@@ -197,18 +300,23 @@ class StreamingAnomalyEngine:
 
     By default the engine plans ``impl="fused_step"``: chunks up to the
     plan's ``chunk_len`` run the step kernel, longer pushes and the T-long
-    decoder the wavefront kernel, both on the same packed weights.
+    decoder the wavefront kernel, both on the same packed weights.  On the
+    card these calls replay CUDA graphs (``graphs=False`` runs them
+    eagerly, with the same bits).
 
     ``push_many(stream_ids, chunks)`` keeps a pool of named B=1 streams at
     independent window fill levels and advances any subset with one
-    gathered B=N step: bit-equal to sequential single-stream pushes on the
-    card, because the kernels compute each row independently of the batch.
+    gathered step padded up the width ladder, and scores the streams that
+    complete a window together with one padded decode: bit-equal to
+    sequential single-stream pushes, because every kernel of the step and
+    of the score tail computes each row independently of the batch.
     """
 
     def __init__(self, params: dict, cfg: AutoencoderConfig, *, batch: int = 1,
                  window: int | None = None, impl: str | None = "fused_step",
                  chunk_len: int | None = None, carry_state: bool = False,
-                 threshold: float = float("inf"), device: str = "cuda"):
+                 threshold: float = float("inf"), device: str = "cuda",
+                 graphs: bool = True):
         self.device = resolve_device(device)
         self.cfg, self.effective_impl, self.fallback_reason = resolve_impl(cfg, impl)
         if self.fallback_reason is not None:
@@ -226,6 +334,7 @@ class StreamingAnomalyEngine:
             )
             chunk_len = None
         self.batch = batch
+        self.graphs = graphs
         self.window = int(window or self.cfg.timesteps)
         self.carry_state = carry_state
         self.threshold = threshold
@@ -236,7 +345,18 @@ class StreamingAnomalyEngine:
         self._packed_layout = (
             self._exec_enc.plan.backend.state_layout == "packed"
         )
+        self._new_graphs()
         self.reset()
+
+    def _new_graphs(self) -> None:
+        """A fresh pool and no captured graphs (construction and weight
+        swaps): graphs on the card for packed backends only, unless the
+        engine was made with ``graphs=False`` (eager)."""
+        cuda = self.device.type == "cuda" and self.graphs
+        self._graph_steps = cuda and self._exec_enc.plan.backend.chunked_step
+        self._graph_finish = cuda and self._packed_layout
+        self._pool = _Pool(self._exec_enc, self._packed_layout)
+        self._finish_graphs: dict = {}  # lock-step finish, by batch
 
     # -- state lifecycle -----------------------------------------------------
 
@@ -247,6 +367,7 @@ class StreamingAnomalyEngine:
         self._chunks: list[np.ndarray] = []
         self._filled = 0
         self._streams: dict = {}
+        self._pool.release_all()
 
     @property
     def params(self) -> dict:
@@ -266,6 +387,7 @@ class StreamingAnomalyEngine:
             encoder_layers(self._params, self.cfg)[0])
         self._exec_dec = self._exec_dec.update_params(
             decoder_layers(self._params, self.cfg)[0])
+        self._new_graphs()
         self.reset()
 
     @property
@@ -297,28 +419,47 @@ class StreamingAnomalyEngine:
             # the window completes
             piece = np.array(chunk[:, pos : pos + take])
             with torch.no_grad():
-                self._state = self._exec_enc.step(
-                    torch.as_tensor(piece, device=self.device), self._state)
+                if self._graph_steps and take <= self._exec_enc.plan.chunk_len:
+                    self._state = self._exec_enc.step_graph(self.batch)(
+                        torch.from_numpy(piece), self._state)
+                else:
+                    self._state = self._exec_enc.step(
+                        torch.as_tensor(piece, device=self.device), self._state)
             self._chunks.append(piece)
             self._filled += take
             pos += take
             if self._filled == self.window:
-                scores.append(self._finish(self._state, self._chunks))
+                scores.append(self._finish_window())
                 self._chunks, self._filled = [], 0
                 if not self.carry_state:
                     self._state = self._exec_enc.zero_state(self.batch)
         return scores
 
-    def _finish(self, state, chunks: list[np.ndarray]) -> np.ndarray:
-        """Score a completed window from its encoder state: latent ->
-        decode + head -> MSE against the window's samples."""
-        x = torch.as_tensor(np.concatenate(chunks, axis=1), device=self.device)
+    def _score_tail(self, latent: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """latent -> decode + head -> MSE against the window's samples."""
+        return reconstruction_error_from_latent(self._params, latent, x, self.cfg,
+                                                exec_dec=self._exec_dec)
+
+    def _finish_window(self) -> np.ndarray:
+        """Score the lock-step window that just completed (the reference's
+        ``_finish_window``): on the card one captured decode per batch, its
+        latent copied in."""
+        x = np.concatenate(self._chunks, axis=1)
         with torch.no_grad():
-            scores = reconstruction_error_from_latent(
-                self._params, self._exec_enc.last_hidden(state), x, self.cfg,
-                exec_dec=self._exec_dec,
-            )
-        return scores.cpu().numpy()
+            latent = self._exec_enc.last_hidden(self._state)
+            if not self._graph_finish:
+                return self._score_tail(latent, torch.as_tensor(x, device=self.device)) \
+                    .cpu().numpy()
+            entry = self._finish_graphs.get(self.batch)
+            if entry is None:
+                bufs = (latent.clone(), torch.as_tensor(x, device=self.device))
+                call = CapturedCall(lambda: self._score_tail(*bufs), self.device)
+                self._finish_graphs[self.batch] = (bufs, call)
+                return call.first.cpu().numpy()
+            (latent_buf, x_buf), call = entry
+            latent_buf.copy_(latent)
+            x_buf.copy_(torch.from_numpy(x))
+            return call.replay().cpu().numpy()
 
     # -- multi-stream coalescing ---------------------------------------------
 
@@ -329,7 +470,9 @@ class StreamingAnomalyEngine:
 
     def drop_stream(self, stream_id) -> None:
         """Release one named stream's state and partial window."""
-        self._streams.pop(stream_id, None)
+        slot = self._streams.pop(stream_id, None)
+        if slot is not None:
+            self._pool.release(slot.row)
 
     # -- fault tolerance: snapshot/restore + numeric watchdog ----------------
 
@@ -360,11 +503,7 @@ class StreamingAnomalyEngine:
         return fp
 
     def _leaves(self, state) -> list:
-        """State leaves in the reference's flattening order: ``[h, c]`` of
-        the packed layout, ``[h0, c0, h1, c1, ...]`` of the layers layout."""
-        if self._packed_layout:
-            return list(state)
-        return [t for layer in state for t in layer]
+        return _flatten(state, self._packed_layout)
 
     def _unflatten(self, template, leaves: list):
         if len(leaves) != len(self._leaves(template)):
@@ -425,17 +564,17 @@ class StreamingAnomalyEngine:
         check_fingerprint(self.fingerprint(), snap["fingerprint"])
         state = self._unflatten(self._exec_enc.zero_state(self.batch), snap["state"])
         zero1 = self._exec_enc.zero_state(1)
-        streams = {
-            sid: _StreamSlot(state=self._unflatten(zero1, s["state"]),
-                             chunks=[np.array(c) for c in s["chunks"]],
-                             filled=int(s["filled"]))
-            for sid, s in snap["streams"].items()
-        }
+        states = {sid: self._unflatten(zero1, s["state"]) for sid, s in snap["streams"].items()}
+        self.reset()
+        for sid, s in snap["streams"].items():
+            slot = self._streams[sid] = _StreamSlot(self._pool, self._pool.alloc())
+            slot.state = states[sid]
+            slot.chunks = [np.array(c) for c in s["chunks"]]
+            slot.filled = int(s["filled"])
         self.threshold = float(snap["threshold"])
         self._state = state
         self._chunks = [np.array(c) for c in snap["chunks"]]
         self._filled = int(snap["filled"])
-        self._streams = streams
 
     def state_absmax(self, stream_ids) -> np.ndarray:
         """Max ``|h|, |c|`` per named stream: the post-step watchdog's
@@ -449,9 +588,10 @@ class StreamingAnomalyEngine:
                    if sid in self._streams]
         if not present:
             return out
-        ax = 1 if self._packed_layout else 0
+        ax = self._pool.ax
         with torch.no_grad():
-            batched = self._gather([slot.state for _, slot in present])
+            rows = torch.tensor([slot.row for _, slot in present], device=self.device)
+            batched = self._pool.gather(rows)
             per_leaf = [
                 leaf.to(torch.float32).abs().amax(
                     dim=tuple(d for d in range(leaf.dim()) if d != ax))
@@ -462,30 +602,17 @@ class StreamingAnomalyEngine:
             out[i] = v
         return out
 
-    def _gather(self, states: list):
-        """N B=1 native states -> one B=N state (batch axis 1 of the packed
-        (L, B, W) pair, axis 0 of per-layer (B, H) tensors)."""
-        if self._packed_layout:
-            return tuple(torch.cat(parts, dim=1) for parts in zip(*states))
-        return [tuple(torch.cat(parts, dim=0) for parts in zip(*layer))
-                for layer in zip(*states)]
-
-    def _scatter(self, state, n: int) -> list:
-        if self._packed_layout:
-            return [tuple(t[:, i : i + 1] for t in state) for i in range(n)]
-        return [[tuple(t[i : i + 1] for t in layer) for layer in state]
-                for i in range(n)]
-
     def push_many(self, stream_ids, chunks: np.ndarray) -> dict:
         """Advance N independent B=1 streams with one coalesced step call.
 
         ``chunks``: (N, t, input_dim), row i belonging to ``stream_ids[i]``.
         The N streams' states are concatenated along the batch axis, advanced
-        by one kernel launch per piece, and split back.  Streams are created
-        on first use and may sit at different window fill levels: the chunk
-        is split at every stream's window boundary.  A stream that completes
-        a window is scored on its own, exactly as ``push`` scores it, so the
-        pool is bit-equal to sequential single-stream pushes.
+        by one kernel launch per piece (one graph replay on the card), and
+        split back.  Streams are created on first use and may sit at
+        different window fill levels: the chunk is split at every stream's
+        window boundary.  Streams that complete a window in the same piece
+        are scored by one decode; the pool is bit-equal to sequential
+        single-stream pushes.
 
         Returns ``{stream_id: [scores...]}`` with one ``(1,)`` score array per
         window the stream completed.  Requires ``batch == 1``.
@@ -508,29 +635,90 @@ class StreamingAnomalyEngine:
         slots = []
         for sid in ids:
             if sid not in self._streams:
-                self._streams[sid] = _StreamSlot(state=self._exec_enc.zero_state(1))
+                self._streams[sid] = _StreamSlot(self._pool, self._pool.alloc())
             slots.append(self._streams[sid])
+        rows = [slot.row for slot in slots]
         out: dict = {sid: [] for sid in ids}
         pos, t_total = 0, chunks.shape[1]
         while pos < t_total:
             take = min(t_total - pos, min(self.window - s.filled for s in slots))
             piece = np.array(chunks[:, pos : pos + take])
             with torch.no_grad():
-                new = self._exec_enc.step(
-                    torch.as_tensor(piece, device=self.device),
-                    self._gather([s.state for s in slots]))
-            for i, (slot, state) in enumerate(zip(slots, self._scatter(new, len(slots)))):
-                slot.state = state
+                self._pool_step(rows, piece)
+            for i, slot in enumerate(slots):
                 slot.chunks.append(piece[i : i + 1])
                 slot.filled += take
             pos += take
-            for sid, slot in zip(ids, slots):
-                if slot.filled == self.window:
-                    out[sid].append(self._finish(slot.state, slot.chunks))
-                    slot.chunks, slot.filled = [], 0
-                    if not self.carry_state:
-                        slot.state = self._exec_enc.zero_state(1)
+            done = [(sid, slot) for sid, slot in zip(ids, slots) if slot.filled == self.window]
+            if done:
+                scores = self._finish_streams([slot for _, slot in done])
+                for (sid, _), score in zip(done, scores):
+                    out[sid].append(score)
         return out
+
+    def _padded(self, rows: list, x: np.ndarray):
+        """Rows and inputs of a call padded up the width ladder: (gather
+        and scatter rows (2, width) int64, x (width, ...) float32), pad rows
+        reading the zero row, writing the sink row, with zero inputs."""
+        n = len(rows)
+        width = _pad_width(n)
+        idx = np.empty((2, width), np.int64)
+        idx[:, :n] = rows
+        idx[0, n:], idx[1, n:] = _Pool.ZERO, _Pool.SINK
+        xp = np.zeros((width, *x.shape[1:]), np.float32)
+        xp[:n] = x
+        return torch.from_numpy(idx), torch.from_numpy(xp)
+
+    def _replay(self, key, fn, *args: torch.Tensor):
+        """``fn(*args)`` as the graph captured under ``key`` in the pool:
+        its first call runs ``fn`` eagerly on the args moved to the card,
+        then captures it; later calls copy the args into its buffers and
+        replay."""
+        entry = self._pool.graphs.get(key)
+        if entry is None:
+            bufs = tuple(a.to(self.device) for a in args)
+            call = CapturedCall(lambda: fn(*bufs), self.device)
+            self._pool.graphs[key] = (bufs, call)
+            return call.first
+        bufs, call = entry
+        for buf, a in zip(bufs, args):
+            buf.copy_(a)
+        return call.replay()
+
+    def _pool_step(self, rows: list, piece: np.ndarray) -> None:
+        """The reference's ``_coalesced_step``: gather the rows, one step,
+        scatter them back, over the padded width; one replay on the card."""
+        idx, x = self._padded(rows, piece)
+        if self._graph_steps and piece.shape[1] <= self._exec_enc.plan.chunk_len:
+            self._replay(("step", idx.shape[1], piece.shape[1]), self._step_rows, idx, x)
+        else:
+            self._step_rows(idx.to(self.device), x.to(self.device))
+
+    def _step_rows(self, idx: torch.Tensor, x: torch.Tensor) -> None:
+        self._pool.scatter(idx[1], self._exec_enc.step(x, self._pool.gather(idx[0])))
+
+    def _finish_streams(self, slots: list) -> list[np.ndarray]:
+        """Score the streams that just completed a window with one decode
+        padded up the width ladder (the reference's ``_finish_streams``);
+        bit-equal to scoring each alone, because the decode and the score
+        tail compute each row independently of the batch."""
+        k = len(slots)
+        x = np.concatenate([np.concatenate(slot.chunks, axis=1) for slot in slots])
+        idx, xp = self._padded([slot.row for slot in slots], x)
+        if self._graph_finish:
+            scores = self._replay(("finish", idx.shape[1]), self._finish_rows, idx, xp)
+        else:
+            scores = self._finish_rows(idx.to(self.device), xp.to(self.device))
+        scores = scores.cpu().numpy()[:k]
+        for slot in slots:
+            slot.chunks, slot.filled = [], 0
+        return [scores[i : i + 1] for i in range(k)]
+
+    def _finish_rows(self, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        scores = self._score_tail(self._exec_enc.last_hidden(self._pool.gather(idx[0])), x)
+        if not self.carry_state:
+            self._pool.zero_rows(idx[1])
+        return scores
 
     # -- batch path (calibration / offline) ----------------------------------
 
@@ -561,10 +749,20 @@ class LmEngine:
     the plain path: ``sdpa`` for decode attention and ``ssd_chunked`` for
     the prefill scan.  ``launches`` counts the K5 (``decode_attn``) and K4
     (``ssd_scan``) launches this engine made.
+
+    On the card the kernel path replays CUDA graphs, the counterparts of
+    the reference's two ``jax.jit``s: one per prompt shape (B, S_prompt) for
+    ``prefill`` and one per batch for ``step``.  The cache they return is
+    the engine's own for that batch and cache length, updated in place:
+    the next ``prefill`` of that shape overwrites it.  ``graphs=False``
+    runs the kernel path eagerly; the plain path and the CPU always do.
+    The engine counts each cache's position on the host and refuses a
+    step past the cache's last row before launching anything.
     """
 
     def __init__(self, params: dict, cfg, max_len: int = 256,
-                 device: str | torch.device = "cuda", *, use_kernel: bool = True):
+                 device: str | torch.device = "cuda", *, use_kernel: bool = True,
+                 graphs: bool = True):
         from repro_torch.models.api import get_model
 
         self.cfg = cfg
@@ -577,6 +775,11 @@ class LmEngine:
         self._entry_kw = {"prefill": {}, "decode_step": {}}
         self._entry_kw[self.api.kernel_entry] = {"use_kernel": use_kernel}
         self.launches = {"decode_attn": 0, "ssd_scan": 0}
+        self._graphs = graphs and use_kernel and self.device.type == "cuda"
+        self._calls: dict = {}    # ("prefill", B, S) | ("step", B, rows) -> (tokens, graph)
+        self._static: dict = {}   # (B, rows) -> this engine's cache of that shape
+        self._prefilled: dict = {}  # (B, S) -> the cache its prefill graph fills
+        self._positions: dict = {}  # id(cache["pos"]) -> (weakref to it, host position)
 
     @staticmethod
     def _kernel_counts() -> dict:
@@ -592,19 +795,94 @@ class LmEngine:
             self.launches[name] += count - before[name]
         return out
 
+    # -- the host's count of each cache's position ---------------------------
+
+    def _set_position(self, cache: dict, pos: int) -> None:
+        if len(self._positions) > 64:  # forget caches that are gone
+            self._positions = {k: v for k, v in self._positions.items() if v[0]() is not None}
+        self._positions[id(cache["pos"])] = (weakref.ref(cache["pos"]), pos)
+
+    def _position(self, cache: dict) -> int:
+        entry = self._positions.get(id(cache["pos"]))
+        if entry is not None and entry[0]() is cache["pos"]:
+            return entry[1]
+        return int(cache["pos"])  # a cache this engine did not make: read it once
+
+    @staticmethod
+    def _rows(cache: dict) -> int:
+        """Rows of a KV cache (0 for an SSM state, which has no length)."""
+        return cache["k"].shape[2] if "k" in cache else 0
+
+    def _static_cache(self, batch: int, like: dict) -> dict:
+        """The engine's cache for ``like``'s shape, made at first use."""
+        key = (batch, self._rows(like))
+        if key not in self._static:
+            self._static[key] = tree_map(torch.empty_like, like)
+        return self._static[key]
+
+    def _graph(self, key, tokens: torch.Tensor, fn):
+        """``fn(tokens_buffer)`` replayed: at first use run eagerly, then
+        captured, over a tokens buffer of ``tokens``' shape."""
+        entry = self._calls.get(key)
+        if entry is None:
+            buf = tokens.to(self.device, torch.int64)
+            call = self._counted(CapturedCall, lambda: fn(buf), self.device)
+            self._calls[key] = (buf, call)
+            return call.first
+        buf, call = entry
+        buf.copy_(tokens)
+        return self._counted(call.replay)
+
+    # -- serving ----------------------------------------------------------------
+
     def prefill(self, tokens) -> tuple[torch.Tensor, dict]:
         """tokens: (B, S_prompt) -> (last-token logits (B, 1, V_padded), cache)."""
-        tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
+        tokens = torch.as_tensor(np.asarray(tokens))
+        batch, s_len = tokens.shape
+        kw = self._entry_kw["prefill"]
         with torch.inference_mode():
-            return self._counted(self.api.prefill, self.params, {"tokens": tokens},
-                                 self.cfg, self.max_len, **self._entry_kw["prefill"])
+            if not self._graphs:
+                logits, cache = self._counted(
+                    self.api.prefill, self.params, {"tokens": tokens.to(self.device)},
+                    self.cfg, self.max_len, **kw)
+            else:
+                def run(buf):
+                    logits, made = self.api.prefill(self.params, {"tokens": buf}, self.cfg,
+                                                    self.max_len, **kw)
+                    static = self._prefilled[batch, s_len] = self._static_cache(batch, made)
+                    _copy_tree(static, made)
+                    return logits
+
+                logits = self._graph(("prefill", batch, s_len), tokens, run).clone()
+                cache = self._prefilled[batch, s_len]
+        self._set_position(cache, s_len)
+        return logits, cache
 
     def step(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
         """One decode step for tokens (B, 1) -> (logits (B, 1, V_padded), cache)."""
-        tokens = torch.as_tensor(tokens, device=self.device)
+        pos = self._position(cache)
+        rows = self._rows(cache)
+        if rows and not 0 <= pos < rows:
+            raise ValueError(f"LmEngine.step: position {pos} outside a cache of {rows} rows")
+        tokens = torch.as_tensor(tokens)
+        kw = self._entry_kw["decode_step"]
         with torch.inference_mode():
-            return self._counted(self.api.decode_step, self.params, cache,
-                                 {"tokens": tokens}, self.cfg, **self._entry_kw["decode_step"])
+            if not self._graphs:
+                logits, cache = self._counted(
+                    self.api.decode_step, self.params, cache,
+                    {"tokens": tokens.to(self.device)}, self.cfg, **kw)
+            else:
+                batch = tokens.shape[0]
+                static = self._static_cache(batch, cache)
+                if cache is not static:
+                    _copy_tree(static, cache)
+                cache = static
+                logits = self._graph(
+                    ("step", batch, rows), tokens,
+                    lambda buf: self.api.decode_step(self.params, static, {"tokens": buf},
+                                                     self.cfg, **kw)[0]).clone()
+        self._set_position(cache, pos + 1)
+        return logits, cache
 
     def teacher_forced(self, prompt, tokens) -> tuple[torch.Tensor, torch.Tensor]:
         """Logits of ``prompt``, then of ``tokens`` (B, n) fed one by one

@@ -153,10 +153,11 @@ PLAN_ERRORS = [
     (dict(impl="naive", act_bits=16), "act_bits only applies"),
     (dict(impl="fused_stack", act_bits=4), "unsupported"),
     (dict(impl="fused_step", chunk_len=300), "ceiling"),
-    (dict(impl="fused_step", fuse_gates=True), "later slice"),
+    (dict(impl="fused_step", weight_dtype="int8", fuse_gates=True), "incompatible with int8"),
     (dict(impl="fused_step", tune="cached"), "later slices"),
     (dict(impl="fused_step", tune="balanced"), "later slices"),
     (dict(impl="fused_stack", weight_dtype="fp8"), "unknown weight_dtype"),
+    (dict(impl="fused_stack", fuse_gates=True), "fuse_gates only applies"),
 ]
 
 

@@ -11,10 +11,10 @@ launches those copies through their C entries:
   activation, the shuffles, the cell and the step's barrier; the SM clock
   comes from ``globaltimer`` over the same window.
 * K4 (``ssd_scan``, B=8, T=512, H=24, P=64, N=128, bf16): lane 0 of every
-  warp of CTAs 0 and 400 stamps every chunk: the row warps after C B^T,
-  after waiting for cum and C @ S_prev^T, and after M, M @ X and y; the
-  state warps after the scan and C @ S_prev^T, the barriers, the stage
-  issue and the carry, and the split state.
+  warp of the scan kernel's CTAs 0 and 400 stamps every chunk: the row
+  warps after waiting for cum, after M, and after M @ X, (C e) @ S_prev^T
+  and y; the state warps after the scan and the barriers, the stage issue,
+  the carry and the state's copy to shared memory.
 
 Prints cycles per step or chunk and the median of each phase, and the
 call's time with the stamps in (CUDA events).  The stamps cost cycles of
@@ -94,6 +94,7 @@ def main() -> int:
               + f"); (dot, activation, shuffles, cell, barrier) {phases}")
 
     lib4 = probe_lib(K4_SOURCE)
+    lib4.ssd_scan_scratch_floats.restype = ctypes.c_longlong
     g = torch.Generator(device=dev).manual_seed(0)
     batch, t_len, heads, p, n = 8, 512, 24, 64, 128
     x = torch.randn(batch, t_len, heads, p, generator=g, device=dev).bfloat16()
@@ -104,10 +105,12 @@ def main() -> int:
     y = torch.empty_like(x)
     s_f = torch.empty(batch, heads, p, n, device=dev)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, dt, a, bm, cm)]
-    out = [ctypes.c_void_p(), ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(s_f.data_ptr())]
+    cb = torch.empty(lib4.ssd_scan_scratch_floats(batch, 1, t_len, 64), device=dev)
+    out = [ctypes.c_void_p(), ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(s_f.data_ptr()),
+           ctypes.c_void_p(cb.data_ptr())]
     strides = [ctypes.c_longlong(v) for v in (x.stride(0), x.stride(1), bm.stride(0), bm.stride(1))]
 
-    def call():  # ssd_scan(..., B, T, H, G, P, N, L, dtype, stream)
+    def call():  # ssd_scan(x, dt, a, b, c, s0, y, s_f, cb, strides, B, T, H, G, P, N, L, dtype, stream)
         if lib4.ssd_scan(*ptrs, *out, *strides, batch, t_len, heads, 1, p, n, 64, BF16,
                          stream()):
             raise SystemExit("kernel_probe: K4 launch failed")
@@ -128,8 +131,8 @@ def main() -> int:
             n_ph = 3 if warp < 4 else 4
             phases = [median([pr[b + k + 1] - pr[b + k] for b in base]) for k in range(n_ph)]
             chunk = median([pr[b1] - pr[b0] for b0, b1 in zip(base[:-1], base[1:])])
-            what = ("(C B^T, wait cum and C @ S_prev^T, M + y)" if warp < 4 else
-                    "(scan and C @ S_prev^T, barriers, stage and carry, split state)")
+            what = ("(wait for cum, M, M @ X and (C e) @ S_prev^T)" if warp < 4 else
+                    "(scan and barriers, stage, carry, state to shared memory)")
             print(f"K4 CTA {name} warp {warp}: a chunk {chunk} cycles; {what} {phases}")
     return 0
 

@@ -1,55 +1,41 @@
 """K4's roundings against its plain version, and mamba2's drift, on the card.
 
-For this tree's ``kernels/ssd_scan/csrc/ssd_scan.cu``, and for the same
-file of another checkout when ``--other DIR`` names one (built with the
-same flags beside the normal build in ``build/kernels/``, keyed apart by
-its content; the C entry must match this tree's), it prints:
+For the package on ``PYTHONPATH`` (so that two trees can be compared in one
+run on one card: run them old, new, new, old), it prints one JSON line:
 
 * the share of bf16 y that rounds apart from ``ssd_chunked`` at mamba2-130m's
   prefill shape (B=8, T=512, H=24, P=64, N=128, chunk 64; model-like
   inputs, as ``tools/ssd_roundings.py``) and the share of those toward zero;
+* K4's time per call at that shape (CUDA events, median of 20 calls);
 * mamba2-130m's teacher-forced gap as ``chip_smoke.py`` phase 13 measures
   it (bf16, random weights from seed 0, B=8, prompts of 512 and 500
   tokens, the 64 tokens the kernel path generates): the largest |logit
   difference| between the kernel path and the plain path over the largest
-  |logit| of the plain path, prefill and decode;
-* K4's time per launch at that shape (CUDA events, median of 20; the
-  builds timed in turns, then in reverse order).
+  |logit| of the plain path, prefill and decode.
 
-    PYTHONPATH=src python3 tools/ssd_drift.py [--other /path/to/other/checkout]
+    PYTHONPATH=src python3 tools/ssd_drift.py --label new
+    PYTHONPATH=/path/to/other/checkout/src python3 tools/ssd_drift.py --label old
 """
 
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import json
-import shutil
-import tempfile
 import statistics
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-import repro_torch.kernels.ssd_scan  # noqa: E402,F401
-from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.kernels._build import build  # noqa: E402
-from repro_torch.models.api import get_model  # noqa: E402
-from repro_torch.serve.engine import LmEngine  # noqa: E402
+import repro_torch.kernels.ssd_scan  # noqa: F401
+from repro_torch.configs import get_arch
+from repro_torch.models.api import get_model
+from repro_torch.serve.engine import LmEngine
 
 k4 = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
 
 BATCH, PROMPT, NEW = 8, 512, 64
-
-
-def use(built) -> None:
-    k4.library = lambda: built
 
 
 def roundings(dev) -> dict:
@@ -79,29 +65,15 @@ def roundings(dev) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--other", help="root of another checkout whose K4 to compare")
+    parser.add_argument("--label", default="this tree")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("ssd_drift: needs a CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(torch.cuda.get_device_name(0))
-    sources = {"this tree": k4.SOURCE}
-    tmp = None
-    if args.other:
-        # a copy of the other tree's source (it builds against this tree's
-        # shared headers, which the build passes with -I)
-        tmp = Path(tempfile.mkdtemp())
-        sources["other tree"] = tmp / k4.SOURCE.name
-        shutil.copy(Path(args.other) / k4.SOURCE.relative_to(ROOT), sources["other tree"])
-    try:
-        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each
-            built = pool.map(lambda src: k4.bind(build(src)), sources.values())
-            builds = dict(zip(sources, built))
-    finally:
-        if tmp is not None:
-            shutil.rmtree(tmp)
+    report = {"label": args.label, "device": torch.cuda.get_device_name(0),
+              **roundings(dev)}
     # the prompts and weights of chip_smoke.py phase 13 (smollm's prompts
     # are drawn first from the same generator)
     rng = np.random.default_rng(0)
@@ -109,26 +81,15 @@ def main() -> int:
     cfg = get_arch("mamba2-130m")
     prompts = {n: rng.integers(0, cfg.vocab, (BATCH, n)).astype(np.int32) for n in (PROMPT, 500)}
     params = get_model(cfg).init_params(cfg, seed=0, device=dev)
-    report = {name: {} for name in builds}
-    for order in (list(builds), list(builds)[::-1]):  # timed in turns, then reversed
-        for name in order:
-            use(builds[name])
-            r = roundings(dev)
-            report[name].setdefault("ms", []).append(r.pop("ms"))
-            report[name].update(r)
-    for name, built in builds.items():
-        use(built)
-        for n, prompt in prompts.items():
-            eng = LmEngine(params, cfg, max_len=n + NEW, device=dev)
-            plain = LmEngine(params, cfg, max_len=n + NEW, device=dev, use_kernel=False)
-            tokens = eng.generate(prompt, NEW)  # as phase 13: the kernel path's tokens
-            k_pre, k_steps = eng.teacher_forced(prompt, tokens)
-            p_pre, p_steps = plain.teacher_forced(prompt, tokens)
-            for what, a, b in (("prefill", k_pre, p_pre), ("decode", k_steps, p_steps)):
-                a, b = a[..., : cfg.vocab], b[..., : cfg.vocab]
-                report[name][f"tf_gap_p{n}_{what}"] = ((a - b).abs().max()
-                                                       / b.abs().max()).item()
-        print(f"{name}: {json.dumps(report[name])}", flush=True)
+    for n, prompt in prompts.items():
+        eng = LmEngine(params, cfg, max_len=n + NEW, device=dev)
+        plain = LmEngine(params, cfg, max_len=n + NEW, device=dev, use_kernel=False)
+        tokens = eng.generate(prompt, NEW)  # as phase 13: the kernel path's tokens
+        k_pre, k_steps = eng.teacher_forced(prompt, tokens)
+        p_pre, p_steps = plain.teacher_forced(prompt, tokens)
+        for what, a, b in (("prefill", k_pre, p_pre), ("decode", k_steps, p_steps)):
+            a, b = a[..., : cfg.vocab], b[..., : cfg.vocab]
+            report[f"tf_gap_p{n}_{what}"] = ((a - b).abs().max() / b.abs().max()).item()
     print(json.dumps({"ssd_drift": report}))
     return 0
 
