@@ -49,32 +49,34 @@
 //     lower triangle once into a scratch the wrapper allocates, where the
 //     heads of a group (24 at mamba2-130m) and their state tiles would
 //     otherwise each recompute it.
-//   * The scan kernel: one CTA per (batch row, head, tile of kPT = 16 state
-//     rows p), 768 CTAs at the serving shape.  Both outputs depend on the
+//   * The scan kernel: one CTA of 512 threads per (batch row, head, tile of
+//     kPT = 16 state rows p), 768 CTAs at the serving shape.  Both outputs depend on the
 //     CTA's own S tile only:
 //         y[:, tile]  = M @ X[:, tile] + (C e) @ S[tile]^T
 //         S[tile]     = exp(total) S[tile] + xw[:, tile]^T @ B
 //     so CTAs never talk.
-//   * Eight warps in two groups that run side by side, meeting at one CTA
+//   * Sixteen warps in two groups that run side by side, meeting at one CTA
 //     barrier and two named barriers (cum ready; M ready) a chunk.  Both
 //     groups turn the staged C B^T into M = (C B^T * exp(cum_t - cum_s)) *
-//     dt_s in place, half the elements each.  The row group (warps 0-3)
-//     then computes y: a thread owns 8 state rows of one chunk row, M @ X
+//     dt_s in place, half the elements each.  The row group (warps 0-7)
+//     then computes y: a thread owns 4 state rows of one chunk row, M @ X
 //     and (C e) @ S_prev^T, two FMA chains each, added once.  The state
-//     group (warps 4-7) stages the
-//     chunks, forms cum and runs the carry; thread t of it owns S row t /
-//     8, columns 16 (t % 8) .. + 15, in registers across all chunks, with
+//     group (warps 8-15) stages the chunks, forms cum and runs the carry;
+//     thread t of it owns S row t / 16, columns 8 (t % 16) .. + 7, in
+//     registers across all chunks, with
 //     an fp32 copy in shared memory (two, by chunk parity) for the row
 //     group's (C e) @ S_prev^T.
 //   * Each inner loop loads 4 or 8 consecutive elements of a row at once
-//     and keeps 8 or 16 independent partial sums in registers.
+//     and keeps 4 or 8 independent partial sums in registers.  Sixteen
+//     warps, one CTA per SM (the two stage buffers take most of its
+//     shared memory), hide the latency of the loads: with eight, the
+//     chunk loop took 19,000 cycles (tools/kernel_probe.py).
 //   * Staging is double-buffered with cp.async (16-byte copies of x, B, C
 //     and C B^T, 4-byte copies of dt): the next chunk lands while this one
 //     computes.  cum is a sequential sum in torch.cumsum's order (below);
 //     exp(cum) and the carry weights dt * exp(total - cum) are computed
 //     once per chunk.
-//   * About 130 KB of shared memory per CTA in bf16: one CTA, 8 warps, per
-//     SM.
+//   * About 130 KB of shared memory per CTA in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,13 +89,15 @@ namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-constexpr int kWarps = 4;                  // warps in each group
+constexpr int kWarps = 8;                  // warps in each group
 constexpr int kGroup = 32 * kWarps;        // threads in each group
 constexpr int kThreads = 2 * kGroup;       // the row group, then the state group
-constexpr int kL = 16 * kWarps;            // chunk rows a CTA holds (the largest chunk)
+constexpr int kL = 64;                     // chunk rows a CTA holds (the largest chunk)
 constexpr int kPT = 16;                    // state rows p per CTA
 constexpr int kMaxN = 128;                 // state columns at most
-constexpr int kSN = kMaxN * kPT / kGroup;  // S columns a state thread owns (16)
+constexpr int kSN = kMaxN * kPT / kGroup;  // S columns a state thread owns (8)
+constexpr int kSNT = kMaxN / kSN;          // state threads per S row (16)
+constexpr int kYP = kPT * kL / kGroup;     // state rows of y a row thread owns (4)
 constexpr int kCB = kL + 4;                // row stride of the staged C B^T, then M (floats)
 constexpr int kXW = kPT + 1;               // row stride of xw (floats)
 constexpr int kCbThreads = 256;            // threads of the C B^T kernel
@@ -367,7 +371,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs a) 
 
   // the state group's S: row sp, columns n0 .. n0 + kSN - 1 (those below N),
   // in registers across all chunks
-  const int sp = st >> 3, n0 = kSN * (st & 7);
+  const int sp = st / kSNT, n0 = kSN * (st % kSNT);
   const int sn = rows_group ? 0 : max(0, min(kSN, N - n0));
   float sr[kSN];
   auto store_state = [&](int parity) {
@@ -391,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs a) 
   // CTAs 0 and 400, the phases of each of the first 16 chunks
   [[maybe_unused]] const bool stamps = (blockIdx.x == 0 || blockIdx.x == 400) && lane == 0;
 #define CHUNK_STAMP(k) \
-  PROBE(stamps && c < 16, ((blockIdx.x ? 128 : 0) + warp * 16 + c) * 8 + (k))
+  PROBE(stamps && c < 16, ((blockIdx.x ? 16 * kThreads / 32 : 0) + warp * 16 + c) * 8 + (k))
   for (int c = 0; c < n_chunks; ++c) {
     const int buf = c & 1, t0 = c * L, lc = min(L, T - t0);
     if (!rows_group) cp_async_wait_all();  // chunk c: the one group in flight
@@ -424,37 +428,37 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs a) 
       CHUNK_STAMP(2);
       // y = M @ X + (C e) @ S_prev^T: state rows pb .. pb + 7 of chunk row
       // t, each product one FMA chain (over s, then over n), added once
-      const int t = tid >> 1, pb = 8 * (tid & 1);
+      const int t = tid / (kPT / kYP), pb = kYP * (tid % (kPT / kYP));
       if (t < lc) {
-        float yv[8], yi[8];
+        float yv[kYP], yi[kYP];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) yv[j] = yi[j] = 0.0f;
+        for (int j = 0; j < kYP; ++j) yv[j] = yi[j] = 0.0f;
         const float* mr = ms + t * kCB;
 #pragma unroll 8
         for (int s = 0; s < kL; ++s) {
-          float xv[8];
-          load8(xs + s * XS + pb, xv);
+          float xv[kYP];
+          load4(xs + s * XS + pb, xv);
           const float m = mr[s];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) yv[j] = __fmaf_rn(m, xv[j], yv[j]);
+          for (int j = 0; j < kYP; ++j) yv[j] = __fmaf_rn(m, xv[j], yv[j]);
         }
         const float e_t = ecum[t];
         const float* ss = s_s(buf);
 #pragma unroll 2
         for (int n = 0; n < N; n += 4) {
-          float cv[4], sv[8][4];
+          float cv[4], sv[kYP][4];
           load4(cs + t * NS + n, cv);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) load4(ss + (pb + j) * SF + n, sv[j]);
+          for (int j = 0; j < kYP; ++j) load4(ss + (pb + j) * SF + n, sv[j]);
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const float ce = __fmul_rn(cv[k], e_t);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) yi[j] = __fmaf_rn(ce, sv[j][k], yi[j]);
+            for (int j = 0; j < kYP; ++j) yi[j] = __fmaf_rn(ce, sv[j][k], yi[j]);
           }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kYP; ++j) {
           if (pb + j < pw) {
             store1(yg + (size_t(t0 + t) * H) * P + pb + j, __fadd_rn(yv[j], yi[j]));
           }
@@ -501,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs a) 
       }
       __threadfence_block();
       bar_arrive(kBarCum, kThreads);  // for the row group, which waits there
-      bar_sync(kBarState, kGroup);    // warp 4's cum and weights, for this group
+      bar_sync(kBarState, kGroup);    // warp kWarps's cum and weights, for this group
       make_m();
       __threadfence_block();
       bar_arrive(kBarM, kThreads);    // this group's elements of M
@@ -531,12 +535,6 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const SsdArgs a) 
           const float xv = xw_s[s * kXW + sp];
           float bv[kSN];
           load8(bs + s * NS + n0, bv);
-          if (sn > 8) {
-            load8(bs + s * NS + n0 + 8, bv + 8);
-          } else {
-#pragma unroll
-            for (int j = 8; j < kSN; ++j) bv[j] = 0.0f;
-          }
 #pragma unroll
           for (int j = 0; j < kSN; ++j) u[j] = __fmaf_rn(xv, bv[j], u[j]);
         }

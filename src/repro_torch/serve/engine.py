@@ -676,7 +676,7 @@ class StreamingAnomalyEngine:
         replay."""
         entry = self._pool.graphs.get(key)
         if entry is None:
-            bufs = tuple(a.to(self.device) for a in args)
+            bufs = tuple(a.to(self.device, copy=True) for a in args)
             call = CapturedCall(lambda: fn(*bufs), self.device)
             self._pool.graphs[key] = (bufs, call)
             return call.first
@@ -825,7 +825,7 @@ class LmEngine:
         captured, over a tokens buffer of ``tokens``' shape."""
         entry = self._calls.get(key)
         if entry is None:
-            buf = tokens.to(self.device, torch.int64)
+            buf = tokens.to(self.device, torch.int64, copy=True)  # never the caller's tensor
             call = self._counted(CapturedCall, lambda: fn(buf), self.device)
             self._calls[key] = (buf, call)
             return call.first

@@ -124,14 +124,14 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     print(f"K4 with stamps: {start.elapsed_time(end) / 20:.4f} ms per call (events)")
-    pr = read(lib4, 2 * 128 * 8)
+    pr = read(lib4, 2 * 256 * 8)
     for cta, name in ((0, "0"), (1, "400")):
-        for warp in range(8):
-            base = [((cta * 128) + warp * 16 + c) * 8 for c in range(8)]
-            n_ph = 3 if warp < 4 else 4
+        for warp in range(16):  # the row group, then the state group
+            base = [((cta * 256) + warp * 16 + c) * 8 for c in range(8)]
+            n_ph = 3 if warp < 8 else 4
             phases = [median([pr[b + k + 1] - pr[b + k] for b in base]) for k in range(n_ph)]
             chunk = median([pr[b1] - pr[b0] for b0, b1 in zip(base[:-1], base[1:])])
-            what = ("(wait for cum, M, M @ X and (C e) @ S_prev^T)" if warp < 4 else
+            what = ("(wait for cum, M, M @ X and (C e) @ S_prev^T)" if warp < 8 else
                     "(scan and barriers, stage, carry, state to shared memory)")
             print(f"K4 CTA {name} warp {warp}: a chunk {chunk} cycles; {what} {phases}")
     return 0
