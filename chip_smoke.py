@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the kernels of ``src/repro_torch`` (the fused LSTM-stack kernels K1
-and K2, the per-layer scan kernel K3, decode attention K5 and the SSD scan
-K4, one ``nvcc`` per source, started together), holds each kernel against
+and K2, the per-layer scan kernel K3, decode attention K5, the SSD scan K4
+and the row-wise product, one ``nvcc`` per source, started together),
+holds each kernel against
 its plain PyTorch version at the shapes of its path in fp32 and bf16, and
 drives three serving paths: two at the full ``gw_nominal`` width with
 weights from the golden fixtures (``tests/data/torch_port_gw_nominal.npz``
@@ -27,9 +28,17 @@ plain path's under teacher forcing.  The reduced LM golden fixtures
 are served on the card first and must match the reference's logits and
 tokens.
 
+On the card the serving calls replay CUDA graphs; phases 15-18 hold the
+GW graphs against eager runs bit for bit (the step at every pool width up
+to 32, the batched window decode), ``push_many`` over 32 streams that
+complete windows together against sequential pushes, the row-wise
+product of the score tail and ``fuse_gates`` against their plain
+versions, and time a T=1 push and the threaded server eager and
+replayed; phase 13 holds the LM replay against the eager kernel path.
+
 It checks the scores against the reference's and times the kernels beside
 their plain versions, their bound and a library call (cuDNN's LSTM,
-``scaled_dot_product_attention``).  Every phase raises on
+``scaled_dot_product_attention``, ``torch.addmm``).  Every phase raises on
 failure; the last line is ``{"ok": true, "device": {...}}``.  Needs one
 CUDA card; without one it exits non-zero and prints no result.
 """
@@ -296,13 +305,14 @@ def gw_graph_phases(params, cfg, windows, T, dev, smi, all_packs, state, compare
     pool = StreamingAnomalyEngine(params, cfg, batch=1)
     got = {sid: [] for sid in ids}
     decodes = []
-    for a, b in ((0, T - 1), (T - 1, T), (T, 2 * T - 1), (2 * T - 1, 2 * T)):
+    pieces = [(a, a + 25) for a in range(0, 2 * T, 25)]  # step-kernel pieces
+    for a, b in pieces:
         before = lstm_stack.launches
         res = pool.push_many(ids, x[:, a:b])
         decodes.append(lstm_stack.launches - before)
         for sid in ids:
             got[sid] += res[sid]
-    if decodes != [0, 1, 0, 1]:
+    if decodes != [int(b % T == 0) for _, b in pieces]:
         raise AssertionError(f"push_many over {n} streams: K1 decodes per piece {decodes}, "
                              "want one per window completion")
     seq = StreamingAnomalyEngine(params, cfg, batch=1)
@@ -628,16 +638,25 @@ def server_phases(impl: str, make_engine, sgold: dict, T: int) -> dict:
 
 
 def threaded_run(make_engine, seq, rng, T: int, what: str) -> tuple[dict, int]:
-    """The StreamServer threaded, real clock: four producers submit T=1
-    chunks for 32 streams at a fixed rate; stop(drain=True) must finish in
-    time, every completed window must be scored, and the first streams'
-    scores must equal sequential pushes.  Returns (enqueue-to-score
-    latency and rate, engine-step errors)."""
+    """The StreamServer threaded, real clock, on an engine warmed at every
+    pool width: four producers submit T=1 chunks for 32 streams at a fixed
+    rate; stop(drain=True) must finish in time, every completed window must
+    be scored, and the first streams' scores must equal sequential pushes.
+    Returns (enqueue-to-score latency and rate, engine-step errors)."""
+    from repro_torch.serve.engine import _pad_width
     from repro_torch.serve.server import ServerConfig, StreamServer
 
     n, rate = 32, 1000.0  # chunks per second per producer
     r_data = rng.randn(n, 2 * T, 1).astype(np.float32)
-    srv = StreamServer(make_engine(), ServerConfig(deadline_us=200.0))
+    engine = make_engine()
+    # warm-up: every pool width a tick can have, a T=1 step and a window's
+    # decode each (on the card the first call of each captures its graph)
+    for width in sorted({_pad_width(k) for k in range(1, n + 1)}):
+        ids = [f"warm{i}" for i in range(width)]
+        engine.push_many(ids, np.zeros((width, T - 1, 1), np.float32))
+        engine.push_many(ids, np.zeros((width, 1, 1), np.float32))
+    engine.reset()
+    srv = StreamServer(engine, ServerConfig(deadline_us=200.0))
 
     def produce(first: int) -> None:
         ids = range(first, first + n // 4)

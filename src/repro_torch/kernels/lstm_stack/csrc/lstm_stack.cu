@@ -62,6 +62,12 @@
 //     rows are grouped into CTAs, or on which path a width takes.
 //   * cudaFuncSetAttribute runs once per instantiation and size
 //     (smem_attr.cuh), not on every launch.
+//   * fuse_gates (step kernel only, the reference's single [x ; h] @
+//     [W_x ; W_h] product): each gate's sum is one 2W-long chain over x
+//     then h, then + b; layer 0's sum is not rounded to the compute dtype.
+//     Refused with int8 scales.  Off by default: one 2W chain is longer
+//     than two W chains run side by side, and only separate chains keep a
+//     T=1 step bit-equal to the wavefront kernel.
 // wgmma and TMA are left out: the products are (rows x W) . (W x 4W) per
 // step, a few hundred multiply-adds per thread on the critical path.
 

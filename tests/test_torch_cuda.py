@@ -17,10 +17,13 @@ B and ``block_b``.  The server tests hold the
 StreamServer on both engines of the card (``fused_step`` and ``kernel``)
 bit-equal to sequential pushes.
 
-The LM kernels K5 (decode attention) and K4 (SSD scan) sum in another order
-than their plain versions (fmaf chains against PyTorch's reductions), so
-they are held at the reference's own tolerances for those kernels: rtol/atol
-2e-5 (K5) and 2e-4 (K4) in fp32.  In bf16 both read the same bf16 inputs,
+The LM kernels K5 (decode attention) and K4 (SSD scan) are held at the
+reference's own tolerances for those kernels: rtol/atol 2e-5 (K5) and 2e-4
+(K4) in fp32.  K5 sums in another order than its plain version (fmaf chains
+against PyTorch's reductions); K4 sums as cuBLAS does the plain version's
+einsums here (fp32 FMA chains in index order) and agrees with it bit for
+bit at mamba2's shapes, but cuBLAS's order is its own choice, so the
+tolerance stays.  In bf16 both read the same bf16 inputs,
 compute in fp32 and round once, so they differ by at most one bf16 ulp
 (2^-7 of the value): rtol 8e-3, atol 1e-3.  K5 is also held at the edges of
 its splits of ``SPLIT_ROWS`` cache rows, and a row's output must not

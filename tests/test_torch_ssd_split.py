@@ -1,17 +1,14 @@
-"""The roundings of K4's tensor-core path, on the CPU, at mamba2's widths.
+"""The roundings of K4's tensor-core design (PR 15), on the CPU, at mamba2's widths.
 
-The SSD scan kernel (``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu``)
-runs its four chunk products as bf16 x bf16 products with fp32 sums (the
-tensor cores' ``mma.m16n8k16``).  A bf16 operand (x, B, C of a bf16 model)
-enters as it is.  An fp32 operand the kernel derives (M, the state S, xw =
-x * dt * exp(total - cum)) enters as three bf16 parts that sum to it
-exactly; fp32 x, B and C (an fp32 model) enter as a bf16 high and low part.
-A product is each part of one operand times the other's high part, plus
-the high part times the other's remaining parts.  ``split_twin`` below is
-that arithmetic in PyTorch: each operand split as the kernel splits it,
-every product of two bf16 values exact in fp32, the sums in IEEE fp32.  It
-shows on the CPU, without a card, that the operand splits' roundings fit
-the limits the kernel is held to:
+PR 15's SSD scan kernel ran its four chunk products as bf16 x bf16
+products with fp32 sums (the tensor cores' ``mma.m16n8k16``).  A bf16
+operand (x, B, C of a bf16 model) entered as it is.  An fp32 operand the
+kernel derived (M, the state S, xw = x * dt * exp(total - cum)) entered as
+three bf16 parts that sum to it exactly; fp32 x, B and C (an fp32 model)
+as a bf16 high and low part.  ``split_twin`` below is that arithmetic with
+IEEE fp32 sums: each operand split as the kernel split it, every product of
+two bf16 values exact in fp32.  It shows that the operand splits' roundings
+fit the limits the kernel was held to:
 
 * against the port's plain version ``ssd_chunked``: rtol/atol 2e-4 for fp32
   y and for the state (the reference's own tolerance for this kernel), and
@@ -21,16 +18,20 @@ the limits the kernel is held to:
   the tolerances of ``tests/test_torch_ssd_scan.py`` (2e-4; 0.03 for bf16
   y, rounded once in each package).
 
-What the twin does not model is the tensor cores' own accumulation, which
-drops the low bits of its sums toward zero rather than rounding them; the
-kernel keeps each split's small parts in accumulators of their own for
-that reason, and only the card shows what is left of it: ``chip_smoke.py``
-(phase 11) and ``tests/test_torch_cuda.py`` fail when the bf16 y elements
-that round apart from ``ssd_chunked`` lean toward zero.
+``tensor_core_twin`` adds what the IEEE twin leaves out, the tensor cores'
+own accumulation: an ``mma`` aligns its 16 products and its accumulator to
+the largest term and cuts the sum toward zero (``_mma``), and the kernel
+chained some of its sums over several ``mma``s.  That twin reproduces the
+lean PR 15 measured on the card: more bf16 y round apart from the plain
+version than with IEEE sums, and most of those toward zero, which every
+later layer of a bf16 model carried on (mamba2-130m's teacher-forced
+logits drifted 3.9-4.1% of the largest |logit|).  The kernel now runs its
+products as fp32 FMA chains in the plain version's order instead
+(``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu``).
 
 Widths are mamba2-130m's (H=24, P=64, N=128, chunk 64) at B=1 and T=130
-(two full chunks and a ragged one), inputs made by numpy from a seed as the
-SSM block forms them.
+(two full chunks and a ragged one) or 256, inputs made by numpy from a
+seed as the SSM block forms them.
 """
 
 import numpy as np
@@ -230,3 +231,125 @@ def test_cum_in_cumsums_order_keeps_bf16_roundings(monkeypatch):
     warp_scan = (split_twin(x, dt, a, bm, cm)[0] != y_p).float().mean().item()
     # about 3e-5 against 5e-4 (seeds 0-2 and 12)
     assert sequential < 1e-4 and warp_scan > 8 * sequential, (sequential, warp_scan)
+
+
+# ---------------------------------------------------------------------------
+# PR 15's tensor-core kernel, with the truncating sum of one mma modelled
+# ---------------------------------------------------------------------------
+
+def _mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One ``mma.m16n8k16`` step as the tensor cores sum it: ``acc + a @ b``
+    over 16 products that are exact in fp32 (bf16 x bf16), aligned to the
+    largest of the 17 terms and cut toward zero at its 24th bit, the result
+    cut toward zero again to 24 bits.  All float64 holding fp32 values;
+    a (..., M, 16), b (..., 16, N), acc (..., M, N)."""
+    terms = torch.cat([acc[..., :, None, :], a[..., :, :, None] * b[..., None, :, :]], dim=-2)
+    total = terms.sum(dim=-2)
+
+    def cut(v, ref):
+        e = torch.floor(torch.log2(ref.abs().clamp(min=1e-300)))
+        q = torch.exp2(e - 23)
+        return torch.where(ref == 0, v, torch.trunc(v / q) * q)
+
+    out = cut(total, terms.abs().amax(dim=-2))
+    return cut(out, out)
+
+
+def _f32(v: torch.Tensor) -> torch.Tensor:
+    """Round a float64 value to fp32 (one IEEE rounding), back in float64."""
+    return v.float().double()
+
+
+def _steps(a, b, k_len):
+    """The k16 steps of ``a @ b`` (a (..., M, K), b (..., K, N))."""
+    for k in range(0, k_len, 16):
+        yield a[..., k : k + 16], b[..., k : k + 16, :]
+
+
+def tensor_core_twin(x, dt, a, bm, cm, chunk=CHUNK):
+    """PR 15's K4 on bf16 inputs (G=1, zero s0): C B^T's high-part sums
+    from zero at every k16 step (IEEE adds between steps); M @ X with M in
+    three parts, the high part's steps from zero, the small parts chained
+    in an accumulator of their own; C @ S_prev^T with S in three parts,
+    each chained over the k16 steps; the carry chained over all its steps
+    and parts, then S = exp(total) S + u; y = M @ X + exp(cum) * (C @
+    S_prev^T) with one rounding (a fused multiply-add)."""
+    batch, t_len, heads, p = x.shape
+    n = bm.shape[3]
+    xf = x.double().movedim(2, 1)                                   # (B, H, T, P)
+    bf = bm.double().expand(batch, t_len, heads, n).movedim(2, 1)   # (B, H, T, N)
+    cf = cm.double().expand(batch, t_len, heads, n).movedim(2, 1)
+    dtf = dt.float().movedim(2, 1)
+    s = torch.zeros(batch, heads, p, n, dtype=torch.float64)
+    ys = []
+    for t0 in range(0, t_len, chunk):
+        lc = min(chunk, t_len - t0)
+        pad = (-lc) % 16
+        def rows(v, t0=t0, lc=lc, pad=pad):
+            return torch.nn.functional.pad(v[:, :, t0 : t0 + lc], (0, 0, 0, pad))
+
+        xc, bc, cc = rows(xf), rows(bf), rows(cf)
+        dtc = torch.nn.functional.pad(dtf[:, :, t0 : t0 + lc], (0, pad))
+        cum = torch.cumsum(dtc * a.float()[None, :, None], dim=-1)
+        ll = lc + pad
+        cb = torch.zeros(batch, heads, ll, ll, dtype=torch.float64)
+        for ak, bk in _steps(cc, bc.transpose(-1, -2), n):
+            cb = _f32(cb + _mma(torch.zeros_like(cb), ak, bk))
+        tril = torch.ones(ll, ll, dtype=torch.bool).tril()
+        rel = torch.where(tril, cum[..., :, None] - cum[..., None, :], 0.0)
+        m = torch.where(tril, cb.float() * torch.exp(rel) * dtc[..., None, :], 0.0)
+        hi, mid, lo = (v.double() for v in _parts(m, 3))
+        yo = torch.zeros(batch, heads, ll, p, dtype=torch.float64)
+        yl = torch.zeros_like(yo)
+        for k in range(0, ll, 16):
+            xk = xc[..., k : k + 16, :]
+            yl = _mma(_mma(yl, lo[..., k : k + 16], xk), mid[..., k : k + 16], xk)
+            yo = _f32(yo + _mma(torch.zeros_like(yo), hi[..., k : k + 16], xk))
+        yo = _f32(yo + yl)
+        parts = [v.double() for v in _parts(s.float(), 3)]
+        yp = []
+        for part in parts:
+            acc = torch.zeros(batch, heads, ll, p, dtype=torch.float64)
+            for ak, bk in _steps(cc, part.transpose(-1, -2), n):
+                acc = _mma(acc, ak, bk)
+            yp.append(acc)
+        yi = _f32(yp[0] + _f32(yp[1] + yp[2]))
+        y = _f32(yo + torch.exp(cum).double()[..., None] * yi)
+        total = cum[..., -1:]
+        xw = (xc.float() * (dtc * torch.exp(total - cum))[..., None])
+        xparts = [v.double() for v in _parts(xw, 3)]
+        u = torch.zeros(batch, heads, p, n, dtype=torch.float64)
+        for k in range(0, ll, 16):
+            bk = bc[..., k : k + 16, :]
+            for part in (xparts[2], xparts[1], xparts[0]):
+                u = _mma(u, part[..., k : k + 16, :].transpose(-1, -2), bk)
+        s = _f32(_f32(torch.exp(total).double()[..., None] * s) + u)
+        ys.append(y[:, :, :lc])
+    y = torch.cat(ys, dim=2).movedim(1, 2)
+    return y.to(x.dtype), s.float()
+
+
+def _lean(y, y_p):
+    d = y.float() - y_p.float()
+    differ = d != 0
+    toward = differ & (d.sign() != y_p.float().sign())
+    return differ.float().mean().item(), (toward.sum() / differ.sum().clamp(min=1)).item()
+
+
+def test_truncating_mma_model_reproduces_pr15_lean():
+    """PR 15's kernel on the card (tools/ssd_roundings.py): 6.6e-5-8.6e-5 of
+    the bf16 y round apart from the plain version's, 53.5-54.9% of them
+    toward zero.  Its twin with the tensor cores' truncating sums leans the
+    same way, and rounds apart about twice as often as the IEEE twin."""
+    g = torch.Generator().manual_seed(0)
+    silu = torch.nn.functional.silu
+    x = silu(torch.randn(1, 256, 24, 64, generator=g)).to(torch.bfloat16)
+    bm, cm = (silu(torch.randn(1, 256, 1, 128, generator=g)).to(torch.bfloat16)
+              for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(1, 256, 24, generator=g))
+    a = -torch.ones(24)
+    y_p, _ = ssd_chunked(x, dt, a, bm, cm, chunk=CHUNK)
+    tc_share, tc_lean = _lean(tensor_core_twin(x, dt, a, bm, cm)[0], y_p)
+    ieee_share, ieee_lean = _lean(split_twin(x, dt, a, bm, cm)[0], y_p)
+    assert 0.52 < tc_lean < 0.62, (tc_lean, ieee_lean)
+    assert tc_share > 1.5 * ieee_share, (tc_share, ieee_share)
