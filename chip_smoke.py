@@ -36,6 +36,18 @@ product of the score tail and ``fuse_gates`` against their plain
 versions, and time a T=1 push and the threaded server eager and
 replayed; phase 13 holds the LM replay against the eager kernel path.
 
+Phases 20-22 serve ``gw_nominal`` on the ``mixed`` backend (per-layer
+storage int8, fp32, fp32, int8: each segment a chain of ``fused_step``
+segments on K1 and K2) with the weights of
+``tests/data/torch_port_gw_mixed.npz``: scores within 1e-5 of the
+reference's, ``mixed`` bit-equal to hand-chained segments, its step and
+decode graphs to eager runs, ``push_many`` to sequential pushes, a
+snapshot round trip; its push, server and batch-score times beside
+``fused_step``'s; ``tune="balanced"`` with its predicted and measured
+per-segment times; and a smoke sweep of both segments through
+``python -m repro_torch.launch.tune`` whose cache ``plan_stack(tune=
+"cached")`` then reads.
+
 It checks the scores against the reference's and times the kernels beside
 their plain versions, their bound and a library call (cuDNN's LSTM,
 ``scaled_dot_product_attention``, ``torch.addmm``).  Every phase raises on
@@ -46,6 +58,7 @@ CUDA card; without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -64,6 +77,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_nominal.npz"
 SERVER_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_server.npz"
+MIXED_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_mixed.npz"
+#: the mixed path's per-layer storage (the fixture's first plan)
+MIXED_WDS = ("int8", "fp32", "fp32", "int8")
 TOL = dict(rtol=1e-5, atol=1e-5)            # engine scores vs the reference's
 STREAM_TOL = dict(rtol=1e-6, atol=1e-7)     # chunked streaming vs one-shot
 
@@ -170,23 +186,18 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
     return None
 
 
-def bound(step: bool, L: int, W: int, T: int, B: int, w_bytes: int) -> tuple[float, str]:
-    """Least time the card needs for one call: bytes over the memory rate
-    vs fp32 operations over the fp32 peak; returns (ms, "bytes"|"operations").
+def bound(step: bool, L: int, W: int, T: int, B: int) -> tuple[float, str]:
+    """Least time the card needs for one K1 (``step=False``) or K2 call
+    over an fp32 pack: the larger of bytes over the memory rate and
+    operations over the fp32 peak; returns (ms, "bytes"|"operations").
+    The counts are
+    ``autotune.model.stack_kernel_costs``'s and the rates ``H100_SXM``'s,
+    the same the mixed-split balancer's floors read."""
+    from repro_torch.autotune.model import roofline_terms_from_counts, stack_kernel_costs
 
-    Bytes count each input read once and each output written once.
-    Operations count 2 per multiply-add of the gate products (layer 0's
-    input product only in the step kernel; the wavefront kernel receives
-    it), 4 per gate pre-activation and 10 per cell element.
-    """
-    w4 = 4 * W
-    inputs = (B * T * W * 4 if step else T * B * w4 * 4) + 2 * L * W * w4 * w_bytes \
-        + L * w4 * 4 + L * 8 * 4 + 2 * L * B * W * 4
-    outputs = B * T * W * 4 + 2 * L * B * W * 4
-    macs = T * B * W * w4 * (2 * L if step else 2 * L - 1)
-    ops = 2 * macs + T * B * L * (4 * w4 + 10 * W)
-    t_bytes, t_ops = (inputs + outputs) / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    costs = stack_kernel_costs(L, W, B, T, step=step)
+    terms = roofline_terms_from_counts(costs["flops"], costs["bytes"])
+    return terms["t_bound_us"] / 1e3, ("bytes" if terms["bound"] == "hbm" else "operations")
 
 
 def check_push_many(make_engine, windows: np.ndarray, T: int) -> int:
@@ -435,6 +446,369 @@ def gw_graph_phases(params, cfg, windows, T, dev, smi, all_packs, state, compare
              "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
              "library_ms": head["library_ms"], "shapes": rw_rows}
     return entry, report
+
+
+def mixed_split_scores(params, cfg, windows: np.ndarray, split: int, dev) -> tuple:
+    """``split=k`` on each segment of ``cfg``, through the bound mixed
+    executors: (one-shot scores, scores streamed in chunks of 25, each
+    segment plan's layer assignment), as ``tests/test_torch_golden_mixed.py``
+    makes them with the reference."""
+    import torch
+    from repro_torch.core.autoencoder import (
+        decoder_layers,
+        encoder_layers,
+        reconstruction_error,
+        reconstruction_error_from_latent,
+    )
+    from repro_torch.core.executor import plan_stack
+
+    execs = {}
+    for name, (plist, cfgs) in (("enc", encoder_layers(params, cfg)),
+                                ("dec", decoder_layers(params, cfg))):
+        execs[name] = plan_stack(cfgs, impl="mixed", split=split).bind(plist)
+    x = torch.as_tensor(windows, device=dev)
+    with torch.no_grad():
+        one = reconstruction_error(params, x, cfg, exec_enc=execs["enc"], exec_dec=execs["dec"])
+        state = execs["enc"].zero_state(len(windows))
+        for pos in range(0, windows.shape[1], 25):
+            state = execs["enc"].step(x[:, pos : pos + 25], state)
+        streamed = reconstruction_error_from_latent(
+            params, execs["enc"].last_hidden(state), x, cfg, exec_dec=execs["dec"])
+    layers = {k: ex.plan.layer_assignment() for k, ex in execs.items()}
+    return one.cpu().numpy(), streamed.cpu().numpy(), layers
+
+
+def gw_mixed_phases(dev, smi: str, compare, block_plain) -> tuple[dict, dict, dict]:
+    """Phases 20-22, this slice's path: ``gw_nominal`` at full width on the
+    mixed backend (``MIXED_WDS``), weights from the reference's mixed
+    fixture; the balanced split; a smoke sweep through ``launch/tune.py``.
+    Returns (the mixed path's launches by kernel, its launches per window
+    by mode, the report)."""
+    import torch
+    from repro_torch.autotune.cache import TunedPlanCache, set_cache
+    from repro_torch.configs.gw import GW_MODELS
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.autoencoder import decoder_layers, encoder_layers
+    from repro_torch.core.executor import plan_stack, state_leaves
+    from repro_torch.core.stage_balance import choose_mixed_split, segment_runs
+    from repro_torch.kernels.lstm_stack.lstm_stack import lstm_stack
+    from repro_torch.kernels.lstm_stack.step import lstm_stack_step
+    from repro_torch.kernels.rowwise import rowwise_matmul
+    from repro_torch.launch import tune as tune_cli
+    from repro_torch.serve.engine import AnomalyStreamEngine, StreamingAnomalyEngine
+
+    with np.load(MIXED_FIXTURE) as data:
+        golden = {k: data[k] for k in data.files}
+    tree: dict = {}
+    for key, value in golden.items():
+        if key.startswith("params/"):
+            _, layer, name = key.split("/")
+            tree.setdefault(layer, {})[name] = value
+    params = params_from_numpy(tree, dev)
+    base = GW_MODELS["gw_nominal"]
+    cfg = dataclasses.replace(base, weight_dtypes=MIXED_WDS, impl="mixed")
+    T = cfg.timesteps
+    windows = golden["windows"]
+    gen = torch.Generator().manual_seed(20)
+
+    def mixed_engine(**kw):
+        return StreamingAnomalyEngine(params, cfg, impl="mixed", **{"batch": 1, **kw})
+
+    def counts():
+        return {"lstm_stack_wavefront": lstm_stack.launches,
+                "lstm_stack_step": lstm_stack_step.launches,
+                "rowwise_matmul": rowwise_matmul.launches}
+
+    report: dict = {}
+    # -- phase 20: the mixed path, counts set to 0 before it, read after it --
+    t0 = time.perf_counter()
+    lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
+    with block_plain():
+        batch_eng = AnomalyStreamEngine(params, cfg, impl="mixed")
+        assert batch_eng.effective_impl == "mixed", batch_eng.effective_impl
+        np.testing.assert_allclose(batch_eng.score(windows), golden["scores/wdtypes"], **TOL,
+                                   err_msg="mixed batch scores vs reference")
+        lock = mixed_engine(batch=len(windows))
+        streamed = [s for pos in range(0, T, 25) for s in lock.push(windows[:, pos : pos + 25])]
+        np.testing.assert_allclose(streamed[0], golden["streamed/wdtypes"], **TOL,
+                                   err_msg="mixed streamed scores vs reference")
+        layers = {"enc": lock._exec_enc.plan.layer_assignment(),
+                  "dec": lock._exec_dec.plan.layer_assignment()}
+        if layers != json.loads(str(golden["layers/wdtypes"])):
+            raise AssertionError(f"mixed layer assignment {layers} differs from the reference's")
+        for split in (1, 2):
+            one, stream, lay = mixed_split_scores(params, base, windows, split, dev)
+            np.testing.assert_allclose(one, golden[f"scores/split{split}"], **TOL,
+                                       err_msg=f"split={split} scores vs reference")
+            np.testing.assert_allclose(stream, golden[f"streamed/split{split}"], **TOL,
+                                       err_msg=f"split={split} streamed vs reference")
+            if lay != json.loads(str(golden[f"layers/split{split}"])):
+                raise AssertionError(f"split={split} layer assignment differs: {lay}")
+        eng = mixed_engine()
+        one_shot = eng.score(windows[:1])
+        for chunk in (1, 25):
+            got = [s for pos in range(0, T, chunk) for s in eng.push(windows[:1, pos : pos + chunk])]
+            assert len(got) == 1
+            np.testing.assert_allclose(got[0], one_shot, **STREAM_TOL,
+                                       err_msg=f"mixed, chunks of {chunk} vs one-shot")
+        n = 32
+        x = np.random.RandomState(20).randn(n, 2 * T, 1).astype(np.float32)
+        ids = [f"m{i}" for i in range(n)]
+        pool = mixed_engine()
+        got = {sid: [] for sid in ids}
+        decodes = []
+        for a in range(0, 2 * T, 25):
+            before = lstm_stack.launches
+            res = pool.push_many(ids, x[:, a : a + 25])
+            decodes.append(lstm_stack.launches - before)
+            for sid in ids:
+                got[sid] += res[sid]
+        n_dec = len(pool._exec_dec.plan.segments)
+        if decodes != [n_dec * int((a + 25) % T == 0) for a in range(0, 2 * T, 25)]:
+            raise AssertionError(f"mixed push_many: K1 launches per piece {decodes}, want "
+                                 f"{n_dec} (one per decoder segment) per window completion")
+        seq = mixed_engine()
+        want = {}
+        for i, sid in enumerate(ids):
+            seq.reset()
+            want[sid] = [sc for pos in range(0, 2 * T, 25) for sc in
+                         seq.push(x[i : i + 1, pos : pos + 25])]
+        assert_bit_equal(got, want, f"mixed push_many over {n} streams")
+        src = mixed_engine()
+        src.push(windows[:1, :37])
+        src.push_many(["p", "q"], windows[:2, :41])
+        dst = mixed_engine()
+        dst.restore(src.snapshot())
+        np.testing.assert_array_equal(dst.push(windows[:1, 37:T])[0], src.push(windows[:1, 37:T])[0],
+                                      err_msg="mixed snapshot round trip, lock-step")
+        r_dst, r_src = dst.push_many(["p", "q"], windows[:2, 41:T]), src.push_many(["p", "q"],
+                                                                                    windows[:2, 41:T])
+        assert_bit_equal(r_dst, r_src, "mixed snapshot round trip, pool")
+        torch.cuda.synchronize()
+    launches = counts()
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the mixed path never launched {name}")
+    per_window = {}
+    for mode, chunk in (("mixed_push_T1", 1), ("mixed_push_T25", 25)):
+        lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
+        for pos in range(0, T, chunk):
+            eng.push(windows[:1, pos : pos + chunk])
+        per_window[mode] = counts()
+    lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
+    batch_eng.score(windows)
+    per_window[f"mixed_score_call_B{len(windows)}"] = counts()
+    log(f"phase 20 mixed path ok: {MIXED_WDS} scores within 1e-5 of the reference (engines "
+        f"and split=1/2 on each segment), chunked == one-shot, push_many over {n} streams "
+        f"bit-equal ({decodes}), snapshot round trip bit-equal, launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # mixed == hand-chained fused_step segments, bit for bit, at full width
+    t0 = time.perf_counter()
+    n_eq = 0
+    for seg, (plist, cfgs) in (("enc", encoder_layers(params, cfg)),
+                               ("dec", decoder_layers(params, cfg))):
+        mex = plan_stack(cfgs, impl="mixed").bind(plist)
+        wds = mex.plan.weight_dtype
+        subs = [plan_stack(cfgs[a:b], impl="fused_step", weight_dtype=wds[a]).bind(plist[a:b])
+                for a, b in segment_runs(wds)]
+        in_dim = cfgs[0].in_dim
+        for t_len in (T, 1, 25, 40):  # the batch forward, then steps (40 > chunk_len: K1)
+            if seg == "enc":
+                xin = torch.randn(20, t_len, in_dim, generator=gen)
+            else:
+                xin = torch.rand(20, 1, in_dim, generator=gen).expand(20, t_len, in_dim) * 2 - 1
+            xin = xin.to(dev)
+            with torch.no_grad():
+                if t_len == T:
+                    h_got, f_got = mex(xin)
+                    h, f_want = xin, []
+                    for sub in subs:
+                        h, f = sub(h)
+                        f_want.extend(f)
+                else:
+                    h_got, f_got = mex.step_with_output(xin, mex.zero_state(20))
+                    h, f_want = xin, []
+                    for sub in subs:
+                        h, st = sub.step_with_output(h, sub.zero_state(20))
+                        f_want.append(st)
+            torch.cuda.synchronize()
+            compare([h_got, *state_leaves(f_got)], [h, *state_leaves(f_want)],
+                    f"mixed {seg} T={t_len} vs hand-chained segments")
+            n_eq += 1
+    # the step graph (the whole chain, one replay) and the batched decode graph
+    ex = mixed_engine()._exec_enc
+    n_seg = len(ex.plan.segments)
+    for width in (1, 8, 32):
+        for t_len in (1, 25):
+            xs = torch.randn(width, t_len, 1, generator=gen).to(dev)
+            st0 = tuple(((torch.randn(h.shape, generator=gen) * 0.3).to(dev),
+                         (torch.randn(c.shape, generator=gen) * 0.3).to(dev))
+                        for h, c in ex.zero_state(width))
+            want = ex.step(xs, st0)
+            graph = ex.step_graph(width)
+            first = [t.clone() for t in state_leaves(graph(xs, st0))]
+            before = lstm_stack_step.launches
+            got = graph(xs, st0)
+            torch.cuda.synchronize()
+            if lstm_stack_step.launches - before != n_seg:
+                raise AssertionError(f"mixed step graph width {width}: a replay counted "
+                                     f"{lstm_stack_step.launches - before} K2 launches, want "
+                                     f"{n_seg}")
+            compare(first, state_leaves(want), f"mixed step graph width {width} T={t_len}, first")
+            compare(state_leaves(got), state_leaves(want),
+                    f"mixed step graph width {width} T={t_len}, replay")
+    for k in (1, 3, 8, 32):
+        xk = np.random.RandomState(k).randn(k, 2 * T, 1).astype(np.float32)
+        ids = [f"f{i}" for i in range(k)]
+        runs = []
+        for graphs in (False, True):
+            e = mixed_engine(graphs=graphs)
+            runs.append([np.concatenate([e.push_many(ids, xk[:, w * T : (w + 1) * T])[sid][0]
+                                         for sid in ids]) for w in range(2)])
+        for w in range(2):
+            np.testing.assert_array_equal(runs[1][w], runs[0][w],
+                                          err_msg=f"mixed batched decode k={k} window {w}: "
+                                                  "replay vs eager")
+    log(f"phase 20 mixed == hand-chained segments: {n_eq} cases (batch forward T={T}, steps "
+        f"T=1/25, a T=40 piece on K1), step graph replay == eager at widths 1/8/32 (one "
+        f"replay, {n_seg} K2 launches), batched decode replay == eager at 1/3/8/32 streams "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # mixed vs fused_step: push, server and batch score, in turns
+    t0 = time.perf_counter()
+    engines = {"fused_step": StreamingAnomalyEngine(params, base, batch=1), "mixed": mixed_engine()}
+    push = {name: [] for name in engines}
+    for name in ("fused_step", "mixed", "mixed", "fused_step"):
+        push[name] += push_times(engines[name], windows)
+    report["push_T1_B1"] = {
+        name: {"median_ms": statistics.median(v), "p99_ms": float(np.percentile(v, 99)),
+               "n": len(v)} for name, v in push.items()}
+    scorers = {"fused_stack": AnomalyStreamEngine(params, base, impl="fused_stack"),
+               "mixed": AnomalyStreamEngine(params, cfg, impl="mixed")}
+    w20 = np.concatenate([windows] * 3)[:20]
+    score_ms = {name: [] for name in scorers}
+    for name in ("fused_stack", "mixed", "mixed", "fused_stack"):
+        for _ in range(12):
+            t1 = time.perf_counter()
+            scorers[name].score(w20)
+            score_ms[name].append((time.perf_counter() - t1) * 1e3)
+    report["score_B20_ms_median"] = {k: statistics.median(v[2:]) for k, v in score_ms.items()}
+    report["server_replay_threaded"] = {}
+    for name, make in (("fused_step", lambda: StreamingAnomalyEngine(params, base, batch=1)),
+                       ("mixed", mixed_engine)):
+        threaded, errors = threaded_run(make, make(), np.random.RandomState(20), T, name)
+        if errors:
+            raise AssertionError(f"{name} server: {errors} engine-step errors")
+        report["server_replay_threaded"][name] = threaded
+    log(smi)
+    log(f"phase 20 timing: T=1 push B=1 replay " + ", ".join(
+        f"{k} median {r['median_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms"
+        for k, r in report["push_T1_B1"].items())
+        + "; score B=20 " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in report["score_B20_ms_median"].items())
+        + "; threaded server " + ", ".join(
+            f"{k} p50 {r['p50_us']:.0f} us p99 {r['p99_us']:.0f} us"
+            for k, r in report["server_replay_threaded"].items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 21: tune="balanced" -------------------------------------------
+    t0 = time.perf_counter()
+    report["balanced"] = {}
+    for seg, (plist, cfgs) in (("enc", encoder_layers(params, base)),
+                               ("dec", decoder_layers(params, base))):
+        choice = choose_mixed_split(cfgs)  # the H100's floors at B=8, T=8
+        plan = plan_stack(cfgs, impl="mixed", tune="balanced")
+        if plan.weight_dtype != choice.dtypes or plan.knob_provenance()["split"][1] != "balanced":
+            raise AssertionError(f"balanced {seg}: plan {plan.describe()} vs choice {choice}")
+        ex = plan.bind(plist)
+        measured = []
+        for sub in ex._segment_executors():
+            xs = torch.randn(8, 8, sub.plan.cfgs[0].in_dim, generator=gen).to(dev)
+            graph = sub.step_graph(8)
+            run = lambda graph=graph, xs=xs: graph(xs, graph.state)  # noqa: E731
+            measured.append({"replay_ms": median_ms(run, reps=50),
+                             "device_ms": device_ms(run, reps=50, kernel="lstm_stack_kernel")})
+        xs = torch.randn(8, 8, cfgs[0].in_dim, generator=gen).to(dev)
+        chain = ex.step_graph(8)
+        report["balanced"][seg] = {
+            "split": plan.split, "weight_dtype": list(plan.weight_dtype),
+            "predicted_us": list(choice.segment_us), "segments": measured,
+            "chain_replay_ms": median_ms(lambda: chain(xs, chain.state), reps=50),
+            "scored": [["+".join(c), m, t] for c, m, t in choice.scored]}
+        log(f"phase 21 balanced {seg}: split={plan.split} {'+'.join(plan.weight_dtype)}; "
+            f"predicted (floors) " + ", ".join(f"{u:.4f} us" for u in choice.segment_us)
+            + "; measured per segment (B=8, T=8) " + ", ".join(
+                f"replay {m['replay_ms']:.4f} ms device "
+                + (f"{m['device_ms']:.4f} ms" if m["device_ms"] is not None else "not measured")
+                for m in measured))
+    bal_cfg = dataclasses.replace(base, impl="mixed")
+    bal = StreamingAnomalyEngine(params, bal_cfg, batch=1, impl="mixed", tune="balanced")
+    one_shot = bal.score(windows[:1])
+    got = [s for pos in range(0, T, 25) for s in bal.push(windows[:1, pos : pos + 25])]
+    if not np.all(np.isfinite(one_shot)):
+        raise AssertionError(f"balanced engine scores are not finite: {one_shot}")
+    np.testing.assert_allclose(got[0], one_shot, **STREAM_TOL,
+                               err_msg="balanced engine, chunked vs one-shot")
+    log(f"phase 21 balanced engine ok: {bal.fingerprint()['weight_dtype']} encoder, chunked == "
+        f"one-shot ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 22: a smoke sweep through launch/tune.py ---------------------
+    t0 = time.perf_counter()
+    report["sweep"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_path = f"{tmp}/tuned.json"
+        for seg, dims in (("enc", "1x32,32x8"), ("dec", "8x8,8x32")):
+            for impl in ("mixed", "fused_step"):
+                out = tune_cli.main(
+                    ["--dims", dims, "--impl", impl, "--batch", "8", "--t-len", "8",
+                     "--k", "3", "--reps", "20", "--max-points", "24", "--device", "cuda",
+                     "--jsonl", f"{tmp}/{seg}_{impl}.jsonl", "--cache", cache_path]
+                    + (["--balanced"] if impl == "mixed" else []))
+                ((_, best, default, ratio),) = out["winners"]
+                fit = out["fit"]
+                report["sweep"][f"{seg}_{impl}"] = {
+                    "best": best["point"], "best_us": best["us"], "default_us": default["us"],
+                    "best_vs_default": ratio, "fit": fit.describe(),
+                    "fit_median_rel_err": fit.median_rel_err, "fit_max_rel_err": fit.max_rel_err,
+                    "per_record": [[p, pred, meas, err] for _, p, pred, meas, err in fit.per_record],
+                    "balanced_split": {k: c.split for k, c in out["choices"].items()}}
+        old = set_cache(TunedPlanCache.load(cache_path))
+        try:
+            tuned_plans = []
+            for seg, (plist, cfgs) in (("enc", encoder_layers(params, base)),
+                                       ("dec", decoder_layers(params, base))):
+                for impl in ("mixed", "fused_step"):
+                    plan = plan_stack(cfgs, impl=impl, tune="cached")
+                    tuned = sorted(k for k, (_, src) in plan.knob_provenance().items()
+                                   if src == "tuned")
+                    if not tuned:
+                        continue
+                    tuned_plans.append(f"{seg} {impl}: {plan.describe()} (tuned {tuned})")
+                    ex = plan.bind(plist)
+                    t_len = min(8, plan.chunk_len)
+                    xs = torch.randn(8, t_len, cfgs[0].in_dim, generator=gen).to(dev)
+                    st0 = ex.zero_state(8)
+                    want = ex.step(xs, st0)
+                    graph = ex.step_graph(8)
+                    graph(xs, st0)
+                    got = graph(xs, st0)
+                    torch.cuda.synchronize()
+                    compare(state_leaves(got), state_leaves(want),
+                            f"tuned {seg} {impl} plan: replay vs eager")
+        finally:
+            set_cache(old)
+    if not tuned_plans:
+        raise AssertionError("no plan resolved a knob from the swept cache as 'tuned'")
+    report["sweep"]["tuned_plans"] = tuned_plans
+    log(smi)
+    log(f"phase 22 sweep ok: " + "; ".join(
+        f"{k} best {v['best']} {v['best_vs_default']:.3f}x vs default, fit median "
+        f"{v['fit_median_rel_err']:.3f} max {v['fit_max_rel_err']:.3f}"
+        for k, v in report["sweep"].items() if k != "tuned_plans")
+        + f"; tune='cached' plans: {tuned_plans}, replay == eager "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches, per_window, report
 
 
 def scan_bound(H: int, T: int, B: int, IN: int = 0) -> tuple[float, str]:
@@ -1373,6 +1747,17 @@ def main() -> int:
     def refuse_plain(*args, **kwargs):
         raise AssertionError("the main path reached a plain version on the card")
 
+    @contextlib.contextmanager
+    def block_plain():
+        """K1's, K2's and the row-wise product's plain versions refuse to run."""
+        saved = (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, rw_mod.rowwise_matmul_plain)
+        (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain,
+         rw_mod.rowwise_matmul_plain) = refuse_plain, refuse_plain, refuse_plain
+        try:
+            yield
+        finally:
+            k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, rw_mod.rowwise_matmul_plain = saved
+
     saved = (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain, rw_mod.rowwise_matmul_plain)
     (k1_mod.lstm_stack_ref, k2_mod.lstm_stack_step_plain,
      rw_mod.rowwise_matmul_plain) = refuse_plain, refuse_plain, refuse_plain
@@ -1613,7 +1998,7 @@ def main() -> int:
             lib_err = (lib_call()[1][1] - ours[2]).abs().max().item()
             lib_ms = median_ms(lib_call, reps=50)
             lib_dev = device_ms(lib_call, reps=50)
-        b_ms, b_by = bound(name == "lstm_stack_step", L, W, t_len, B=batch, w_bytes=4)
+        b_ms, b_by = bound(name == "lstm_stack_step", L, W, t_len, B=batch)
         call_ms = median_ms(kernel, reps=50)
         ms = device_ms(kernel, reps=50, kernel="lstm_stack_kernel")
         rows[name].append({
@@ -1718,6 +2103,15 @@ def main() -> int:
     if not rw_entry["launches"]:
         raise AssertionError("the serving path never launched rowwise_matmul")
 
+    # phases 20-22: the mixed path (counts set to 0 before it, read after it)
+    mixed_launches, mixed_per_window, mixed_report = gw_mixed_phases(dev, smi, compare,
+                                                                     block_plain)
+    log(json.dumps({"mixed": mixed_report}))
+    rw_entry["launches_by_path"] = {"gw": launches["rowwise_matmul"],
+                                    "gw_mixed": mixed_launches["rowwise_matmul"]}
+    rw_entry["launches_per_window"].update(
+        {m: c["rowwise_matmul"] for m, c in mixed_per_window.items()})
+
     lm_kernels, lm_graphs = lm_phases(dev, smi)  # phases 10-14, 19
     log(smi)
     log(json.dumps({"graphs": {"gw": gw_graphs, "lm": lm_graphs,
@@ -1737,8 +2131,10 @@ def main() -> int:
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "launches_per_window": {m: v[0 if name == "lstm_stack_wavefront" else 1]
-                                    for m, v in per_window.items()},
+            "launches_per_window": {
+                **{m: v[0 if name == "lstm_stack_wavefront" else 1] for m, v in per_window.items()},
+                **{m: c[name] for m, c in mixed_per_window.items()}},
+            "launches_by_path": {"gw": launches[name], "gw_mixed": mixed_launches[name]},
             "shapes": rows[name],
         })
     head = rows["lstm_scan"][0]  # the kernel backend's entry, H=32, T=100, B=1

@@ -38,13 +38,26 @@ class AutoencoderConfig:
     dtype: torch.dtype = torch.float32
     cell_dtype: torch.dtype = torch.float32
     acts: ActivationSet = EXACT
-    impl: str = "split"                 # naive | split | kernel | fused_stack | fused_step
+    impl: str = "split"                 # naive | split | kernel | fused_stack | fused_step | mixed
     #: fused-stack weight storage: "fp32" | "bf16" | "int8" (None = native at
     #: ``dtype``); ``dec_weight_dtype`` overrides the decoder segment
     weight_dtype: str | None = None
     dec_weight_dtype: str | None = None
+    #: per-layer weight storage (one entry per ``hidden`` layer; None entries
+    #: fall back to the segment-level fields above).  More than one distinct
+    #: storage inside a segment needs ``impl="mixed"``, which chains
+    #: homogeneous sub-plans; every other backend packs one dtype per
+    #: segment and refuses at plan time
+    weight_dtypes: tuple[str | None, ...] | None = None
     #: in-kernel activation fake-quant on layer hand-offs (fused backends)
     act_bits: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.weight_dtypes is not None and len(self.weight_dtypes) != len(self.hidden):
+            raise ValueError(
+                f"weight_dtypes needs one entry per hidden layer ({len(self.hidden)}); "
+                f"got {len(self.weight_dtypes)}"
+            )
 
     @property
     def boundary(self) -> int:
@@ -58,10 +71,12 @@ class AutoencoderConfig:
         for i, h in enumerate(self.hidden):
             if i == self.boundary:  # the first decoder layer eats the latent
                 lx = self.hidden[self.boundary - 1]
+            wd = self.weight_dtype if i < self.boundary else dec_wd
+            if self.weight_dtypes is not None and self.weight_dtypes[i] is not None:
+                wd = self.weight_dtypes[i]
             cfgs.append(LstmConfig(
                 in_dim=lx, hidden=h, dtype=self.dtype, cell_dtype=self.cell_dtype,
-                acts=self.acts,
-                weight_dtype=self.weight_dtype if i < self.boundary else dec_wd,
+                acts=self.acts, weight_dtype=wd,
             ))
             lx = h
         return cfgs
@@ -96,23 +111,28 @@ def decoder_layers(params: Params, cfg: AutoencoderConfig):
 
 
 def _segment_executor(params: Params, cfg: AutoencoderConfig, segment: str, *,
-                      impl: str | None = None, chunk_len: int | None = None):
+                      impl: str | None = None, chunk_len: int | None = None,
+                      tune: str = "default"):
     from .executor import plan_stack
 
     plist, cfgs = (encoder_layers(params, cfg) if segment == "enc"
                    else decoder_layers(params, cfg))
     return plan_stack(
         cfgs, impl=cfg.impl if impl is None else impl, chunk_len=chunk_len,
-        act_bits=cfg.act_bits,
+        act_bits=cfg.act_bits, tune=tune,
     ).bind(plist)
 
 
 def segment_executors(params: Params, cfg: AutoencoderConfig, *,
-                      impl: str | None = None, chunk_len: int | None = None):
+                      impl: str | None = None, chunk_len: int | None = None,
+                      tune: str = "default"):
     """(encoder, decoder) ``StackExecutor``s: each segment gets its own plan
-    and pack, bound once per params identity."""
-    return (_segment_executor(params, cfg, "enc", impl=impl, chunk_len=chunk_len),
-            _segment_executor(params, cfg, "dec", impl=impl, chunk_len=chunk_len))
+    and pack, bound once per params identity.  ``tune`` is ``plan_stack``'s
+    ("cached": knobs from the autotune store; "balanced": the mixed
+    backend's model-chosen storage split, per segment)."""
+    kw = dict(impl=impl, chunk_len=chunk_len, tune=tune)
+    return (_segment_executor(params, cfg, "enc", **kw),
+            _segment_executor(params, cfg, "dec", **kw))
 
 
 def encode(params: Params, x: torch.Tensor, cfg: AutoencoderConfig,

@@ -4,7 +4,8 @@
   (``naive``/``split`` layer by layer, ``kernel`` layer by layer with one
   scan-kernel launch per layer, ``fused_stack`` one wavefront kernel
   launch, ``fused_step`` the same plus the step kernel for short streaming
-  chunks), each declaring its capabilities.
+  chunks, ``mixed`` a chain of ``fused_step`` segments with per-layer
+  weight storage), each declaring its capabilities.
 * ``check_weight_storage`` and ``resolve_impl``: quantized-storage legality
   and the engines' backend resolution.
 
@@ -43,7 +44,12 @@ class BackendSpec:
     #: honours the plan-time ``act_bits`` knob (in-kernel activation
     #: fake-quant on the layer hand-off)
     act_quant: bool = False
-    #: plan-time knobs this backend accepts ("chunk_len", "block_b")
+    #: executes per-layer heterogeneous sub-plans (the ``mixed`` backend):
+    #: per-layer weight_dtype/geometry, chained through native-layout state
+    heterogeneous: bool = False
+    #: plan-time knobs this backend accepts, the single source of sweep
+    #: legality (``autotune.space`` builds its grids from them): "chunk_len",
+    #: "block_b", "fuse_gates", "split"
     knobs: tuple[str, ...] = ()
     #: (executor, xs, state) -> (h_seq, finals)
     forward: Any = None
@@ -60,7 +66,6 @@ IDENTITY = "identity"
 
 #: backends of the reference that later slices of the port bring over
 LATER_BACKENDS = {
-    "mixed": "heterogeneous stacks (ROADMAP queue 1, item 8)",
     "fused_stack_sharded": "multi-GPU placement (ROADMAP queue 1, item 10)",
     "wavefront": "multi-GPU placement (ROADMAP queue 1, item 10)",
 }
@@ -88,8 +93,8 @@ def get_backend(name: str) -> BackendSpec:
     if spec is None:
         if name in LATER_BACKENDS:
             raise ValueError(
-                f"impl={name!r} is not ported yet; it comes with a later "
-                f"slice of the port: {LATER_BACKENDS[name]}"
+                f"impl={name!r} is not ported yet; later slices of the "
+                f"port bring it: {LATER_BACKENDS[name]}"
             )
         raise ValueError(
             f"unknown impl {name!r}; registered backends: "
@@ -109,14 +114,27 @@ def requested_weight_storage(cfgs) -> str | None:
 def quantized_weight_storage(cfg) -> str | None:
     """The first non-native weight storage an AutoencoderConfig requests."""
     native = native_weight_dtype(cfg.dtype)
-    for wd in (cfg.weight_dtype, cfg.dec_weight_dtype):
+    for wd in (cfg.weight_dtype, cfg.dec_weight_dtype, *(cfg.weight_dtypes or ())):
         if wd is not None and wd != native:
             return wd
     return None
 
 
-def check_weight_storage(wd: str | None, impl: str) -> None:
-    """Refuse quantized weight storage on a backend that cannot honour it."""
+def heterogeneous_weight_storage(cfg) -> bool:
+    """True when an AutoencoderConfig pins more than one distinct per-layer
+    weight storage: only the ``mixed`` backend executes that; every
+    homogeneous backend's pack would refuse it."""
+    if not cfg.weight_dtypes:
+        return False
+    return len({wd or "native" for wd in cfg.weight_dtypes}) > 1
+
+
+def check_weight_storage(wd, impl: str) -> None:
+    """Refuse quantized weight storage on a backend that cannot honour it.
+    ``wd`` may be a per-layer sequence (mixed plans): the capability is
+    needed as soon as any layer asks for narrow storage."""
+    if isinstance(wd, (tuple, list)):
+        wd = next((w for w in wd if w is not None and w != "fp32"), None)
     if wd is None:
         return
     if not get_backend(impl).quantized:
@@ -135,8 +153,10 @@ def resolve_impl(cfg, impl: str | None):
     swap non-kernel-safe activations (PAPER_HW's LUT sigmoid) for their PWL
     twins, which would make scores inconsistent with thresholds calibrated
     on ``cfg.impl``; such a request is declined, ``cfg.impl`` is kept and
-    the reason returned.  Quantized weight storage on a backend that cannot
-    honour it raises here, not at score time.
+    the reason returned.  So is a request for a homogeneous backend when
+    the config pins heterogeneous per-layer storage, which only ``mixed``
+    executes.  Quantized weight storage on a backend that cannot honour it
+    raises here, not at score time.
     """
     if impl is None or impl == cfg.impl:
         cfg, effective, reason = cfg, cfg.impl, None
@@ -145,6 +165,13 @@ def resolve_impl(cfg, impl: str | None):
             f"requested impl={impl!r} would swap acts={cfg.acts.name!r} for its "
             f"kernel-safe twin; keeping impl={cfg.impl!r} so scores stay "
             f"consistent with thresholds calibrated on it"
+        )
+        effective = cfg.impl
+    elif heterogeneous_weight_storage(cfg) and not get_backend(impl).heterogeneous:
+        reason = (
+            f"config pins heterogeneous per-layer weight_dtypes, which only the "
+            f"mixed backend executes; keeping impl={cfg.impl!r} over the "
+            f"requested impl={impl!r}"
         )
         effective = cfg.impl
     else:

@@ -17,6 +17,16 @@ Backends ported so far (see ``core.backends.BACKENDS``):
     fused_stack     whole segment in ONE wavefront kernel launch
     fused_step      fused_stack + the step kernel for chunks with
                     T <= plan.chunk_len (the streaming serving default)
+    mixed           per-layer heterogeneous: maximal homogeneous runs
+                    become ordinary fused_step sub-plans (per-layer
+                    weight_dtype / chunk geometry) chained through
+                    native-layout state hand-off; tune="balanced" picks the
+                    int8/fp32 split that equalizes the kernels' predicted
+                    per-segment cost
+
+``tune="cached"`` resolves knobs from the autotune store
+(``repro_torch.autotune.cache``); ``StackPlan.knob_provenance`` says where
+each knob came from.
 """
 
 from __future__ import annotations
@@ -53,8 +63,9 @@ class StackPlan:
     cfgs: tuple[LstmConfig, ...]
     impl: str
     #: resolved weight storage ("fp32" | "bf16" | "int8") for packed
-    #: backends; None for layer-by-layer backends (native storage)
-    weight_dtype: str | None = None
+    #: backends; a per-layer tuple for ``impl="mixed"``; None for
+    #: layer-by-layer backends (native storage)
+    weight_dtype: Any = None
     #: chunked-step backends only: chunks with T <= chunk_len run the step
     #: kernel instead of the wavefront kernel
     chunk_len: int | None = None
@@ -65,10 +76,46 @@ class StackPlan:
     #: chunked-step backends only: the step kernel's single [x;h] @ [W_x;W_h]
     #: chain per gate (None = separate chains; never with int8 packs)
     fuse_gates: bool | None = None
+    #: ``impl="mixed"`` split knob: layers [0, split) store int8, the rest
+    #: fp32; None when the per-layer dtypes came from an explicit tuple, the
+    #: cfgs or the balancer without a prefix form
+    split: int | None = None
+    #: ``impl="mixed"`` only: the maximal homogeneous sub-plans (each an
+    #: ordinary fused_step StackPlan) the executor chains
+    segments: tuple = ()
+    #: where each resolved knob came from ("explicit" | "tuned" | "default" |
+    #: "balanced"); excluded from equality and hash, so tuned and hand-set
+    #: plans with equal knob values are equal
+    knob_sources: tuple = dataclasses.field(default=(), compare=False)
 
     @property
     def backend(self) -> BackendSpec:
         return get_backend(self.impl)
+
+    def knob_provenance(self) -> dict[str, tuple[Any, str]]:
+        """{knob: (resolved value, source)} for the backend's knobs (and
+        ``act_bits``, and a mixed plan's per-layer storage): what
+        ``launch/serve.py --plan-only`` prints."""
+        sources = dict(self.knob_sources)
+        out = {k: (getattr(self, k), sources.get(k, "default")) for k in self.backend.knobs}
+        if self.act_bits is not None:
+            out["act_bits"] = (self.act_bits, sources.get("act_bits", "default"))
+        if self.backend.heterogeneous:
+            out["weight_dtype"] = (self.weight_dtype, sources.get("weight_dtype", "default"))
+        return out
+
+    def layer_assignment(self) -> list[dict[str, Any]]:
+        """Per-layer split of a mixed plan: one row per layer with its
+        resolved dtype, chunk_len and stage (the segment's index)."""
+        if not self.backend.heterogeneous:
+            raise ValueError(f"layer_assignment() is a mixed-plan surface; "
+                             f"impl={self.impl!r} is homogeneous")
+        rows = []
+        for stage, seg in enumerate(self.segments):
+            for c in seg.cfgs:
+                rows.append({"layer": len(rows), "hidden": c.hidden, "stage": stage,
+                             "weight_dtype": seg.weight_dtype, "chunk_len": seg.chunk_len})
+        return rows
 
     @property
     def n_layers(self) -> int:
@@ -90,12 +137,31 @@ class StackPlan:
             raise ValueError(
                 f"packed weights only apply to packing backends (impl={self.impl!r})"
             )
-        if self.backend.packs and self.cfgs:
-            from repro_torch.kernels.lstm_stack.ops import (
-                check_packed_matches_cfgs,
-                pack_stack_cached,
-            )
+        if not (self.backend.packs and self.cfgs):
+            return StackExecutor(self, params, packed)
+        from repro_torch.kernels.lstm_stack.ops import (
+            check_packed_matches_cfgs,
+            pack_stack_cached,
+        )
 
+        if self.backend.heterogeneous:
+            # one pack per segment, packed exactly as a hand-built fused_step
+            # plan over that segment packs
+            if packed is None:
+                packs, i = [], 0
+                for seg in self.segments:
+                    packs.append(pack_stack_cached(list(params[i:i + seg.n_layers]),
+                                                   list(seg.cfgs)))
+                    i += seg.n_layers
+                packed = tuple(packs)
+            else:
+                packed = tuple(packed)
+                if len(packed) != len(self.segments):
+                    raise ValueError(f"mixed plan has {len(self.segments)} segments but "
+                                     f"{len(packed)} packs were supplied")
+                for seg, pk in zip(self.segments, packed):
+                    check_packed_matches_cfgs(pk, seg.cfgs)
+        else:
             if packed is None:
                 packed = pack_stack_cached(list(params), list(self.cfgs))
             else:
@@ -110,15 +176,20 @@ class StackPlan:
             for k in ("chunk_len", "block_b", "act_bits", "fuse_gates")
             if getattr(self, k) is not None
         )
+        if self.segments:
+            knobs += f" segments={len(self.segments)}"
+        wd = self.weight_dtype
+        if isinstance(wd, tuple):
+            wd = "+".join(wd)
         return (f"impl={self.impl} layers={self.n_layers} [{dims}] "
-                f"weight_dtype={self.weight_dtype or 'native'}{knobs}")
+                f"weight_dtype={wd or 'native'}{knobs}")
 
 
 @functools.lru_cache(maxsize=128)
 def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
                        weight_dtype: str | None, chunk_len: int | None,
                        block_b: int | None, act_bits: int | None,
-                       fuse_gates: bool | None) -> StackPlan:
+                       fuse_gates: bool | None, knob_sources: tuple = ()) -> StackPlan:
     spec = get_backend(impl)  # raises for unknown impl, even on empty segments
     if not cfgs:
         return StackPlan(cfgs=(), impl=IDENTITY)
@@ -180,14 +251,153 @@ def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
         )
     return StackPlan(cfgs=cfgs, impl=impl, weight_dtype=resolved_wd,
                      chunk_len=chunk_len, block_b=block_b, act_bits=act_bits,
-                     fuse_gates=fuse_gates)
+                     fuse_gates=fuse_gates, knob_sources=knob_sources)
+
+
+#: the knobs ``tune="cached"`` may resolve from the autotune store (in step
+#: with ``repro_torch.autotune.cache.KNOB_NAMES``, the reference's list;
+#: ``n_chunks`` belongs to the wavefront backends, which are not ported)
+_TUNABLE_KNOBS = ("chunk_len", "block_b", "fuse_gates", "n_chunks", "split")
+
+
+def _normalize_per_layer(name: str, value, n: int) -> tuple:
+    """Broadcast a scalar knob to per-layer, validate a sequence's length."""
+    if not isinstance(value, (tuple, list)):
+        return (value,) * n
+    value = tuple(value)
+    if len(value) != n:
+        raise ValueError(f"per-layer {name} needs one entry per layer ({n}); got {len(value)}")
+    return value
+
+
+def _prefix_split(split: int, n: int) -> tuple[str, ...]:
+    """``split=k``: int8 layers [0, k), fp32 the rest."""
+    return ("int8",) * split + ("fp32",) * (n - split)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_mixed_cached(cfgs: tuple[LstmConfig, ...], wds: tuple, chunk_lens: tuple,
+                       block_bs: tuple, fuse_gatess: tuple, act_bits: int | None,
+                       split: int | None, knob_sources: tuple) -> StackPlan:
+    """Build the mixed plan: segment on the per-layer signature, sub-plan
+    each run.
+
+    Layers with equal (weight_dtype, chunk_len, block_b, fuse_gates, compute
+    dtype, cell dtype, activations) merge into one maximal run; each run
+    becomes an ordinary ``fused_step`` plan through ``_plan_stack_cached``,
+    equal to the plan a caller would build to chain the homogeneous
+    segments by hand.  That is what makes the executor's bit-equality with
+    hand-chained segments hold by construction.
+    """
+    def sig(i: int):
+        c = cfgs[i]
+        return (wds[i], chunk_lens[i], block_bs[i], fuse_gatess[i], c.dtype,
+                c.cell_dtype, c.acts.name)
+
+    bounds, start = [], 0
+    for i in range(1, len(cfgs)):
+        if sig(i) != sig(i - 1):
+            bounds.append((start, i))
+            start = i
+    bounds.append((start, len(cfgs)))
+    subs = tuple(
+        _plan_stack_cached(cfgs[a:b], "fused_step", wds[a], chunk_lens[a], block_bs[a],
+                           act_bits, fuse_gatess[a])
+        for a, b in bounds
+    )
+
+    def uniform(values):
+        vals = {v for v in values if v is not None}
+        return vals.pop() if len(vals) == 1 else None
+
+    return StackPlan(
+        cfgs=tuple(c for sub in subs for c in sub.cfgs), impl="mixed",
+        # the sub-plans carry the resolved storage, re-expanded per layer
+        weight_dtype=tuple(sub.weight_dtype for sub in subs for _ in sub.cfgs),
+        # chunks at or under the smallest segment threshold take the step
+        # kernel in every segment (each segment still routes on its own)
+        chunk_len=min(sub.chunk_len for sub in subs),
+        block_b=uniform(block_bs), fuse_gates=uniform(fuse_gatess),
+        act_bits=act_bits, split=split, segments=subs, knob_sources=knob_sources,
+    )
+
+
+def _plan_mixed(cfgs: tuple[LstmConfig, ...], weight_dtype, chunk_len, block_b,
+                fuse_gates, act_bits: int | None, split: int | None,
+                tune: str) -> StackPlan:
+    """Resolve per-layer weight storage for ``impl="mixed"`` and delegate.
+
+    Storage precedence (first match wins, recorded in ``knob_sources``):
+      1. explicit ``split=k`` or an explicit per-layer ``weight_dtype``
+         sequence (or a scalar, broadcast)
+      2. ``tune="cached"``: a tuned-store entry's ``split``
+      3. ``tune="balanced"``: the roofline balancer
+         (``core.stage_balance.choose_mixed_split``)
+      4. each cfg's own ``weight_dtype`` (native resolution)
+    """
+    if not cfgs:
+        return StackPlan(cfgs=(), impl=IDENTITY)
+    n = len(cfgs)
+    sources = {k: ("explicit" if v is not None else "default")
+               for k, v in (("chunk_len", chunk_len), ("block_b", block_b),
+                            ("fuse_gates", fuse_gates), ("split", split))}
+    if act_bits is not None:
+        sources["act_bits"] = "explicit"
+
+    wds = None
+    if split is not None:
+        if weight_dtype is not None:
+            raise ValueError("pass either split= or weight_dtype=, not both: split is "
+                             "shorthand for the int8-early/fp32-late prefix assignment")
+        if not 0 <= split <= n:
+            raise ValueError(f"split={split} outside [0, {n}] for a {n}-layer stack")
+        wds = _prefix_split(split, n)
+        sources["weight_dtype"] = "explicit"
+    elif weight_dtype is not None:
+        wds = _normalize_per_layer("weight_dtype", weight_dtype, n)
+        sources["weight_dtype"] = "explicit"
+
+    if tune == "cached":
+        from repro_torch.autotune.cache import lookup_tuned
+
+        tuned = lookup_tuned(cfgs, "mixed", weight_dtype) or {}
+        knobs = {"chunk_len": chunk_len, "block_b": block_b, "fuse_gates": fuse_gates}
+        for k, v in knobs.items():
+            if v is None and tuned.get(k) is not None:
+                knobs[k], sources[k] = tuned[k], "tuned"
+        chunk_len, block_b, fuse_gates = knobs.values()
+        if wds is None and tuned.get("split") is not None:
+            split = int(tuned["split"])
+            if 0 <= split <= n:
+                wds = _prefix_split(split, n)
+                sources["split"] = sources["weight_dtype"] = "tuned"
+            else:  # an entry for another depth: keep the defaults
+                split = None
+
+    if wds is None:
+        if tune == "balanced":
+            from .stage_balance import choose_mixed_split
+
+            choice = choose_mixed_split(cfgs)
+            wds, split = tuple(choice.dtypes), choice.split
+            sources["split"] = sources["weight_dtype"] = "balanced"
+        else:
+            from repro_torch.kernels.lstm_stack.ops import resolve_weight_dtype
+
+            wds = tuple(resolve_weight_dtype(c) for c in cfgs)
+
+    return _plan_mixed_cached(
+        cfgs, wds, _normalize_per_layer("chunk_len", chunk_len, n),
+        _normalize_per_layer("block_b", block_b, n),
+        _normalize_per_layer("fuse_gates", fuse_gates, n),
+        act_bits, split, tuple(sorted(sources.items())),
+    )
 
 
 def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
-               weight_dtype: str | None = None, chunk_len: int | None = None,
-               block_b: int | None = None, act_bits: int | None = None,
-               fuse_gates: bool | None = None,
-               tune: str = "default") -> StackPlan:
+               weight_dtype=None, chunk_len=None, block_b=None,
+               act_bits: int | None = None, fuse_gates=None,
+               split: int | None = None, tune: str = "default") -> StackPlan:
     """Resolve an execution plan for a stacked LSTM segment, exactly once.
 
     All impl-dependent legality is checked here: unknown backends,
@@ -198,30 +408,99 @@ def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
 
     ``fuse_gates`` (``fused_step`` only) runs each gate of the step kernel
     as one chain over ``[x ; h]`` (see ``kernels/lstm_stack/step.py``); int8
-    packs refuse it.  ``tune`` exists so that reference call sites fail
-    loudly: it belongs to a later slice of the port.
+    packs refuse it.
+
+    ``impl="mixed"`` takes per-layer heterogeneity: ``weight_dtype`` (and
+    ``chunk_len``/``block_b``/``fuse_gates``) may be per-layer sequences,
+    ``split=k`` is shorthand for int8 layers [0, k) and fp32 the rest, and
+    ``tune="balanced"`` lets the roofline model choose the split.  The plan
+    holds one ordinary ``fused_step`` sub-plan per maximal homogeneous run
+    in ``StackPlan.segments``; execution chains them, bit-equal to chaining
+    the segments by hand.
+
+    ``tune="cached"`` looks the request up in the autotune store
+    (``repro_torch.autotune.cache``): a knob not passed explicitly takes
+    the measured-best value of an entry for this geometry, backend, weight
+    storage and device, and the hand-set default where there is none.  An
+    explicit argument always wins, and an illegal tuned knob raises here
+    like an explicit one.  ``StackPlan.knob_sources`` records each knob's
+    origin ("explicit" | "tuned" | "default" | "balanced").
     """
-    if tune != "default":
+    if tune not in ("default", "cached", "balanced"):
         raise ValueError(
-            f"tune={tune!r} is not ported yet; the autotuner and the balanced "
-            "mixed split come with later slices of the port (ROADMAP queue 1, "
-            "items 8 and 9)"
+            f"unknown tune mode {tune!r}; choose 'default' (hand-set knob defaults), "
+            "'cached' (consult the autotune store) or 'balanced' (mixed plans: "
+            "roofline-model split)"
         )
-    return _plan_stack_cached(tuple(cfgs), impl, weight_dtype, chunk_len,
-                              block_b, act_bits, fuse_gates)
+    if isinstance(weight_dtype, list):
+        weight_dtype = tuple(weight_dtype)
+    if get_backend(impl).heterogeneous:
+        return _plan_mixed(tuple(cfgs), weight_dtype, chunk_len, block_b, fuse_gates,
+                           act_bits, split, tune)
+    if any(isinstance(v, (tuple, list)) for v in (weight_dtype, chunk_len, block_b, fuse_gates)):
+        raise ValueError(
+            "per-layer knob sequences (weight_dtype/chunk_len/block_b/fuse_gates) "
+            f"require impl='mixed'; got impl={impl!r}"
+        )
+    if split is not None:
+        raise ValueError(f"split= is the mixed backend's per-layer storage knob; got "
+                         f"impl={impl!r}")
+    if tune == "balanced":
+        raise ValueError("tune='balanced' chooses a per-layer storage split, which only "
+                         f"impl='mixed' can execute; got impl={impl!r}")
+    knobs = {"chunk_len": chunk_len, "block_b": block_b, "fuse_gates": fuse_gates}
+    sources = {k: ("explicit" if v is not None else "default") for k, v in knobs.items()}
+    if act_bits is not None:
+        sources["act_bits"] = "explicit"
+    if tune == "cached" and cfgs:
+        from repro_torch.autotune.cache import lookup_tuned
+
+        tuned = lookup_tuned(cfgs, impl, weight_dtype) or {}
+        if tuned.get("n_chunks") is not None:
+            # the reference's plan_stack refuses it on every backend ported so far
+            raise ValueError(f"n_chunks only applies to wavefront-pipelined backends, "
+                             f"which are not ported yet; the tuned entry for "
+                             f"impl={impl!r} carries one")
+        for k in knobs:
+            if knobs[k] is None and tuned.get(k) is not None:
+                knobs[k], sources[k] = tuned[k], "tuned"
+    return _plan_stack_cached(tuple(cfgs), impl, weight_dtype, knobs["chunk_len"],
+                              knobs["block_b"], act_bits, knobs["fuse_gates"],
+                              tuple(sorted(sources.items())))
+
+
+def clear_plan_cache() -> None:
+    """Drop memoised plans.  Not needed after the autotune store changes
+    (``plan_stack`` resolves tuned knobs before the memo, so a new entry is
+    a new memo key), but tests and long sweeps keep plan identities fresh
+    and the memo bounded with it."""
+    _plan_stack_cached.cache_clear()
+    _plan_mixed_cached.cache_clear()
 
 
 class StackExecutor:
     """A plan bound to parameters: the only call-time surface.  Construct
     via ``StackPlan.bind``."""
 
-    __slots__ = ("plan", "params", "packed", "_graphs")
+    __slots__ = ("plan", "params", "packed", "_graphs", "_subs")
 
     def __init__(self, plan: StackPlan, params: tuple, packed: Any = None) -> None:
         self.plan = plan
         self.params = params
         self.packed = packed
         self._graphs: dict = {}  # batch width -> StepGraph (step_graph)
+        self._subs: tuple | None = None  # mixed plans: the segment executors
+
+    def _segment_executors(self) -> tuple["StackExecutor", ...]:
+        """One ordinary homogeneous executor per mixed-plan segment, over
+        this executor's own param and pack slices (made at first use)."""
+        if self._subs is None:
+            subs, i = [], 0
+            for plan, pk in zip(self.plan.segments, self.packed or ()):
+                subs.append(StackExecutor(plan, self.params[i:i + plan.n_layers], pk))
+                i += plan.n_layers
+            self._subs = tuple(subs)
+        return self._subs
 
     def __call__(self, xs: torch.Tensor, initial_state=None, *,
                  return_state: bool = True):
@@ -235,26 +514,34 @@ class StackExecutor:
 
     @property
     def device(self) -> torch.device:
+        if isinstance(self.packed, tuple):
+            return self.packed[0].device
         if self.packed is not None:
             return self.packed.device
         return self.params[0]["w_h"].device
 
     def zero_state(self, batch: int):
         """Backend-native zero state: the packed (L, B, W) pair for packed
-        backends, per-layer [(h, c), ...] at real widths otherwise."""
+        backends, one such pair per segment (a tuple) for ``mixed``,
+        per-layer [(h, c), ...] at real widths otherwise."""
         plan = self.plan
         if plan.impl == IDENTITY:
             return []
+        if plan.backend.heterogeneous:
+            return tuple(pk.zero_state(batch) for pk in self.packed)
         if plan.backend.state_layout == "packed":
             return self.packed.zero_state(batch)
         return [layer_zero_state(batch, c, self.device) for c in plan.cfgs]
 
     def step_with_output(self, xs: torch.Tensor, state):
         """Advance native state by one chunk: (h_seq (B, T, hidden[-1]),
-        new native state).  Packed backends route by the plan's chunk_len."""
+        new native state).  Packed backends route by the plan's chunk_len;
+        ``mixed`` chains its segments, each routing on its own."""
         plan = self.plan
         if plan.impl == IDENTITY:
             return xs, state
+        if plan.backend.heterogeneous:
+            return _mixed_seq_call(self, xs, state)
         if plan.backend.state_layout == "packed":
             hs, h_f, c_f = _fused_seq_call(self, xs, state)
             return hs[..., : plan.hidden[-1]], (h_f, c_f)
@@ -281,27 +568,60 @@ class StackExecutor:
         plan = self.plan
         if plan.impl == IDENTITY:
             raise ValueError("identity executor has no hidden state")
+        if plan.backend.heterogeneous:
+            return state[-1][0][-1, :, : plan.hidden[-1]]
         if plan.backend.state_layout == "packed":
             return state[0][-1, :, : plan.hidden[-1]]
         return state[-1][0]
 
     def update_params(self, params_list: Sequence[Params]) -> "StackExecutor":
         """Re-bind on new parameters and evict this executor's superseded
-        pack from the identity cache."""
+        packs from the identity cache."""
         new = self.plan.bind(params_list)
-        if self.packed is not None and self.packed is not new.packed:
+        if self.packed is not None:
             from repro_torch.kernels.lstm_stack.ops import pack_cache_evict
 
-            pack_cache_evict(self.packed)
+            old = self.packed if isinstance(self.packed, tuple) else (self.packed,)
+            cur = new.packed if isinstance(new.packed, tuple) else (new.packed,)
+            stale = [p for p in old if all(p is not q for q in cur)]
+            if stale:
+                pack_cache_evict(*stale)
         return new
 
     @property
     def packed_bytes(self) -> int:
-        """Bytes the bound pack occupies (0 for non-packing backends)."""
-        return 0 if self.packed is None else self.packed.packed_bytes
+        """Bytes the bound pack occupies (0 for non-packing backends); mixed
+        executors sum their segments' packs."""
+        if self.packed is None:
+            return 0
+        if isinstance(self.packed, tuple):
+            return sum(p.packed_bytes for p in self.packed)
+        return self.packed.packed_bytes
 
     def __repr__(self) -> str:
         return f"StackExecutor({self.plan.describe()})"
+
+
+def state_leaves(state) -> list[torch.Tensor]:
+    """A native state's tensors in the reference's pytree order: ``[h, c]``
+    of the packed layout, ``[h0, c0, h1, c1, ...]`` of the layers layout,
+    each segment's ``[h, c]`` in turn of a mixed state."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for part in state for t in state_leaves(part)]
+
+
+def state_like(leaves, template):
+    """``leaves`` (in ``state_leaves`` order) in ``template``'s structure."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        parts = [build(part) for part in node]
+        return parts if isinstance(node, list) else tuple(parts)
+
+    return build(template)
 
 
 class StepGraph:
@@ -309,18 +629,19 @@ class StepGraph:
     graph per chunk length T <= ``chunk_len`` over static buffers.
 
     The state is resident: ``state`` is the pair of (L, batch, W) buffers
+    (one pair per segment of a mixed plan, whose whole chain is one graph)
     every graph of this width reads and overwrites in place, so a replay
     gives the bits of ``step`` and allocates nothing.  ``__call__(xs,
-    state)`` copies ``xs`` (and ``state``, unless it is the resident pair)
-    in, replays, and returns the resident pair.  Packed chunked-step
-    backends on the card only.
+    state)`` copies ``xs`` (and ``state``, unless it is the resident state)
+    in, replays, and returns the resident state.  Packed chunked-step
+    backends (``fused_step``, ``mixed``) on the card only.
     """
 
     def __init__(self, ex: StackExecutor, batch: int):
         plan = ex.plan
         if not (plan.backend.chunked_step and plan.backend.state_layout == "packed"):
-            raise ValueError(f"step_graph needs a chunked-step packed backend (fused_step), "
-                             f"not impl={plan.impl!r}")
+            raise ValueError(f"step_graph needs a chunked-step packed backend (fused_step, "
+                             f"mixed), not impl={plan.impl!r}")
         if ex.device.type != "cuda":
             raise ValueError(f"step_graph captures CUDA graphs; the executor is on {ex.device}")
         self.ex, self.batch = ex, batch
@@ -335,18 +656,19 @@ class StepGraph:
             raise ValueError(f"step_graph({self.batch}): chunk {tuple(xs.shape)} is not "
                              f"(batch={self.batch}, T <= {self.ex.plan.chunk_len}, in_dim)")
         if state is not self.state:
-            for dst, src in zip(self.state, state):
+            for dst, src in zip(state_leaves(self.state), state_leaves(state)):
                 dst.copy_(src)
         entry = self._calls.get(t_len)
         if entry is not None:
             entry[0].copy_(xs)
             entry[1].replay()
             return self.state
-        x_buf = torch.empty(xs.shape, dtype=xs.dtype, device=self.state[0].device)
+        x_buf = torch.empty(xs.shape, dtype=xs.dtype, device=self.ex.device)
         x_buf.copy_(xs)
 
         def step():
-            for dst, src in zip(self.state, self.ex.step(x_buf, self.state)):
+            new = self.ex.step(x_buf, self.state)
+            for dst, src in zip(state_leaves(self.state), state_leaves(new)):
                 dst.copy_(src)
 
         self._calls[t_len] = (x_buf, CapturedCall(step, x_buf.device))
@@ -397,6 +719,30 @@ def _fused_seq_call(ex: StackExecutor, xs, state):
     return lstm_stack_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
 
 
+def _mixed_seq_call(ex: StackExecutor, xs, state):
+    """Chain the mixed plan's segments through native-layout hand-off: each
+    segment's real-width hidden sequence feeds the next one's
+    ``pad_input``.  Returns (the last segment's h_seq, the tuple of new
+    per-segment native states)."""
+    h_seq, new = xs, []
+    for sub, st in zip(ex._segment_executors(), state):
+        h_seq, st_new = sub.step_with_output(h_seq, st)
+        new.append(st_new)
+    return h_seq, tuple(new)
+
+
+def _forward_mixed(ex: StackExecutor, xs, state):
+    """Batch path: chain the segments' calls with portable per-layer state
+    slices, as hand-chaining the homogeneous segments does."""
+    h_seq, finals, i = xs, [], 0
+    for sub in ex._segment_executors():
+        n = sub.plan.n_layers
+        h_seq, f = sub(h_seq, None if state is None else list(state[i:i + n]))
+        finals.extend(f)
+        i += n
+    return h_seq, finals
+
+
 register_backend(BackendSpec(name=IDENTITY, forward=_forward_identity))
 register_backend(BackendSpec(name="naive", forward=_forward_layerwise))
 register_backend(BackendSpec(name="split", forward=_forward_layerwise))
@@ -409,3 +755,7 @@ register_backend(BackendSpec(
     name="fused_step", packs=True, quantized=True, kernel_acts=True,
     state_layout="packed", chunked_step=True, act_quant=True,
     knobs=("chunk_len", "block_b", "fuse_gates"), forward=_forward_fused))
+register_backend(BackendSpec(
+    name="mixed", packs=True, quantized=True, kernel_acts=True,
+    state_layout="packed", chunked_step=True, act_quant=True, heterogeneous=True,
+    knobs=("chunk_len", "block_b", "fuse_gates", "split"), forward=_forward_mixed))

@@ -19,11 +19,18 @@ counted; the capture's are taken back out and recorded, and each replay
 adds what the capture recorded, so a count reads the same whether a path
 ran eagerly or replayed.
 
+Python's cyclic garbage collector is off while a capture runs: a graph
+kept alive only by a reference cycle (an executor and its step graph) that
+the collector frees mid-capture would destroy its CUDA graph on the
+capturing thread, which invalidates the capture (PyTorch's ``graph``
+context no longer collects on entry).
+
 Nothing here is used on the CPU: the engines run eagerly there.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -91,11 +98,15 @@ class CapturedCall:
         main.wait_stream(side)
         before = _snapshot()
         self.graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: a server's other threads may use the card meanwhile
             with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
                 self.out = fn()
         finally:
+            if collecting:
+                gc.enable()
             self.launches = _delta(before, _snapshot())
             _add(self.launches, -1)  # the capture launched nothing
 

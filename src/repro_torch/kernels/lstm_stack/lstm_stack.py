@@ -37,6 +37,28 @@ SOURCE = Path(__file__).parent / "csrc" / "lstm_stack.cu"
 #: Hopper's per-block shared-memory ceiling (227 KB, opt-in above 48 KB)
 MAX_SMEM_BYTES = 232_448
 
+#: the kernel's compile-time geometry (``csrc/lstm_stack.cu``): threads per
+#: CTA with the weights in registers, and the width whose weights live there
+K_REG_THREADS, K_REG_W = 256, 32
+
+
+def smem_bytes(n_layers: int, width: int, rows: int, w_bytes: int, step: bool) -> int:
+    """Dynamic shared memory one CTA of either kernel takes: the Python
+    twin of ``smem_layout`` in ``csrc/lstm_stack.cu`` (the library's
+    ``lstm_stack_smem_bytes``, which the launch checks), for callers that
+    must know it without the library (``autotune.space``'s ``block_b``
+    axis).  A ``gpu`` test holds the two equal."""
+    def align16(n: int) -> int:
+        return (n + 15) & ~15
+
+    w4 = 4 * width
+    in_regs = width == K_REG_W and n_layers * w4 <= K_REG_THREADS
+    weights = 0 if in_regs else align16(n_layers * width * w4 * w_bytes)
+    return (2 * weights + align16(n_layers * w4 * 4) + align16(n_layers * 8 * 4)
+            + align16(2 * n_layers * rows * width * 4) + align16(n_layers * rows * width * 4)
+            + align16(n_layers * rows * w4 * 4) + align16(2 * rows * (width if step else w4) * 4))
+
+
 _COMPUTE = {torch.float32: 0, torch.bfloat16: 1}
 _WEIGHT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ACT_IDS = {EXACT.name: 0, HARD.name: 1, PAPER_HW_KERNEL.name: 2}

@@ -16,7 +16,13 @@ fused stack, weights packed once at engine init; short chunks ride the
 The flags are the reference's (``repro.launch.serve``) plus ``--device``
 (``cuda`` by default; ``cpu`` runs the kernels' plain versions).
 
-``--weight-dtype {fp32,bf16,int8}`` picks the packed weight storage.
+``--weight-dtype {fp32,bf16,int8}`` picks the packed weight storage;
+``--weight-dtypes int8,fp32,fp32,int8`` pins it per layer, which routes
+both segments through the ``mixed`` backend (a chain of ``fused_step``
+segments).  ``--tune cached`` resolves the plan knobs from the autotune
+store (fill it with ``python -m repro_torch.launch.tune``); ``--tune
+balanced`` (mixed backend) lets the roofline model choose each segment's
+int8/fp32 split.
 ``--chunk-len N`` overrides the plan's step-kernel threshold.
 ``--streams N`` serves N independent streams through ``push_many``: every
 chunk advances all N with one gathered B=N step call.
@@ -32,11 +38,13 @@ enqueue->score latency p50/p99/max and the scheduler's counters.
 ``--checkpoint-interval-s`` seconds; ``--restore PATH`` restores it before
 serving (fingerprint-checked, and a snapshot of the reference restores
 here).  Any of these turns on the health layer and prints its counters.
-``--plan-only`` prints the resolved plan of both segments and exits.
+``--plan-only`` prints the resolved plan of both segments, each knob with
+its provenance (explicit, tuned, default, balanced) and a mixed plan's
+layer assignment, and exits.
 
 Not ported yet, each refused with a ``ValueError`` naming its later slice:
-``--mode lm`` for the ``moe``, ``hybrid`` and ``encdec`` families,
-``--placement sharded``, ``--tune cached|balanced`` and ``--weight-dtypes``.
+``--mode lm`` for the ``moe``, ``hybrid`` and ``encdec`` families, and
+``--placement sharded``.
 """
 
 from __future__ import annotations
@@ -69,11 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--weight-dtype", choices=("fp32", "bf16", "int8"), default=None,
                     help="packed weight storage of the fused stack")
     ap.add_argument("--weight-dtypes", default=None, metavar="D0,D1,...",
-                    help="per-layer weight storage (not ported yet)")
+                    help="per-layer weight storage (one entry per LSTM layer, e.g. "
+                         "int8,fp32,fp32,int8); routes both segments through the mixed "
+                         "backend")
     ap.add_argument("--placement", choices=("local", "sharded"), default="local",
                     help="stage placement ('sharded' is not ported yet)")
     ap.add_argument("--tune", choices=("default", "cached", "balanced"),
-                    default="default", help="plan knobs ('default' only so far)")
+                    default="default",
+                    help="'cached' resolves plan knobs from the autotune store "
+                         "(runs/autotune/tuned.json; fill it with python -m "
+                         "repro_torch.launch.tune); 'balanced' (mixed backend) lets the "
+                         "roofline model pick each segment's int8/fp32 split")
     ap.add_argument("--chunk-len", type=int, default=None,
                     help="step-kernel threshold: pushes with T <= chunk_len run "
                          "the step kernel")
@@ -106,18 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Refuse the flag values that belong to later slices of the port."""
-    later = [
-        (args.placement == "sharded", "--placement sharded",
-         "multi-GPU placement (ROADMAP queue 1, item 10)"),
-        (args.tune != "default", f"--tune {args.tune}",
-         "the autotuner and the mixed backend (ROADMAP queue 1, items 8 and 9)"),
-        (args.weight_dtypes is not None, "--weight-dtypes",
-         "heterogeneous stacks, the mixed backend (ROADMAP queue 1, item 8)"),
-    ]
-    for refused, flag, slice_ in later:
-        if refused:
-            raise ValueError(f"{flag} is not ported yet; it comes with a later slice "
-                             f"of the port: {slice_}")
+    if args.placement == "sharded":
+        raise ValueError("--placement sharded is not ported yet; it comes with a later slice "
+                         "of the port: multi-GPU placement (ROADMAP queue 1, item 10)")
 
 
 def main(argv=None):
@@ -158,10 +163,15 @@ def serve_lm(args):
     return {"tokens": out, "launches": dict(engine.launches)}
 
 
+def _requested_impl(cfg) -> str:
+    return "mixed" if cfg.impl == "mixed" else "fused_step"
+
+
 def _engine(args, params, cfg):
     from repro_torch.serve.engine import StreamingAnomalyEngine
 
-    return StreamingAnomalyEngine(params, cfg, batch=1, chunk_len=args.chunk_len,
+    return StreamingAnomalyEngine(params, cfg, batch=1, impl=_requested_impl(cfg),
+                                  chunk_len=args.chunk_len, tune=args.tune,
                                   device=args.device)
 
 
@@ -176,6 +186,14 @@ def serve_anomaly(args):
     cfg = GW_MODELS[args.gw_model]
     if args.weight_dtype is not None:
         cfg = dataclasses.replace(cfg, weight_dtype=args.weight_dtype)
+    if args.weight_dtypes is not None or args.tune == "balanced":
+        # per-layer storage (and the model-chosen split) only run on the
+        # heterogeneous backend: pin it so resolve_impl keeps it
+        wds = None
+        if args.weight_dtypes is not None:
+            wds = tuple(None if w in ("", "native") else w
+                        for w in args.weight_dtypes.split(","))
+        cfg = dataclasses.replace(cfg, weight_dtypes=wds, impl="mixed")
     params = init_autoencoder(cfg, seed=0, device=args.device)
 
     if args.plan_only:
@@ -187,9 +205,9 @@ def serve_anomaly(args):
         return serve_server(args, params, cfg, ds)
 
     engine = _engine(args, params, cfg)
-    packed = engine._exec_enc.packed
-    wd = "n/a" if packed is None else packed.weight_dtype
-    print(f"{args.gw_model}: impl={engine.effective_impl} (requested fused_step), "
+    wd = engine.fingerprint()["weight_dtype"]
+    print(f"{args.gw_model}: impl={engine.effective_impl} "
+          f"(requested {_requested_impl(cfg)}, tune={args.tune}), "
           f"placement={args.placement}, weights={wd}, window={engine.window}, "
           f"chunk_len={engine._exec_enc.plan.chunk_len}, device={args.device}")
     thr = engine.calibrate(ds.background(256), fpr=args.fpr)
@@ -343,22 +361,34 @@ def serve_server(args, params, cfg, ds):
 
 
 def print_plan(args, params, cfg) -> dict:
-    """Resolve both segment plans, bind (packing included), print, exit;
-    never runs a scoring step."""
+    """Resolve both segment plans, bind (packing included), print each
+    knob's value and provenance and a mixed plan's layer assignment, exit;
+    never runs a scoring step.  Returns {segment: its plan's describe()}."""
     from repro_torch.core.autoencoder import segment_executors
     from repro_torch.core.backends import resolve_impl
 
-    cfg, effective, reason = resolve_impl(cfg, "fused_step")
+    requested = _requested_impl(cfg)
+    cfg, effective, reason = resolve_impl(cfg, requested)
     if reason is not None:
         print(f"note: {reason}")
     exec_enc, exec_dec = segment_executors(params, cfg, impl=effective,
-                                           chunk_len=args.chunk_len)
+                                           chunk_len=args.chunk_len, tune=args.tune)
     print(f"{args.gw_model}: resolved serving plan (window={cfg.timesteps}, "
-          f"requested fused_step, tune={args.tune})")
+          f"requested {requested}, tune={args.tune})")
     plans = {}
     for name, ex in (("encoder", exec_enc), ("decoder", exec_dec)):
-        print(f"  {name}: {ex.plan.describe()} pack_bytes={ex.packed_bytes}")
-        plans[name] = ex.plan.describe()
+        plan = ex.plan
+        plans[name] = plan.describe()
+        print(f"  {name}: {plans[name]} pack_bytes={ex.packed_bytes}")
+        for knob, (value, source) in sorted(plan.knob_provenance().items()):
+            shown = "auto" if value is None else value
+            print(f"    {knob:<12} = {shown!s:<6} [{source}]")
+        if plan.backend.heterogeneous:
+            src = dict(plan.knob_sources).get("weight_dtype", "default")
+            for row in plan.layer_assignment():
+                print(f"    layer {row['layer']} (hidden={row['hidden']:<3}) -> "
+                      f"{row['weight_dtype']:<5} stage={row['stage']} "
+                      f"chunk_len={row['chunk_len']} [{src}]")
     return plans
 
 

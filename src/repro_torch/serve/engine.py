@@ -23,8 +23,9 @@ plan's ``chunk_len`` and ``push_many`` one gather -> step -> scatter graph
 per pool width (the reference's ``_coalesced_step``); streams that
 complete a window in the same piece are scored by one decode padded up the
 width ladder (the reference's ``_finish_streams``), captured per width.
-Graphs need a packed backend (``fused_step``/``fused_stack``); the
-``kernel`` backend, longer chunks and the CPU run eagerly.  Resident state
+Graphs need a packed backend (``fused_step``/``fused_stack``/``mixed``; a
+mixed plan's whole segment chain is one graph); the ``kernel`` backend,
+longer chunks and the CPU run eagerly.  Resident state
 lives in the graphs' and the pool's buffers and is updated in place; a
 snapshot copies it out.
 
@@ -59,6 +60,7 @@ from repro_torch.core.autoencoder import (
     segment_executors,
 )
 from repro_torch.core.backends import get_backend, resolve_impl
+from repro_torch.core.executor import state_leaves, state_like
 from repro_torch.core.graphs import CapturedCall
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import tree_map
@@ -157,6 +159,9 @@ class AnomalyStreamEngine:
     #: is ``effective_impl`` (the fallback is logged).
     impl: str | None = "fused_stack"
     device: str = "cuda"
+    #: plan knobs: "default" (hand-set), "cached" (the autotune store) or
+    #: "balanced" (the mixed backend's model-chosen storage split)
+    tune: str = "default"
     #: backend the engine actually runs (set in __post_init__)
     effective_impl: str = field(init=False, default="")
     #: non-None iff the requested impl was declined (the logged reason)
@@ -177,7 +182,8 @@ class AnomalyStreamEngine:
     def _execs(self):
         """The current params' bound segment executors (plans memoised,
         packs identity-cached; re-binds if params were swapped)."""
-        return segment_executors(self.params, self.cfg, impl=self.effective_impl)
+        return segment_executors(self.params, self.cfg, impl=self.effective_impl,
+                                 tune=self.tune)
 
     def calibrate(self, background: np.ndarray, fpr: float = 0.01) -> float:
         """Set the anomaly threshold at a target false-positive rate on
@@ -198,21 +204,11 @@ class AnomalyStreamEngine:
         return self.score(windows) > self.threshold
 
 
-def _flatten(state, packed: bool) -> list:
-    """State leaves in the reference's flattening order: ``[h, c]`` of the
-    packed layout, ``[h0, c0, h1, c1, ...]`` of the layers layout."""
-    return list(state) if packed else [t for layer in state for t in layer]
-
-
-def _unflatten(leaves: list, packed: bool):
-    if packed:
-        return tuple(leaves)
-    return [tuple(leaves[i : i + 2]) for i in range(0, len(leaves), 2)]
-
-
 class _Pool:
     """Every ``push_many`` stream's encoder state as one row of a
-    batch-major native state (the leaves' batch axis ``ax``).  Row ``ZERO``
+    batch-major native state (the leaves' batch axis ``ax``; the leaves in
+    ``state_leaves`` order, one ``[h, c]`` per segment of a mixed plan,
+    each at its own width).  Row ``ZERO``
     stays zero: the pad rows of a padded step read it.  Row ``SINK`` takes
     the pad rows' results.  Streams get the rows above; the rows keep their
     addresses while the pool does not grow, so a captured step gathers and
@@ -222,8 +218,9 @@ class _Pool:
     ZERO, SINK = 0, 1
 
     def __init__(self, executor, packed: bool, capacity: int = 64):
-        self.ex, self.packed, self.ax = executor, packed, 1 if packed else 0
-        self.leaves = _flatten(executor.zero_state(capacity + 2), packed)
+        self.ex, self.ax = executor, 1 if packed else 0
+        self.template = executor.zero_state(capacity + 2)
+        self.leaves = state_leaves(self.template)
         self.graphs: dict = {}
         self.release_all()
 
@@ -243,7 +240,7 @@ class _Pool:
 
     def _grow(self) -> None:
         rows = self.leaves[0].shape[self.ax]
-        grown = _flatten(self.ex.zero_state(2 * rows), self.packed)
+        grown = state_leaves(self.ex.zero_state(2 * rows))
         for new, old in zip(grown, self.leaves):
             new.narrow(self.ax, 0, rows).copy_(old)
         self.leaves, self.graphs = grown, {}
@@ -251,18 +248,19 @@ class _Pool:
 
     def row_state(self, row: int):
         """One row as a B=1 native state (views into the pool)."""
-        return _unflatten([leaf.narrow(self.ax, row, 1) for leaf in self.leaves], self.packed)
+        return state_like([leaf.narrow(self.ax, row, 1) for leaf in self.leaves],
+                          self.template)
 
     def set_row(self, row: int, state) -> None:
-        for leaf, src in zip(self.leaves, _flatten(state, self.packed)):
+        for leaf, src in zip(self.leaves, state_leaves(state)):
             leaf.narrow(self.ax, row, 1).copy_(src)
 
     def gather(self, idx: torch.Tensor):
-        return _unflatten([leaf.index_select(self.ax, idx) for leaf in self.leaves],
-                          self.packed)
+        return state_like([leaf.index_select(self.ax, idx) for leaf in self.leaves],
+                          self.template)
 
     def scatter(self, idx: torch.Tensor, state) -> None:
-        for leaf, src in zip(self.leaves, _flatten(state, self.packed)):
+        for leaf, src in zip(self.leaves, state_leaves(state)):
             leaf.index_copy_(self.ax, idx, src)
 
     def zero_rows(self, idx: torch.Tensor) -> None:
@@ -314,9 +312,9 @@ class StreamingAnomalyEngine:
 
     def __init__(self, params: dict, cfg: AutoencoderConfig, *, batch: int = 1,
                  window: int | None = None, impl: str | None = "fused_step",
-                 chunk_len: int | None = None, carry_state: bool = False,
-                 threshold: float = float("inf"), device: str = "cuda",
-                 graphs: bool = True):
+                 chunk_len: int | None = None, tune: str = "default",
+                 carry_state: bool = False, threshold: float = float("inf"),
+                 device: str = "cuda", graphs: bool = True):
         self.device = resolve_device(device)
         self.cfg, self.effective_impl, self.fallback_reason = resolve_impl(cfg, impl)
         if self.fallback_reason is not None:
@@ -339,8 +337,9 @@ class StreamingAnomalyEngine:
         self.carry_state = carry_state
         self.threshold = threshold
         self._params = _params_to(params, self.device)
+        self.tune = tune
         self._exec_enc, self._exec_dec = segment_executors(
-            self._params, self.cfg, impl=self.effective_impl, chunk_len=chunk_len
+            self._params, self.cfg, impl=self.effective_impl, chunk_len=chunk_len, tune=tune
         )
         self._packed_layout = (
             self._exec_enc.plan.backend.state_layout == "packed"
@@ -483,6 +482,14 @@ class StreamingAnomalyEngine:
         values are spelled as the reference spells them."""
         cfg = self.cfg
         packed = self._exec_enc.packed
+        if packed is None:
+            wd = "native"
+        elif isinstance(packed, tuple):
+            # a mixed plan binds one pack per segment; the per-layer storage
+            # signature is what the state values mean
+            wd = "+".join(self._exec_enc.plan.weight_dtype)
+        else:
+            wd = packed.weight_dtype
         fp = {
             "hidden": list(cfg.hidden),
             "boundary": int(cfg.boundary),
@@ -494,7 +501,7 @@ class StreamingAnomalyEngine:
             "acts": cfg.acts.name,
             "carry_state": bool(self.carry_state),
             "state_layout": self._exec_enc.plan.backend.state_layout,
-            "weight_dtype": "native" if packed is None else packed.weight_dtype,
+            "weight_dtype": wd,
         }
         act_bits = self._exec_enc.plan.act_bits
         if act_bits is not None:
@@ -502,19 +509,14 @@ class StreamingAnomalyEngine:
             fp["act_bits"] = int(act_bits)
         return fp
 
-    def _leaves(self, state) -> list:
-        return _flatten(state, self._packed_layout)
-
-    def _unflatten(self, template, leaves: list):
-        if len(leaves) != len(self._leaves(template)):
+    @staticmethod
+    def _unflatten(template, leaves: list):
+        like = state_leaves(template)
+        if len(leaves) != len(like):
             raise SnapshotMismatchError(
-                f"snapshot state has {len(leaves)} leaves, this engine's "
-                f"has {len(self._leaves(template))}"
+                f"snapshot state has {len(leaves)} leaves, this engine's has {len(like)}"
             )
-        if self._packed_layout:
-            return tuple(_device_leaf(a, t) for a, t in zip(leaves, template))
-        it = iter(leaves)
-        return [tuple(_device_leaf(next(it), t) for t in layer) for layer in template]
+        return state_like([_device_leaf(a, t) for a, t in zip(leaves, like)], template)
 
     def snapshot(self) -> dict:
         """Every stream's resident state in host memory: the lock-step
@@ -526,12 +528,12 @@ class StreamingAnomalyEngine:
             "version": SNAPSHOT_VERSION,
             "fingerprint": self.fingerprint(),
             "threshold": float(self.threshold),
-            "state": [_host_leaf(t) for t in self._leaves(self._state)],
+            "state": [_host_leaf(t) for t in state_leaves(self._state)],
             "chunks": [np.array(c) for c in self._chunks],
             "filled": int(self._filled),
             "streams": {
                 sid: {
-                    "state": [_host_leaf(t) for t in self._leaves(slot.state)],
+                    "state": [_host_leaf(t) for t in state_leaves(slot.state)],
                     "chunks": [np.array(c) for c in slot.chunks],
                     "filled": int(slot.filled),
                 }
@@ -595,7 +597,7 @@ class StreamingAnomalyEngine:
             per_leaf = [
                 leaf.to(torch.float32).abs().amax(
                     dim=tuple(d for d in range(leaf.dim()) if d != ax))
-                for leaf in self._leaves(batched)
+                for leaf in state_leaves(batched)
             ]
             vals = torch.stack(per_leaf).amax(dim=0).cpu().numpy()
         for (i, _), v in zip(present, vals):

@@ -142,8 +142,8 @@ def test_plans_are_memoised():
 
 PLAN_ERRORS = [
     (dict(impl="nope"), "unknown impl"),
-    (dict(impl="mixed", weight_dtype="int8"), "not ported yet"),
-    (dict(impl="mixed"), "not ported yet"),
+    (dict(impl="fused_stack_sharded", weight_dtype="int8"), "not ported yet"),
+    (dict(impl="wavefront", tune="cached"), "not ported yet"),
     (dict(impl="fused_stack_sharded"), "not ported yet"),
     (dict(impl="wavefront"), "not ported yet"),
     (dict(impl="split", weight_dtype="int8"), "quantized-capable"),
@@ -154,10 +154,19 @@ PLAN_ERRORS = [
     (dict(impl="fused_stack", act_bits=4), "unsupported"),
     (dict(impl="fused_step", chunk_len=300), "ceiling"),
     (dict(impl="fused_step", weight_dtype="int8", fuse_gates=True), "incompatible with int8"),
-    (dict(impl="fused_step", tune="cached"), "later slices"),
-    (dict(impl="fused_step", tune="balanced"), "later slices"),
+    (dict(impl="fused_stack_sharded", tune="cached"), "later slices"),
+    (dict(impl="wavefront", tune="balanced"), "later slices"),
     (dict(impl="fused_stack", weight_dtype="fp8"), "unknown weight_dtype"),
     (dict(impl="fused_stack", fuse_gates=True), "fuse_gates only applies"),
+    (dict(impl="fused_step", tune="aggressive"), "unknown tune mode"),
+    (dict(impl="fused_step", tune="balanced"), "only impl='mixed'"),
+    (dict(impl="fused_step", split=1), "mixed backend's per-layer"),
+    (dict(impl="fused_step", weight_dtype=("int8", "fp32")), "require impl='mixed'"),
+    (dict(impl="mixed", split=1, weight_dtype="int8"), "not both"),
+    (dict(impl="mixed", split=3), "outside"),
+    (dict(impl="mixed", weight_dtype=("int8",)), "one entry per layer"),
+    (dict(impl="mixed", chunk_len=(4, 4, 4)), "one entry per layer"),
+    (dict(impl="mixed", fuse_gates=True, split=1), "incompatible with int8"),
 ]
 
 

@@ -117,9 +117,45 @@ def test_cli_plan_only(capsys):
 @pytest.mark.parametrize("flags,slice_", [
     (["--mode", "lm", "--arch", "hymba-1.5b", "--device", "cpu"], "item 13"),
     (BASE + ["--placement", "sharded"], "item 10"),
-    (BASE + ["--tune", "cached"], "items 8 and 9"),
-    (BASE + ["--weight-dtypes", "int8,fp32"], "item 8"),
+    (BASE + ["--placement", "sharded", "--tune", "cached"], "item 10"),
+    (BASE + ["--placement", "sharded", "--weight-dtypes", "int8,fp32"], "item 10"),
 ])
 def test_cli_refuses_later_slices(flags, slice_):
     with pytest.raises(ValueError, match=f"not ported yet.*{slice_}"):
         tcli.main(flags)
+
+
+def test_cli_weight_dtypes_route_the_mixed_backend(capsys):
+    """``--weight-dtypes`` pins per-layer storage: both segments plan
+    ``mixed``; ``--plan-only`` prints each knob's provenance and the layer
+    assignment; the engine serves through the chained segments."""
+    plans = tcli.main(BASE + ["--plan-only", "--gw-model", "gw_nominal",
+                              "--weight-dtypes", "int8,fp32,fp32,int8"])
+    text = capsys.readouterr().out
+    assert "impl=mixed" in plans["encoder"] and "weight_dtype=int8+fp32" in plans["encoder"]
+    assert "weight_dtype=fp32+int8" in plans["decoder"]
+    # the storage comes from the config's layers, as the reference reports it
+    assert "layer 1 (hidden=8  ) -> fp32  stage=1 chunk_len=32 [default]" in text
+    out = tcli.main(BASE + ["--chunk", "25", "--streams", "2", "--gw-model", "gw_nominal",
+                            "--weight-dtypes", "int8,fp32,fp32,int8"])
+    assert "impl=mixed" in capsys.readouterr().out and out["latency"]["latency.count"] >= 1
+
+
+def test_cli_tune_balanced_and_cached(tmp_path, capsys, monkeypatch):
+    from repro_torch.autotune import cache as tcache
+
+    plans = tcli.main(BASE + ["--plan-only", "--gw-model", "gw_nominal", "--tune", "balanced"])
+    text = capsys.readouterr().out
+    assert "impl=mixed" in plans["encoder"] and "[balanced]" in text
+    store = tcache.TunedPlanCache()
+    store.put([(1, 9)], "fused_step", "fp32", {"chunk_len": 8})
+    old = tcache.set_cache(store)
+    try:
+        plans = tcli.main(BASE + ["--plan-only", "--tune", "cached"])
+        text = capsys.readouterr().out
+        assert "chunk_len=8" in plans["encoder"] and "chunk_len    = 8      [tuned]" in text
+        assert "chunk_len=32" in plans["decoder"]  # no entry for (9x9): the default
+        out = tcli.main(BASE + ["--chunk", "25", "--tune", "cached"])
+        assert "tune=cached" in capsys.readouterr().out and out["latency"]["latency.count"] >= 1
+    finally:
+        tcache.set_cache(old)
