@@ -36,6 +36,17 @@ product of the score tail and ``fuse_gates`` against their plain
 versions, and time a T=1 push and the threaded server eager and
 replayed; phase 13 holds the LM replay against the eager kernel path.
 
+Phases 23-25 train the GW autoencoder on the card (``repro_torch.train``,
+each step replayed as one CUDA graph) against
+``tests/data/torch_port_gw_train.npz``: ``mse_loss`` and its gradients at
+full ``gw_nominal`` width, 5 AdamW steps, replay bit-equal to eager; the
+paper's Fig. 9 recipe (gw_small, 200 steps) with its AUCs on ``split``,
+16-bit weights, PAPER_HW and ``fused_stack`` fp32/bf16/int8 (K1) against
+the reference's; the row-wise kernel and K1 bit-equal to their plain
+versions at the shapes training and that evaluation give them; step
+times eager and replayed with the device's idle share; and a
+kill-and-resume through ``Trainer`` bit-equal to an uninterrupted run.
+
 Phases 20-22 serve ``gw_nominal`` on the ``mixed`` backend (per-layer
 storage int8, fp32, fp32, int8: each segment a chain of ``fused_step``
 segments on K1 and K2) with the weights of
@@ -78,6 +89,19 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_nominal.npz"
 SERVER_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_server.npz"
 MIXED_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_mixed.npz"
+TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_port_gw_train.npz"
+#: training against the reference (tests/test_torch_golden_train.py says
+#: why): loss relative, gradient per leaf over its largest |g|, and each
+#: entry after 5 AdamW steps (``OPT5``) whose first gradient is decided
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_STEP_ATOL = 1e-6, 1e-5, 1e-5
+OPT5 = dict(lr=3e-3, warmup_steps=2, total_steps=200)
+#: the fig9 recipe (tests/test_gw_e2e.py): gw_small, 200 steps of B=32,
+#: evaluations on 192 background and 192 signal windows each
+RECIPE = dict(steps=200, batch=32, n_eval=192)
+RECIPE_OPT = dict(lr=3e-3, warmup_steps=20, total_steps=200, weight_decay=0.0)
+RECIPE_EVALS = ("fp32", "q16", "hw", "fused_fp32", "fused_bf16", "fused_int8")
+#: train steps one device-only trace covers for a step's busy time (phase 25)
+STEP_TRACE_CALLS = 2
 #: the mixed path's per-layer storage (the fixture's first plan)
 MIXED_WDS = ("int8", "fp32", "fp32", "int8")
 TOL = dict(rtol=1e-5, atol=1e-5)            # engine scores vs the reference's
@@ -158,32 +182,41 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
     trace starts with spin kernels, a synchronise and a pause, and the
     spins are not counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def trace(n_calls):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
-            time.sleep(0.02)
-            for _ in range(n_calls):
-                fn()
-            torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "spin_kernel" not in e.name and (kernel is None or kernel in e.name)]
-        return len(times), sum(times)
 
     fn()
     torch.cuda.synchronize()
-    per_call, _ = trace(1)
+    per_call, _ = kernel_trace(fn, 1, kernel)
     for _ in range(2):
-        count, total_us = trace(reps)
+        count, total_us = kernel_trace(fn, reps, kernel)
         if per_call > 0 and count == per_call * reps and total_us > 0:
             return total_us / reps / 1e3
     log(f"device_ms: {count} kernel events in {reps} calls, want {per_call} per call; "
         f"timing with CUDA events instead")
     return None
+
+
+def kernel_trace(fn, n_calls: int, kernel: str | None = None,
+                 host: bool = True) -> tuple[int, float]:
+    """(device events, their summed µs) of ``n_calls`` calls of ``fn``
+    under ``torch.profiler``, after the spin kernels ``device_ms``
+    describes (not counted); ``host=False`` records device activity alone,
+    which keeps a trace of tens of thousands of operations cheap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    ranges = [e.time_range for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name and (kernel is None or kernel in e.name)]
+    return len(ranges), sum(r.elapsed_us() for r in ranges)
 
 
 def bound(step: bool, L: int, W: int, T: int, B: int) -> tuple[float, str]:
@@ -809,6 +842,422 @@ def gw_mixed_phases(dev, smi: str, compare, block_plain) -> tuple[dict, dict, di
         + f"; tune='cached' plans: {tuned_plans}, replay == eager "
         f"({time.perf_counter() - t0:.1f} s)")
     return launches, per_window, report
+
+
+def recipe_evals(params, cfg, ds, dev) -> dict:
+    """The fig9 recipe's evaluations (``RECIPE_EVALS`` in order, each on
+    ``RECIPE["n_eval"]`` background then signal windows drawn from ``ds``),
+    then the fused fp32 engine calibrated to 5% FPR: the order of draws of
+    ``tests/test_torch_golden_train.py``, whose fixture holds the
+    reference's values.  Returns {name: (scores (2, n), auc), "fpr", "tpr"}."""
+    import torch
+    from repro_torch.core.autoencoder import auc_score, reconstruction_error
+    from repro_torch.core.quant import PAPER_HW, quantize_tree
+    from repro_torch.serve.engine import AnomalyStreamEngine
+
+    out, n = {}, RECIPE["n_eval"]
+    for name in RECIPE_EVALS:
+        p, c = params, cfg
+        if name in ("q16", "hw"):
+            p = quantize_tree(params)
+        if name == "hw":
+            c = dataclasses.replace(cfg, acts=PAPER_HW)
+        if name.startswith("fused_"):
+            c = dataclasses.replace(cfg, impl="fused_stack", weight_dtype=name[6:])
+        with torch.no_grad():
+            neg, pos = (reconstruction_error(p, torch.from_numpy(x).to(dev), c).cpu().numpy()
+                        for x in (ds.background(n), ds.events(n)))
+        out[name] = (np.stack([neg, pos]), auc_score(neg, pos))
+    eng = AnomalyStreamEngine(params, cfg, device=dev)
+    eng.calibrate(ds.background(512), fpr=0.05)
+    out["fpr"] = float(eng.flag(ds.background(256)).mean())
+    out["tpr"] = float(eng.flag(ds.events(256)).mean())
+    return out
+
+
+def gw_train_phases(dev, smi: str, block_plain) -> tuple[dict, dict]:
+    """Phases 23-25, this slice's path: GW training on the card.
+
+    23. ``mse_loss`` and its gradients at full width (gw_nominal, B=64,
+        T=100) and on gw_small, against the reference's in
+        ``tests/data/torch_port_gw_train.npz``; 5 AdamW steps against the
+        fixture's; 5 replayed steps bit-equal to 5 eager ones.  Before it,
+        the row-wise kernel against its plain version, bit for bit, at the
+        shapes training and the evaluation give it.
+    24. The fig9 recipe: ``Trainer`` (replayed steps) over ``mse_loss`` on
+        gw_small, 200 steps of B=32 from the fixture's init on the port's
+        ``GwDataset``, then the AUCs on ``split``, after ``quantize_tree``,
+        with PAPER_HW and on ``fused_stack`` fp32/bf16/int8 (K1), and the
+        calibrated engine's FPR and TPR, against the reference's; the same
+        evaluations of the reference's trained params, score for score;
+        fused scores of the trained params equal to split scores (no stale
+        pack); K1 on the trained params' fp32, bf16 and int8 packs at the
+        evaluation's B bit-equal to its plain version.
+    25. Step times eager and replayed (gw_nominal B=64, gw_small B=32) with
+        the device's busy time, idle share and device operations per step
+        (``STEP_TRACE_CALLS``);
+        a kill-and-resume through ``Trainer`` bit-equal to an uninterrupted
+        run.
+
+    Counts are set to 0 just before the training run and the evaluation
+    and read just after each.  Returns (launches by path and kernel, the
+    report)."""
+    import torch
+    from repro_torch.configs.gw import GW_MODELS
+    from repro_torch.convert import opt_state_from_numpy, params_from_numpy, unflatten
+    from repro_torch.core.autoencoder import (
+        decoder_layers,
+        encoder_layers,
+        mse_loss,
+        reconstruction_error,
+    )
+    from repro_torch.core.graphs import CapturedStep
+    from repro_torch.core.quant import kernel_safe
+    from repro_torch.data.gw import GwDataConfig, GwDataset
+    from repro_torch.kernels.lstm_stack.lstm_stack import lstm_stack
+    from repro_torch.kernels.lstm_stack.ops import pack_stack, project_layer0
+    from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
+    from repro_torch.kernels.rowwise import rowwise_matmul, rowwise_matmul_plain
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step, value_and_grad
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten, tree_leaves
+
+    with np.load(TRAIN_FIXTURE) as data:
+        golden = {k: data[k] for k in data.files}
+
+    def tree_of(prefix):
+        return params_from_numpy(unflatten(golden, prefix=prefix + "/"), dev)
+
+    def counts():
+        return {"lstm_stack_wavefront": lstm_stack.launches,
+                "rowwise_matmul": rowwise_matmul.launches}
+
+    def zero_counts():
+        lstm_stack.launches = rowwise_matmul.launches = 0
+
+    def loss_of(cfg):
+        return lambda p, b: mse_loss(p, b, cfg)
+
+    def as_state(step):
+        def step_fn(st, batch):
+            loss, p, o = step(st["params"], st["opt"], batch)
+            return loss, {"params": p, "opt": o}
+        return step_fn
+
+    def bit_equal(a, b, what):
+        leaves = lambda t: t if isinstance(t, list) else tree_leaves(t)  # noqa: E731
+        for x, y in zip(leaves(a), leaves(b), strict=True):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: not bit-equal (max |difference| "
+                                     f"{(x.float() - y.float()).abs().max().item():.3g})")
+
+    nominal, small = GW_MODELS["gw_nominal"], GW_MODELS["gw_small"]
+    T = nominal.timesteps
+    report: dict = {}
+    launches: dict = {}
+
+    # -- phase 23: gradients at full width, 5 steps, replay == eager ---------
+    t0 = time.perf_counter()
+    # the row-wise kernel at the shapes this path gives it: the dense head
+    # (no bias: it is added after) and the error sum of every training
+    # forward (gw_small B=32, gw_nominal B=64), and of the evaluation's
+    # batches (gw_small B=192), with layer 0's projection on the fused path
+    gen = torch.Generator().manual_seed(23)
+    rw_cases = []
+    for name, batch in (("small", RECIPE["batch"]), ("nominal", 64), ("small", RECIPE["n_eval"])):
+        head_w = tree_of(f"{name}/params")["dense"]["w"].float()
+        rw_cases += [
+            (f"gw_{name} dense head", torch.rand(batch * T, head_w.shape[0], generator=gen) * 2 - 1,
+             head_w),
+            (f"gw_{name} error sum", torch.rand(batch, T, generator=gen), torch.ones(T, 1))]
+    w0 = pack_stack(*encoder_layers(tree_of("small/params"), small)).stacked["w_x"][0]
+    rw_cases.append(("gw_small layer-0 projection",
+                     torch.randn(RECIPE["n_eval"] * T, w0.shape[0], generator=gen), w0))
+    rw_shapes = []
+    for what, xr, wr in rw_cases:
+        xr, wr = xr.to(dev), wr.to(dev)
+        got, want = rowwise_matmul(xr, wr), rowwise_matmul_plain(xr, wr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"rowwise_matmul {what} {tuple(xr.shape)}: kernel differs "
+                                 f"from its plain version")
+        rw_shapes.append([what, *xr.shape, wr.shape[1]])
+    report["rowwise_bit_equal"] = rw_shapes
+    zero_counts()
+    with block_plain():
+        for name in ("small", "nominal"):
+            loss, grads = value_and_grad(loss_of(GW_MODELS[f"gw_{name}"]),
+                                         tree_of(f"{name}/params"),
+                                         torch.from_numpy(golden["batch"]).to(dev))
+            want = float(golden[f"{name}/loss"])
+            loss_rel = abs(float(loss) - want) / abs(want)
+            grad_rel = 0.0
+            want_g = flatten(unflatten(golden, prefix=f"{name}/grads/"))
+            got_g = flatten(grads)
+            if list(got_g) != list(want_g):
+                raise AssertionError(f"gw_{name} gradient leaves {list(got_g)}")
+            for key, w in want_g.items():
+                err = np.abs(got_g[key].cpu().numpy() - w).max() / np.abs(w).max()
+                grad_rel = max(grad_rel, float(err))
+            if loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_REL:
+                raise AssertionError(f"gw_{name}: loss {loss_rel:.3g} relative (limit "
+                                     f"{TRAIN_LOSS_RTOL}), gradients {grad_rel:.3g} of their "
+                                     f"largest (limit {TRAIN_GRAD_REL})")
+            report[f"gw_{name}_grads"] = {"B": len(golden["batch"]), "T": T,
+                                          "loss_rel_err": loss_rel, "grad_rel_err": grad_rel}
+        step = make_train_step(loss_of(nominal), AdamWConfig(**OPT5))
+        batches = [torch.from_numpy(b).to(dev) for b in golden["steps/batches"]]
+        params = tree_of("nominal/params")
+        opt = init_opt_state(params, AdamWConfig(**OPT5))
+        eager_losses = []
+        for batch in batches:
+            loss, params, opt = step(params, opt, batch)
+            eager_losses.append(loss)
+        np.testing.assert_allclose([float(v) for v in eager_losses], golden["steps/losses"],
+                                   rtol=1e-5, err_msg="5 AdamW steps: losses")
+        want_opt = opt_state_from_numpy(unflatten(golden, prefix="steps/opt/"), dev)
+        g0 = flatten(unflatten(golden, prefix="steps/grads0/"))
+        got = flatten({"params": params, "m": opt["m"], "v": opt["v"]})
+        want = flatten({"params": tree_of("steps/params"), "m": want_opt["m"],
+                        "v": want_opt["v"]})
+        step_err = 0.0
+        for key, w in want.items():
+            g = g0[key.split("/", 1)[1]]
+            undecided = np.abs(g) <= TRAIN_GRAD_REL * np.abs(g).max()
+            diff = np.abs(got[key].cpu().numpy() - w.cpu().numpy())
+            limit = TRAIN_STEP_ATOL if not key.startswith("params/") else np.where(
+                undecided, 2 * OPT5["lr"] * len(batches), TRAIN_STEP_ATOL)
+            if not (diff <= limit).all():
+                raise AssertionError(f"5 AdamW steps: {key} off by {diff.max():.3g}")
+            step_err = max(step_err, float(np.where(undecided, 0, diff).max()
+                                           if key.startswith("params/") else diff.max()))
+        state = {"params": tree_of("nominal/params"),
+                 "opt": init_opt_state(tree_of("nominal/params"), AdamWConfig(**OPT5))}
+        captured = CapturedStep(as_state(step), state, dev)
+        replay_losses = [captured(batch).clone() for batch in batches]
+        torch.cuda.synchronize()
+        bit_equal(replay_losses, eager_losses, "replayed step losses vs eager")
+        bit_equal(state, {"params": params, "opt": opt}, "5 replayed steps vs 5 eager steps")
+    report["gw_nominal_5_steps"] = {"max_abs_err_decided": step_err,
+                                    "replay_bit_equal": True}
+    launches["grads_and_steps"] = counts()
+    log(f"phase 23 training parity ok: gw_nominal loss {report['gw_nominal_grads']['loss_rel_err']:.2g} "
+        f"relative, gradients {report['gw_nominal_grads']['grad_rel_err']:.2g} of their largest "
+        f"(limits {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL}); gw_small "
+        f"{report['gw_small_grads']['loss_rel_err']:.2g}, "
+        f"{report['gw_small_grads']['grad_rel_err']:.2g}; 5 AdamW steps within {step_err:.2g}; "
+        f"5 replayed steps bit-equal to eager; rowwise_matmul bit-equal to its plain version "
+        f"at {len(rw_cases)} shapes of training and evaluation "
+        f"({', '.join('x'.join(map(str, r[1:])) for r in rw_shapes)}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 24: the fig9 recipe on the card --------------------------------
+    t0 = time.perf_counter()
+    ds = GwDataset(GwDataConfig(timesteps=T, seed=0))
+    init = tree_of("small/params")
+    init_copy = [t.clone() for t in tree_leaves(init)]
+    with tempfile.TemporaryDirectory() as ckpt, block_plain():
+        trainer = Trainer(loss_of(small), lambda gen: init,
+                          (ds.background(RECIPE["batch"]) for _ in range(RECIPE["steps"])),
+                          TrainerConfig(total_steps=RECIPE["steps"], checkpoint_every=10**9,
+                                        opt=AdamWConfig(**RECIPE_OPT)), ckpt, device=dev)
+        zero_counts()
+        t1 = time.perf_counter()
+        result = trainer.run(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t1
+        launches["train"] = counts()
+        zero_counts()
+        evals = recipe_evals(trainer.params, small, ds, dev)
+        torch.cuda.synchronize()
+        launches["train_eval"] = counts()
+    for name, count in {**launches["train_eval"],
+                        "rowwise_matmul": launches["train"]["rowwise_matmul"]}.items():
+        if count == 0:
+            raise AssertionError(f"the training path never launched {name}")
+    losses = result.losses
+    want_losses = golden["recipe/losses"]
+    aucs = {name: evals[name][1] for name in RECIPE_EVALS}
+    for name, auc in aucs.items():
+        if abs(auc - float(golden[f"recipe/auc/{name}"])) >= 0.03:
+            raise AssertionError(f"recipe AUC {name}: {auc:.4f}, the reference's "
+                                 f"{float(golden[f'recipe/auc/{name}']):.4f} (limit 0.03)")
+    if abs(losses[-1] - want_losses[-1]) >= 0.05 * want_losses[-1]:
+        raise AssertionError(f"recipe final loss {losses[-1]:.5f}, the reference's "
+                             f"{want_losses[-1]:.5f} (limit 5%)")
+    if not (aucs["fp32"] > 0.8 and abs(aucs["q16"] - aucs["fp32"]) < 0.05
+            and abs(aucs["hw"] - aucs["fp32"]) < 0.08 and evals["fpr"] < 0.15
+            and evals["tpr"] > 3 * max(evals["fpr"], 0.02)):
+        raise AssertionError(f"recipe thresholds of tests/test_gw_e2e.py: AUCs {aucs}, "
+                             f"FPR {evals['fpr']}, TPR {evals['tpr']}")
+    # the reference's trained params on the same windows, score for score
+    ds_ref = GwDataset(GwDataConfig(timesteps=T, seed=0))
+    for _ in range(RECIPE["steps"]):
+        ds_ref.background(RECIPE["batch"])
+    with block_plain():
+        ref_evals = recipe_evals(tree_of("recipe/params"), small, ds_ref, dev)
+    score_err = 0.0
+    for name in RECIPE_EVALS:
+        want_s = golden[f"recipe/scores/{name}"]
+        np.testing.assert_allclose(ref_evals[name][0], want_s, **TOL,
+                                   err_msg=f"reference-trained params, {name} scores")
+        score_err = max(score_err, float(np.abs(ref_evals[name][0] - want_s).max()))
+    # no stale pack: fused scores of the trained params are split scores,
+    # not the init's (whose pack the first evaluation may have cached)
+    x = torch.from_numpy(GwDataset(GwDataConfig(timesteps=T, seed=3)).background(64)).to(dev)
+    fused = dataclasses.replace(small, impl="fused_stack")
+    with torch.no_grad(), block_plain():
+        before = reconstruction_error(init, x, fused)
+        after = reconstruction_error(trainer.params, x, fused)
+        split_after = reconstruction_error(trainer.params, x, small)
+    torch.testing.assert_close(after, split_after, **TOL)
+    if torch.allclose(after, before, **TOL):
+        raise AssertionError("fused scores after training equal the untrained ones")
+    bit_equal(tree_leaves(init), init_copy, "the caller's init params after training")
+    # K1 against its plain version on the trained params' packs, at the
+    # evaluation's batch: encoder on windows, decoder on the repeated latent
+    windows = torch.from_numpy(GwDataset(GwDataConfig(timesteps=T, seed=6)).background(
+        RECIPE["n_eval"])).to(dev)
+    k1_cases = []
+    with torch.no_grad():
+        for wd in ("fp32", "bf16", "int8"):
+            c = dataclasses.replace(small, weight_dtype=wd)
+            x = windows
+            for seg, layers in (("enc", encoder_layers), ("dec", decoder_layers)):
+                pk = pack_stack(*layers(trainer.params, c))
+                st = pk.stacked
+                xw0 = project_layer0(pk.pad_input(x), st, wd)
+                h0, c0 = pk.zero_state(x.shape[0])
+                scales = st["scales"] if wd == "int8" else None
+                acts = kernel_safe(pk.acts)
+                got = lstm_stack(xw0, st["w_x"], st["w_h"], st["b"], h0, c0, scales=scales,
+                                 acts=acts)
+                want = lstm_stack_ref(xw0, st["w_x"], st["w_h"], st["b"], h0, c0,
+                                      scales=scales, sigma=acts.sigma, tanh=acts.tanh)
+                torch.cuda.synchronize()
+                bit_equal(list(got), list(want), f"K1 {wd} {seg} B={x.shape[0]} W={pk.width_p}")
+                k1_cases.append(f"{wd} {seg}")
+                latent = got[0][-1, :, :pk.hidden[-1]]
+                x = latent[:, None, :].expand(latent.shape[0], T, latent.shape[1])
+    report["recipe"] = {
+        "model": "gw_small", "steps": RECIPE["steps"], "batch": RECIPE["batch"],
+        "train_wall_s": train_wall, "ms_per_step_wall": train_wall / RECIPE["steps"] * 1e3,
+        "loss_first": losses[0], "loss_final": losses[-1],
+        "ref_loss_final": float(want_losses[-1]),
+        "auc": aucs, "ref_auc": {n: float(golden[f"recipe/auc/{n}"]) for n in RECIPE_EVALS},
+        "fpr": evals["fpr"], "tpr": evals["tpr"],
+        "ref_fpr": float(golden["recipe/fpr"]), "ref_tpr": float(golden["recipe/tpr"]),
+        "ref_params_max_score_err": score_err, "ref_params_auc": {
+            n: ref_evals[n][1] for n in RECIPE_EVALS},
+        "launches_train": launches["train"], "launches_eval": launches["train_eval"],
+        "k1_bit_equal": k1_cases}
+    log(f"phase 24 fig9 recipe ok: 200 steps B=32 in {train_wall:.2f} s "
+        f"({train_wall / RECIPE['steps'] * 1e3:.2f} ms/step), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (reference {want_losses[-1]:.4f}); AUC " + ", ".join(
+            f"{n} {aucs[n]:.4f} ({float(golden[f'recipe/auc/{n}']):.4f})" for n in RECIPE_EVALS)
+        + f"; FPR {evals['fpr']:.4f} TPR {evals['tpr']:.4f}; K1 bit-equal to its plain "
+        f"version at B={RECIPE['n_eval']} on {len(k1_cases)} packs ({', '.join(k1_cases)}); "
+        f"reference-trained scores within "
+        f"{score_err:.2g}; launches {launches['train']} training, {launches['train_eval']} "
+        f"evaluating ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 25: step timing, eager vs replay; kill and resume ---------------
+    t0 = time.perf_counter()
+    timing = {}
+    for name, cfg, batch_size in (("gw_nominal", nominal, 64), ("gw_small", small, 32)):
+        step = make_train_step(loss_of(cfg), AdamWConfig(**RECIPE_OPT))
+        batch = torch.from_numpy(
+            GwDataset(GwDataConfig(timesteps=T, seed=4)).background(batch_size)).to(dev)
+        p0 = tree_of(f"{name.split('_')[1]}/params")
+        eager_state = [p0, init_opt_state(p0, AdamWConfig(**RECIPE_OPT))]
+
+        def eager():
+            loss, p, o = step(eager_state[0], eager_state[1], batch)
+            eager_state[:] = [p, o]
+            return float(loss)
+
+        p1 = tree_of(f"{name.split('_')[1]}/params")
+        captured = CapturedStep(as_state(step), {
+            "params": p1, "opt": init_opt_state(p1, AdamWConfig(**RECIPE_OPT))}, dev)
+        t1 = time.perf_counter()
+        captured(batch)  # the eager first step and the capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t1
+
+        def replay():
+            return float(captured(batch))
+
+        zero_counts()
+        eager()
+        rowwise_per_step = rowwise_matmul.launches
+        # a step's span: from a CUDA event before it to one after the loss
+        # was read (the trainer's step), no profiler on
+        ms = {"eager": [], "replay": []}
+        reps = 4 if name == "gw_nominal" else 8
+        for mode in ("eager", "replay", "replay", "eager"):  # in turns
+            fn = eager if mode == "eager" else replay
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                ms[mode].append(start.elapsed_time(end))
+        row = {"B": batch_size, "T": T, "capture_s": capture_s,
+               "rowwise_launches_per_step": rowwise_per_step}
+        t1 = time.perf_counter()
+        for mode, fn in (("eager", eager), ("replay", replay)):
+            # a step's busy time: the summed device time of its operations
+            # over STEP_TRACE_CALLS steps traced apart (device activity
+            # alone, ~28 k events a gw_nominal step); idle share = 1 -
+            # busy / the untraced steps' median span
+            n_ops, busy_us = kernel_trace(fn, STEP_TRACE_CALLS, host=False)
+            span = statistics.median(ms[mode])
+            busy = busy_us / 1e3 / STEP_TRACE_CALLS if n_ops else None
+            row[mode] = {"step_ms_median": span, "step_ms_min": min(ms[mode]),
+                         "step_ms_max": max(ms[mode]), "device_busy_ms": busy,
+                         "idle_share": 1 - busy / span if n_ops else None,
+                         "device_ops_per_step": n_ops / STEP_TRACE_CALLS}
+        row["trace_s"] = time.perf_counter() - t1
+        timing[name] = row
+        log(f"phase 25 {name} B={batch_size} train step: " + ", ".join(
+            f"{m} {row[m]['step_ms_median']:.2f} ms ({row[m]['step_ms_min']:.2f}-"
+            f"{row[m]['step_ms_max']:.2f}; busy {row[m]['device_busy_ms']} ms traced, idle "
+            f"share {row[m]['idle_share']}, {row[m]['device_ops_per_step']} device ops)"
+            for m in ("eager", "replay"))
+            + f"; capture {capture_s:.2f} s, {rowwise_per_step} row-wise launches/step, "
+            f"traces {row['trace_s']:.1f} s")
+    report["step_timing"] = timing
+
+    data = GwDataset(GwDataConfig(timesteps=T, seed=5))
+    stream = [data.background(RECIPE["batch"]) for _ in range(20)]
+
+    def train(ckpt, total, start=0):
+        t = Trainer(loss_of(small), lambda gen: tree_of("small/params"), iter(stream[start:]),
+                    TrainerConfig(total_steps=total, checkpoint_every=10,
+                                  opt=AdamWConfig(**RECIPE_OPT)), ckpt, device=dev)
+        return t, t.run(torch.Generator().manual_seed(0))
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as whole, tempfile.TemporaryDirectory() as cut, \
+            block_plain():
+        t_whole, r_whole = train(whole, 20)
+        train(cut, 10)
+        t1 = time.perf_counter()
+        t_cut, r_cut = train(cut, 20, start=10)
+        resume_s = time.perf_counter() - t1
+    if r_cut.resumed_from != 10 or r_cut.losses != r_whole.losses[10:]:
+        raise AssertionError(f"resume: from {r_cut.resumed_from}, losses {r_cut.losses} vs "
+                             f"{r_whole.losses[10:]}")
+    bit_equal({"p": t_cut.params, "o": t_cut.opt_state},
+              {"p": t_whole.params, "o": t_whole.opt_state}, "resumed run vs uninterrupted run")
+    report["resume"] = {"kill_at": 10, "total": 20, "bit_equal": True,
+                        "resume_and_10_steps_s": resume_s}
+    log(f"phase 25 kill at step 10 and resume: 20 steps bit-equal to the uninterrupted run "
+        f"({time.perf_counter() - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s)")
+    return launches, report
 
 
 def scan_bound(H: int, T: int, B: int, IN: int = 0) -> tuple[float, str]:
@@ -2112,6 +2561,17 @@ def main() -> int:
     rw_entry["launches_per_window"].update(
         {m: c["rowwise_matmul"] for m, c in mixed_per_window.items()})
 
+    # phases 23-25: GW training (counts set to 0 before the training run and
+    # the evaluation, read after each)
+    train_launches, train_report = gw_train_phases(dev, smi, block_plain)
+    log(smi)
+    log(json.dumps({"train": train_report}))
+    rw_entry["launches_by_path"].update({"gw_train": train_launches["train"]["rowwise_matmul"],
+                                         "gw_train_eval":
+                                             train_launches["train_eval"]["rowwise_matmul"]})
+    rw_entry["launches_per_window"]["train_step"] = \
+        train_report["step_timing"]["gw_small"]["rowwise_launches_per_step"]
+
     lm_kernels, lm_graphs = lm_phases(dev, smi)  # phases 10-14, 19
     log(smi)
     log(json.dumps({"graphs": {"gw": gw_graphs, "lm": lm_graphs,
@@ -2134,7 +2594,9 @@ def main() -> int:
             "launches_per_window": {
                 **{m: v[0 if name == "lstm_stack_wavefront" else 1] for m, v in per_window.items()},
                 **{m: c[name] for m, c in mixed_per_window.items()}},
-            "launches_by_path": {"gw": launches[name], "gw_mixed": mixed_launches[name]},
+            "launches_by_path": {"gw": launches[name], "gw_mixed": mixed_launches[name],
+                                 **({"gw_train_eval": train_launches["train_eval"][name]}
+                                    if name in train_launches["train_eval"] else {})},
             "shapes": rows[name],
         })
     head = rows["lstm_scan"][0]  # the kernel backend's entry, H=32, T=100, B=1

@@ -16,9 +16,12 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def _tensor(arr) -> torch.Tensor:
+def to_tensor(arr) -> torch.Tensor:
+    """A host array as a tensor.  bf16 arrives as ml_dtypes' bfloat16 or as
+    2-byte void items (the form numpy gives bf16 on disk without
+    ml_dtypes, and ``to_numpy`` writes): both carry the bits."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.itemsize == 2):
         bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
@@ -36,12 +39,40 @@ def params_from_numpy(tree: dict, device: str | torch.device,
     def convert(node, name):
         if isinstance(node, dict):
             return {k: convert(v, k) for k, v in node.items()}
-        t = _tensor(node)
+        t = to_tensor(node)
         if dtype is not None and name != "b" and t.is_floating_point():
             t = t.to(dtype)
         return t.to(dev)
 
     return convert(tree, "")
+
+
+def opt_state_from_numpy(tree: dict, device: str | torch.device) -> dict:
+    """The reference's AdamW state (``{"m", "v", "step"[, "err"]}`` of numpy
+    arrays, as ``repro.train.optimizer.init_opt_state`` lays it out) -> the
+    same tree of tensors on ``device``: fp32 moments, a 0-d int32 step."""
+    if not {"m", "v", "step"} <= set(tree):
+        raise ValueError(f"optimizer state needs m, v and step; got {sorted(tree)}")
+    state = params_from_numpy(tree, device)
+    if state["step"].shape != () or state["step"].dtype != torch.int32:
+        raise ValueError(f"optimizer step must be a 0-d int32, got {state['step'].dtype} "
+                         f"{tuple(state['step'].shape)}")
+    return state
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's (and the reference's) spelling of a dtype: ``float32``,
+    ``int32``, ``bfloat16``."""
+    return str(dtype).removeprefix("torch.")
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array; bf16 goes out as 2-byte void items (numpy
+    has no bf16), which ``to_tensor`` reads back."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().copy().view(np.dtype("V2"))
+    return t.numpy().copy()
 
 
 #: LM leaves the reference stores at the model dtype; every other LM leaf
@@ -55,7 +86,7 @@ LM_MODEL_DTYPE_LEAVES = frozenset({
 def unflatten(data, prefix: str = "params/") -> dict:
     """A flat mapping whose keys under ``prefix`` are paths (``params/a/b``,
     as the LM golden fixtures store the reference's params) -> the nested
-    params tree."""
+    params tree; the inverse of ``tree.flatten``."""
     tree: dict = {}
     for key in data:
         if key.startswith(prefix):
@@ -80,7 +111,7 @@ def lm_params_from_numpy(tree: dict, device: str | torch.device,
     def convert(node, name):
         if isinstance(node, dict):
             return {k: convert(v, k) for k, v in node.items()}
-        t = _tensor(node)
+        t = to_tensor(node)
         if dtype is not None and name in LM_MODEL_DTYPE_LEAVES:
             t = t.to(dtype)
         return t.to(dev)

@@ -82,11 +82,12 @@ class AutoencoderConfig:
         return cfgs
 
 
-def init_autoencoder(cfg: AutoencoderConfig, seed: int = 0,
+def init_autoencoder(cfg: AutoencoderConfig, seed: int | torch.Generator = 0,
                      device: str | torch.device = "cuda") -> Params:
-    """Random parameters from ``seed`` (drawn on the CPU, then moved)."""
+    """Random parameters from ``seed``, or drawn from a CPU
+    ``torch.Generator`` (drawn on the CPU, then moved)."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     params: Params = {
         f"lstm_{i}": init_lstm(c, gen, dev) for i, c in enumerate(cfg.layer_cfgs())
     }
@@ -196,6 +197,15 @@ def reconstruction_error(params: Params, x: torch.Tensor, cfg: AutoencoderConfig
     h_seq = encode(params, x, cfg, executor=exec_enc)
     return reconstruction_error_from_latent(params, h_seq[:, -1, :], x, cfg,
                                             exec_dec=exec_dec)
+
+
+def mse_loss(params: Params, x: torch.Tensor, cfg: AutoencoderConfig) -> torch.Tensor:
+    """The training loss: the batch mean of ``reconstruction_error``.
+
+    Differentiable on the backends the reference differentiates (``naive``,
+    ``split``); the kernel backends refuse a forward that needs a
+    gradient."""
+    return torch.mean(reconstruction_error(params, x, cfg))
 
 
 def auc_score(scores_neg, scores_pos) -> float:

@@ -51,6 +51,10 @@ class BackendSpec:
     #: legality (``autotune.space`` builds its grids from them): "chunk_len",
     #: "block_b", "fuse_gates", "split"
     knobs: tuple[str, ...] = ()
+    #: plain PyTorch autograd reaches every weight (the backends a loss may
+    #: be built on); the kernel backends are forward-only and refuse a call
+    #: that needs a gradient
+    differentiable: bool = False
     #: (executor, xs, state) -> (h_seq, finals)
     forward: Any = None
 

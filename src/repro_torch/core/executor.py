@@ -509,8 +509,20 @@ class StackExecutor:
         ``initial_state``/finals are the portable per-layer ``[(h, c), ...]``
         at real widths, identical across backends.
         """
+        self._refuse_grad(xs)
         h_seq, finals = self.plan.backend.forward(self, xs, initial_state)
         return (h_seq, finals) if return_state else h_seq
+
+    def _refuse_grad(self, xs: torch.Tensor) -> None:
+        """Only ``naive`` and ``split`` are differentiable (as in the
+        reference); a packed backend detaches its weights when it packs
+        them, so its wrappers alone could not see that a gradient is
+        wanted."""
+        if not self.plan.backend.differentiable:
+            from repro_torch.kernels import refuse_grad
+
+            refuse_grad(f"impl={self.plan.impl!r}", xs,
+                        *(t for p in self.params for t in p.values()))
 
     @property
     def device(self) -> torch.device:
@@ -540,6 +552,7 @@ class StackExecutor:
         plan = self.plan
         if plan.impl == IDENTITY:
             return xs, state
+        self._refuse_grad(xs)
         if plan.backend.heterogeneous:
             return _mixed_seq_call(self, xs, state)
         if plan.backend.state_layout == "packed":
@@ -743,9 +756,9 @@ def _forward_mixed(ex: StackExecutor, xs, state):
     return h_seq, finals
 
 
-register_backend(BackendSpec(name=IDENTITY, forward=_forward_identity))
-register_backend(BackendSpec(name="naive", forward=_forward_layerwise))
-register_backend(BackendSpec(name="split", forward=_forward_layerwise))
+register_backend(BackendSpec(name=IDENTITY, differentiable=True, forward=_forward_identity))
+register_backend(BackendSpec(name="naive", differentiable=True, forward=_forward_layerwise))
+register_backend(BackendSpec(name="split", differentiable=True, forward=_forward_layerwise))
 register_backend(BackendSpec(name="kernel", kernel_acts=True, forward=_forward_layerwise))
 register_backend(BackendSpec(
     name="fused_stack", packs=True, quantized=True, kernel_acts=True,

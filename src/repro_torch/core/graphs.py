@@ -1,9 +1,11 @@
-"""CUDA graphs for the serving paths: the port's counterpart of ``jax.jit``.
+"""CUDA graphs for the serving and training paths: the port's counterpart
+of ``jax.jit``.
 
 The reference compiles each serving call (the bound encoder step, the
-coalesced pool step, the window finish, the LM prefill and decode step) as
-one program.  Run eagerly, each of those calls is dozens to hundreds of
-small launches whose host cost dwarfs the device work.  A ``CapturedCall``
+coalesced pool step, the window finish, the LM prefill and decode step) and
+its train step as one program each.  Run eagerly, each of those calls is
+dozens to tens of thousands of small launches whose host cost dwarfs the
+device work.  A ``CapturedCall``
 runs a function once eagerly on a side stream (the warm-up PyTorch's
 CUDA-graph notes ask for: libraries built and loaded, cuBLAS handles and
 the kernels' per-stream scratch made before capture), then captures it as
@@ -25,15 +27,22 @@ the collector frees mid-capture would destroy its CUDA graph on the
 capturing thread, which invalidates the capture (PyTorch's ``graph``
 context no longer collects on entry).
 
-Nothing here is used on the CPU: the engines run eagerly there.
+A train step updates its state (parameters, optimizer state) in place:
+``CapturedStep`` counts ``CapturedCall``'s eager warm-up as the first step,
+so N calls are N steps whether they replayed or not.
+
+Nothing here is used on the CPU: the engines and the trainer run eagerly
+there.
 """
 
 from __future__ import annotations
 
 import gc
-from typing import Callable
+from typing import Any, Callable
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _counted_wrappers() -> list:
@@ -114,3 +123,51 @@ class CapturedCall:
         self.graph.replay()
         _add(self.launches)
         return self.out
+
+
+class CapturedStep:
+    """``step_fn(state, batch) -> (out, new_state)`` over resident state,
+    captured as one CUDA graph.
+
+    ``state`` is a tree of tensors on ``device`` that every call updates in
+    place with ``new_state``'s values; ``batch`` a tree of tensors or
+    arrays copied into static buffers of the first call's shapes.  The
+    first call runs the step eagerly (``CapturedCall``'s warm-up: it is a
+    real step) and captures it; each later call replays the capture.
+    Returns ``out``, which a replay overwrites.
+
+    A replay writes the state on the device alone, so each call bumps the
+    version counter of every state leaf, as an eager in-place update
+    would: a cache keyed on them (``pack_stack_cached``) then misses
+    instead of serving what it cached before the replay.
+    """
+
+    def __init__(self, step_fn: Callable, state: Any, device: torch.device):
+        self.step_fn, self.state, self.device = step_fn, state, device
+        self._batch: Any = None
+        self._call: CapturedCall | None = None
+
+    def _run(self):
+        out, new = self.step_fn(self.state, self._batch)
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(self.state), tree_leaves(new), strict=True):
+                dst.copy_(src)
+        return out
+
+    def __call__(self, batch: Any):
+        if self._call is None:
+            self._batch = tree_map(
+                lambda x: torch.empty(tuple(x.shape), dtype=torch.as_tensor(x).dtype,
+                                      device=self.device), batch)
+        for dst, src in zip(tree_leaves(self._batch), tree_leaves(batch), strict=True):
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(f"captured step: batch leaf {tuple(src.shape)}, the "
+                                 f"capture's is {tuple(dst.shape)}")
+            dst.copy_(torch.as_tensor(src))
+        if self._call is None:
+            self._call = CapturedCall(self._run, self.device)
+            return self._call.first
+        out = self._call.replay()
+        for leaf in tree_leaves(self.state):
+            torch.autograd.graph.increment_version(leaf)
+        return out

@@ -107,9 +107,11 @@ def lstm_forward_split(params: Params, xs: torch.Tensor, cfg: LstmConfig,
     h, c = zero_state(xs.shape[0], cfg, xs.device) if state is None else state
     xw = (xs.to(cfg.dtype) @ params["w_x"]).to(torch.float32)  # (B, T, 4H)
     hs = []
-    for t in range(xs.shape[1]):
+    # unbind, not xw[:, t]: the same views, but autograd then stacks the
+    # T step gradients once instead of adding T zero-padded (B, T, 4H) ones
+    for xw_t in xw.unbind(1):
         gates = (
-            xw[:, t] + (h.to(cfg.dtype) @ params["w_h"]).to(torch.float32)
+            xw_t + (h.to(cfg.dtype) @ params["w_h"]).to(torch.float32)
             + params["b"]
         )
         h, c = _gates_to_hc(gates, c, cfg)

@@ -7,8 +7,10 @@ the same functions on torch tensors:
 * ``ActivationSet`` picks the gate/state activations per deployment:
   EXACT, PAPER_HW (LUT sigmoid + PWL tanh), HARD and PAPER_HW_KERNEL (the
   LUT replaced by its PWL twin, which the CUDA kernels evaluate in-kernel).
-* ``make_act_quant`` fake-quantizes the layer hand-off onto a fixed-point
-  grid; ``int8_symmetric_quant`` builds the power-of-two int8 weight grid
+* ``fixed_quant`` (with its straight-through gradient) and
+  ``quantize_tree`` snap weights onto a fixed-point grid, the paper's
+  16-bit weights; ``make_act_quant`` does the same to the layer hand-off;
+  ``int8_symmetric_quant`` builds the power-of-two int8 weight grid
   the packed stacks store.
 
 Every elementwise function here is written as the sequence of single
@@ -26,6 +28,48 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
+def _fixed_grid(total_bits: int, frac_bits: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Snap onto the signed fixed-point grid ``<total_bits, frac_bits>``:
+    scale, round half to even, unscale, saturate."""
+    scale = float(2**frac_bits)
+    lo = -(2.0 ** (total_bits - 1)) / scale
+    hi = (2.0 ** (total_bits - 1) - 1) / scale
+
+    def snap(x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(torch.round(x * scale) / scale, lo, hi)
+
+    return snap
+
+
+class _FixedQuant(torch.autograd.Function):
+    """Forward: the exact grid point.  Backward: the upstream gradient
+    unchanged, also where the forward saturates (the reference's JVP)."""
+
+    @staticmethod
+    def forward(ctx, x, total_bits, frac_bits):
+        return _fixed_grid(total_bits, frac_bits)(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def fixed_quant(x: torch.Tensor, total_bits: int = 16, frac_bits: int = 8) -> torch.Tensor:
+    """Round to the signed fixed-point grid ``<total_bits, frac_bits>``
+    (fake quant, saturating, round to nearest even), with a
+    straight-through gradient.  The forward value is exactly the grid
+    point (``x + (q - x).detach()`` would lose it to fp32 cancellation for
+    large ``|x|``)."""
+    return _FixedQuant.apply(x, total_bits, frac_bits)
+
+
+def quantize_tree(tree, total_bits: int = 16, frac_bits: int = 8):
+    """``fixed_quant`` on every tensor of a nested dict."""
+    return tree_map(lambda x: fixed_quant(x, total_bits, frac_bits), tree)
+
+
 #: ``act_bits`` plan-knob values the kernels accept (paper: activations are
 #: fixed to 16 bits; 8 is the aggressive point the accuracy study probes).
 ACT_BITS = (8, 16)
@@ -35,21 +79,14 @@ def make_act_quant(total_bits: int) -> Callable[[torch.Tensor], torch.Tensor]:
     """Activation fake-quant for the layer hand-off.
 
     Snaps to the signed fixed-point grid ``<total_bits, total_bits // 2>``
-    (<16, 8> is the paper's activation precision): scale, round half to
-    even, unscale, saturate.
+    (<16, 8> is the paper's activation precision) with ``fixed_quant``'s
+    op chain, without its gradient rule (the kernels evaluate it in-kernel).
     """
     if total_bits not in ACT_BITS:
         raise ValueError(
             f"act_bits={total_bits!r} unsupported; choose from {ACT_BITS}"
         )
-    scale = float(2 ** (total_bits // 2))
-    lo = -(2.0 ** (total_bits - 1)) / scale
-    hi = (2.0 ** (total_bits - 1) - 1) / scale
-
-    def act_quant(x: torch.Tensor) -> torch.Tensor:
-        return torch.clamp(torch.round(x * scale) / scale, lo, hi)
-
-    return act_quant
+    return _fixed_grid(total_bits, total_bits // 2)
 
 
 # ---------------------------------------------------------------------------

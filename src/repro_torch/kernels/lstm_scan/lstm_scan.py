@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.quant import EXACT, ActivationSet
-
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.lstm_stack.lstm_stack import (
     MAX_SMEM_BYTES,
     kernel_act_id,
@@ -104,6 +104,7 @@ def lstm_scan(
     batch rows one CTA runs (default 1).  ``acts`` must have a kernel form
     (EXACT, HARD or PAPER_HW_KERNEL).
     """
+    refuse_grad("lstm_scan", xw, w_h, h0, c0)
     t_len, batch, h4 = xw.shape
     if h4 % 4 or xw.dtype != torch.float32:
         raise ValueError(f"lstm_scan: xw must be fp32 (T, B, 4H), got {xw.dtype} "
@@ -131,6 +132,7 @@ def lstm_scan_layer(
     launch (``xs`` cast to ``h0``'s dtype, the product summed in fp32 and
     rounded to it), then the recurrence.  Returns (hs (T, B, H), h_final
     (B, H), c_final fp32 (B, H)), as ``lstm_scan``."""
+    refuse_grad("lstm_scan_layer", xs, w_x, b, w_h, h0, c0)
     batch, t_len, n_in = xs.shape
     hidden = w_h.shape[0]
     _check("lstm_scan_layer", batch, hidden, w_h, h0, c0, xs.device)

@@ -29,6 +29,7 @@ from repro_torch.core.quant import (
     HARD,
     make_act_quant,
 )
+from repro_torch.kernels import refuse_grad
 
 from .ref import lstm_stack_ref, normalize_scales
 
@@ -188,6 +189,7 @@ def lstm_stack(
     Weight storage may be narrower than the compute dtype; int8 codes need
     ``scales``, applied per gate to the fp32 accumulators.
     """
+    refuse_grad("lstm_stack", xw0, w_x, w_h, b, h0, c0, scales)
     t_len, batch, w4 = xw0.shape
     width = w4 // 4
     check_operands("lstm_stack", w_x, w_h, b, h0, c0, scales, width, batch)

@@ -40,6 +40,7 @@ from repro_torch.core.quant import (
     sigmoid_exact,
     tanh_exact,
 )
+from repro_torch.kernels import refuse_grad
 
 from .lstm_stack import check_operands, kernel_act_id, launch
 from .ops import check_packed_weight_dtype
@@ -126,6 +127,7 @@ def lstm_stack_step(
     allocated.  ``block_b`` is the number of batch rows one CTA runs;
     ``fuse_gates`` (not with int8 ``scales``) is described above.
     """
+    refuse_grad("lstm_stack_step", xs, w_x, w_h, b, h0, c0, scales)
     batch, t_len, width = xs.shape
     n_layers = w_h.shape[0]
     check_operands("lstm_stack_step", w_x, w_h, b, h0, c0, scales, width, batch)

@@ -9,7 +9,8 @@ shape.  The kernel and its notes are in ``csrc/rowwise.cu``; the plain
 version is ``rowwise_matmul_plain``, the LSTM kernels' ``seq_dot`` then
 ``+ b``.  ``rowwise_matmul`` runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors; it never falls back from one to the
-other.
+other.  Its gradient (the GW autoencoder's dense head and error sum are
+trained through it) is the same three plain products on both routes.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def rowwise_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 def rowwise_matmul(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) fp32 or bf16, w (K, N) fp32, b (N,) fp32 or None ->
-    (M, N) fp32, freshly allocated."""
+    (M, N) fp32, freshly allocated.  Differentiable in x, w and b on both
+    routes (``_RowwiseMatmul``)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"rowwise_matmul: x {tuple(x.shape)} and w {tuple(w.shape)}; "
                          "want (M, K) and (K, N)")
@@ -61,10 +63,34 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor,
                          f"{b.dtype} {tuple(b.shape)}")
     if any(t is not None and t.device != x.device for t in (w, b)):
         raise ValueError("rowwise_matmul: operands on different devices")
-    if x.device.type == "cpu":
-        return rowwise_matmul_plain(x, w, b)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rowwise_matmul: unsupported device {x.device}")
+    return _RowwiseMatmul.apply(x, w, b)
+
+
+class _RowwiseMatmul(torch.autograd.Function):
+    """Forward: the kernel on the card, the plain version on the CPU.
+    Backward: ``g @ w^T`` (at x's dtype), ``x^T @ g`` and ``g.sum(0)``, as
+    plain products; the reference leaves them to its compiler too."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cpu":
+            return rowwise_matmul_plain(x, w, b)
+        return _launch(x, w, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        grad_x = (grad @ w.t()).to(x.dtype) if need_x else None
+        grad_w = x.float().t() @ grad if need_w else None
+        grad_b = grad.sum(0) if need_b else None
+        return grad_x, grad_w, grad_b
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
     if m == 0 or k == 0 or n == 0:

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # initializers (drawn on the CPU from an explicit generator; ``lead`` stacks
@@ -247,13 +248,6 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # parameter trees
 # ---------------------------------------------------------------------------
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
 
 def layer(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a stacked (L, ...) parameter tree (views, no copy)."""

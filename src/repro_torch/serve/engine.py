@@ -62,8 +62,9 @@ from repro_torch.core.autoencoder import (
 from repro_torch.core.backends import get_backend, resolve_impl
 from repro_torch.core.executor import state_leaves, state_like
 from repro_torch.core.graphs import CapturedCall
+from repro_torch.convert import dtype_name, to_numpy, to_tensor
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import tree_map
+from repro_torch.tree import tree_map
 from repro_torch.serve.health import (
     SNAPSHOT_VERSION,
     SnapshotMismatchError,
@@ -95,29 +96,10 @@ def _pad_width(n: int) -> int:
     return w
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    """The reference's spelling of a dtype: ``float32``, ``bfloat16``."""
-    return str(dtype).removeprefix("torch.")
-
-
-def _host_leaf(t: torch.Tensor) -> np.ndarray:
-    """A state tensor as a host array.  bf16 has no numpy dtype: its bits
-    go out as 2-byte void items, the form numpy gives the reference's
-    bf16 arrays on disk."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().copy().view(np.dtype("V2"))
-    return t.numpy().copy()
-
-
 def _device_leaf(arr, like: torch.Tensor) -> torch.Tensor:
-    """A snapshot leaf back onto ``like``'s device and dtype."""
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.itemsize == 2):
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr))
+    """A snapshot leaf back onto ``like``'s device and dtype (2-byte void
+    items are bf16 bits, as ``convert.to_numpy`` writes them)."""
+    t = to_tensor(arr)
     if tuple(t.shape) != tuple(like.shape):
         raise SnapshotMismatchError(
             f"snapshot state leaf has shape {tuple(t.shape)}, this engine's "
@@ -497,7 +479,7 @@ class StreamingAnomalyEngine:
             "timesteps": int(cfg.timesteps),
             "window": int(self.window),
             "batch": int(self.batch),
-            "dtype": _dtype_name(cfg.dtype),
+            "dtype": dtype_name(cfg.dtype),
             "acts": cfg.acts.name,
             "carry_state": bool(self.carry_state),
             "state_layout": self._exec_enc.plan.backend.state_layout,
@@ -528,12 +510,12 @@ class StreamingAnomalyEngine:
             "version": SNAPSHOT_VERSION,
             "fingerprint": self.fingerprint(),
             "threshold": float(self.threshold),
-            "state": [_host_leaf(t) for t in state_leaves(self._state)],
+            "state": [to_numpy(t) for t in state_leaves(self._state)],
             "chunks": [np.array(c) for c in self._chunks],
             "filled": int(self._filled),
             "streams": {
                 sid: {
-                    "state": [_host_leaf(t) for t in state_leaves(slot.state)],
+                    "state": [to_numpy(t) for t in state_leaves(slot.state)],
                     "chunks": [np.array(c) for c in slot.chunks],
                     "filled": int(slot.filled),
                 }
