@@ -47,6 +47,18 @@ versions at the shapes training and that evaluation give them; step
 times eager and replayed with the device's idle share; and a
 kill-and-resume through ``Trainer`` bit-equal to an uninterrupted run.
 
+Phases 26-28 place ``gw_nominal`` on a stage mesh (``fused_stack_sharded``:
+each stage a contiguous sub-stack on its own CUDA stream, one K1 launch per
+chunk; the stages share the card, or take one card each where there are
+several): bit-equal to the local ``fused_stack`` over stages 1, 2 and 4,
+B 1 and 64, ``n_chunks`` 1, 2, 4 and 5 in fp32 and int8 (bf16 compute
+within K1's bf16 tolerance), each stage's K1 bit-equal to its plain version on
+its sub-pack; the library and both engines within 1e-5 of the golden
+scores, ``push_many`` against sequential pushes, snapshots across
+placements; the window's time at 1, 2 and 4 stages beside the local K1,
+the eager push and the batch score (the ``sharded`` JSON line); and
+``launch/serve.py --placement sharded --server``.
+
 Phases 20-22 serve ``gw_nominal`` on the ``mixed`` backend (per-layer
 storage int8, fp32, fp32, int8: each segment a chain of ``fused_step``
 segments on K1 and K2) with the weights of
@@ -116,6 +128,11 @@ LM_GOLDEN_TOL = dict(rtol=1e-4, atol=1e-4)  # reduced fp32 logits vs the referen
 #: (2^-7 of the value) where the fp32 results straddle a rounding point
 K5_TOL, K4_TOL = 2e-5, 2e-4
 BF16_TOL = dict(rtol=8e-3, atol=1e-3)
+#: K1's bf16 tolerance (the reference's; tests/test_torch_kernels.py): a
+#: sharded stack at bf16 compute rounds a stage boundary's input product to
+#: bf16 where the local K1 does not, and the recurrence carries that
+#: rounding on through the window
+K1_BF16_TOL = dict(rtol=2e-2, atol=1e-2)
 #: of K4's bf16 y elements that differ from the plain version's (by one
 #: ulp), the largest share that may lie toward zero: two fp32 summation
 #: orders round apart either way alike, a sum that loses its low bits
@@ -1257,6 +1274,284 @@ def gw_train_phases(dev, smi: str, block_plain) -> tuple[dict, dict]:
                         "resume_and_10_steps_s": resume_s}
     log(f"phase 25 kill at step 10 and resume: 20 steps bit-equal to the uninterrupted run "
         f"({time.perf_counter() - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s)")
+    return launches, report
+
+
+def stage_inputs_k1(packed, staged, x, ct: int, acts, compare) -> int:
+    """Each stage's K1 launch on its sub-pack against ``lstm_stack_ref`` on
+    the same operands, bit for bit: the first chunk (``ct`` timesteps)
+    through stage after stage, each stage's input the hidden chunk the
+    kernel gave the stage before it, at a random non-zero state.  Returns
+    the count of launches held."""
+    import torch
+    from repro_torch.kernels.lstm_stack.lstm_stack import lstm_stack
+    from repro_torch.kernels.lstm_stack.ops import project_layer0
+    from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
+
+    gen = torch.Generator().manual_seed(26)
+    feed = x[:, :ct]
+    for s, sub in enumerate(staged.stages):
+        dev = staged.mesh[s]
+        shape = (sub["w_h"].shape[0], x.shape[0], packed.width_p)
+        h0 = (torch.randn(shape, generator=gen) * 0.3).to(packed.dtype).to(dev)
+        c0 = (torch.randn(shape, generator=gen) * 0.3).to(dev)
+        feed = feed.to(dev)
+        xw0 = project_layer0(feed, sub, packed.weight_dtype)
+        scales = sub.get("scales") if packed.weight_dtype == "int8" else None
+        got = lstm_stack(xw0, sub["w_x"], sub["w_h"], sub["b"], h0, c0, scales=scales,
+                         acts=acts)
+        want = lstm_stack_ref(xw0, sub["w_x"], sub["w_h"], sub["b"], h0, c0, scales=scales,
+                              sigma=acts.sigma, tanh=acts.tanh)
+        torch.cuda.synchronize()
+        compare(got, want, f"K1 on stage {s}'s sub-pack ({packed.weight_dtype}, "
+                           f"{packed.dtype}, B={x.shape[0]}, T={ct})")
+        feed = got[0].transpose(0, 1)
+    return len(staged.stages)
+
+
+def gw_sharded_phases(params, cfg, golden: dict, dev, smi: str, compare,
+                      block_plain) -> tuple[dict, dict]:
+    """Phases 26-28, this slice's path: sharded placement of ``gw_nominal``
+    at full width with the golden fixture's weights, its stages sharing the
+    card (one stage per card where there are several): ``fused_stack_sharded``
+    against the local ``fused_stack`` over a sweep of stages, batches,
+    chunkings and storage, each stage's K1 against its plain version on its
+    sub-pack; the library and both engines against the golden scores; the
+    CLI's server.  Returns (the sharded path's launches by kernel, the
+    report)."""
+    import torch
+    from repro_torch.core.autoencoder import (
+        decoder_layers,
+        encoder_layers,
+        reconstruction_error,
+        segment_executors,
+    )
+    from repro_torch.core.executor import plan_stack
+    from repro_torch.core.quant import EXACT, PAPER_HW_KERNEL
+    from repro_torch.kernels.lstm_stack.lstm_stack import lstm_stack
+    from repro_torch.kernels.lstm_stack.step import lstm_stack_step
+    from repro_torch.kernels.rowwise import rowwise_matmul
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve.engine import AnomalyStreamEngine, StreamingAnomalyEngine
+
+    T = cfg.timesteps
+    windows = golden["windows"]
+    n_cards = torch.cuda.device_count()
+    report: dict = {"cards": n_cards}
+    if n_cards > 1:
+        log(f"phase 26: {n_cards} cards: the sweep also runs one stage per card")
+    else:
+        log("phase 26: one card: every stage of a mesh shares it, each on its own stream")
+
+    def counts():
+        return {"lstm_stack_wavefront": lstm_stack.launches,
+                "lstm_stack_step": lstm_stack_step.launches,
+                "rowwise_matmul": rowwise_matmul.launches}
+
+    def zero_counts():
+        lstm_stack.launches = lstm_stack_step.launches = rowwise_matmul.launches = 0
+
+    # -- phase 26: fused_stack_sharded against the local fused_stack ---------
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(26)
+    segments = {"enc": encoder_layers(params, cfg), "dec": decoder_layers(params, cfg)}
+    layers = [params[f"lstm_{i}"] for i in range(len(cfg.hidden))]
+    segments["stack"] = (layers, cfg.layer_cfgs())
+    meshes = {"enc": (1, 2), "dec": (1, 2), "stack": (2, 4)}
+    storage = (("fp32", torch.float32), ("bf16", torch.float32), ("int8", torch.float32),
+               ("bf16", torch.bfloat16), ("int8", torch.bfloat16))
+    n_runs = n_k1 = 0
+    bf16_err = 0.0
+    for name, (plist, cfgs) in segments.items():
+        stage_sets = [(dev,) * s for s in meshes[name]]
+        if n_cards > 1 and len(cfgs) % 2 == 0:
+            stage_sets.append(tuple(torch.device("cuda", i) for i in range(2)))
+        for wd, compute in storage:
+            c = [dataclasses.replace(x, dtype=compute) for x in cfgs]
+            local = plan_stack(c, impl="fused_stack", weight_dtype=wd).bind(plist)
+            for batch in (1, 64):
+                if name == "dec":
+                    x = (torch.rand(batch, 1, c[0].in_dim, generator=gen) * 2 - 1).expand(
+                        batch, T, c[0].in_dim).to(dev)
+                else:
+                    x = torch.randn(batch, T, c[0].in_dim, generator=gen).to(dev)
+                want = local(x)
+                for mesh in stage_sets:
+                    for n_chunks in (1, 2, 4, 5):
+                        ex = plan_stack(c, impl="fused_stack", weight_dtype=wd,
+                                        placement="sharded", mesh=mesh,
+                                        n_chunks=n_chunks).bind(plist)
+                        got = ex(x)
+                        torch.cuda.synchronize()
+                        pairs = [(got[0], want[0])] + [
+                            (a, b) for fg, fw in zip(got[1], want[1]) for a, b in zip(fg, fw)]
+                        what = (f"sharded {name} {wd}/{compute} B={batch} stages={len(mesh)} "
+                                f"n_chunks={n_chunks}")
+                        if compute == torch.float32:
+                            if not all(torch.equal(a, b) for a, b in pairs):
+                                raise AssertionError(f"{what}: differs from the local fused_stack")
+                        else:
+                            for a, b in pairs:
+                                np.testing.assert_allclose(a.float().cpu().numpy(),
+                                                           b.float().cpu().numpy(),
+                                                           **K1_BF16_TOL, err_msg=what)
+                                bf16_err = max(bf16_err, (a.float() - b.float()).abs().max().item())
+                        n_runs += 1
+                    if len(mesh) > 1:
+                        for acts in (EXACT, PAPER_HW_KERNEL):
+                            n_k1 += stage_inputs_k1(ex.packed, ex.staged, ex.packed.pad_input(x),
+                                                    T // 4, acts, compare)
+    report["sweep"] = {"runs": n_runs, "stage_k1_checks": n_k1, "bf16_max_abs_err": bf16_err}
+    log(f"phase 26 fused_stack_sharded ok: {n_runs} runs (segments at 1 and 2 stages, the "
+        f"4-layer stack at 2 and 4, B 1/64, n_chunks 1/2/4/5, fp32/bf16/int8 storage at fp32 "
+        f"compute bit-equal to the local fused_stack; bf16 compute within K1's bf16 "
+        f"tolerance, max |difference| {bf16_err:.3g}); {n_k1} stage K1 launches bit-equal to lstm_stack_ref "
+        f"on their sub-packs ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 27: the library and both engines (counts 0 before, read after)
+    t0 = time.perf_counter()
+    mesh2 = (dev, dev)
+    x = torch.as_tensor(windows, device=dev)
+    zero_counts()
+    with block_plain():
+        for wd in ("fp32", "bf16", "int8"):
+            c = dataclasses.replace(cfg, weight_dtype=wd)
+            enc, dec = segment_executors(params, c, impl="fused_stack", placement="sharded",
+                                         mesh=mesh2)
+            assert enc.plan.impl == dec.plan.impl == "fused_stack_sharded"
+            with torch.no_grad():
+                lib = reconstruction_error(params, x, c, exec_enc=enc, exec_dec=dec)
+            np.testing.assert_allclose(lib.cpu().numpy(), golden[f"scores/{wd}"], **TOL,
+                                       err_msg=f"sharded library scores vs reference, {wd}")
+            batch_eng = AnomalyStreamEngine(params, c, placement="sharded", mesh=mesh2)
+            np.testing.assert_allclose(batch_eng.score(windows), golden[f"scores/{wd}"], **TOL,
+                                       err_msg=f"sharded batch engine vs reference, {wd}")
+            lock = StreamingAnomalyEngine(params, c, batch=len(windows), placement="sharded",
+                                          mesh=mesh2)
+            streamed = [s for pos in range(0, T, 25) for s in lock.push(windows[:, pos : pos + 25])]
+            np.testing.assert_allclose(streamed[0], golden[f"streamed/{wd}"], **TOL,
+                                       err_msg=f"sharded streamed scores vs reference, {wd}")
+        eng = StreamingAnomalyEngine(params, cfg, batch=1, placement="sharded", mesh=mesh2)
+        if eng._graph_steps or eng._graph_finish:
+            raise AssertionError("a sharded engine took the graph capture")
+        one_shot = eng.score(windows[:1])
+        for chunk in (1, 25):
+            got = [s for pos in range(0, T, chunk) for s in eng.push(windows[:1, pos : pos + chunk])]
+            np.testing.assert_allclose(got[0], one_shot, **STREAM_TOL,
+                                       err_msg=f"sharded, chunks of {chunk} vs one-shot")
+        n_streams = check_push_many(
+            lambda: StreamingAnomalyEngine(params, cfg, batch=1, placement="sharded",
+                                           mesh=mesh2), windows, T)
+        torch.cuda.synchronize()
+    launches = counts()
+    if not launches["lstm_stack_wavefront"] or not launches["rowwise_matmul"]:
+        raise AssertionError(f"the sharded path's launches are wrong: {launches}")
+    # after the read: these runs have a local engine on one side
+    with block_plain():
+        for src_kw, dst_kw in ((dict(placement="sharded", mesh=mesh2), {}),
+                               ({}, dict(placement="sharded", mesh=mesh2))):
+            src = StreamingAnomalyEngine(params, cfg, batch=1, **src_kw)
+            dst = StreamingAnomalyEngine(params, cfg, batch=1, **dst_kw)
+            src.push(windows[:1, :37])
+            src.push_many(["p", "q"], windows[:2, :41])
+            dst.restore(src.snapshot())
+            np.testing.assert_array_equal(dst.push(windows[:1, 37:T])[0],
+                                          src.push(windows[:1, 37:T])[0],
+                                          err_msg="snapshot across placements, lock-step")
+            assert_bit_equal(dst.push_many(["p", "q"], windows[:2, 41:T]),
+                             src.push_many(["p", "q"], windows[:2, 41:T]),
+                             "snapshot across placements, pool")
+        torch.cuda.synchronize()
+    per_window = {}
+    for stages in (1, 2):
+        e = StreamingAnomalyEngine(params, cfg, batch=1, placement="sharded",
+                                   mesh=(dev,) * stages)
+        zero_counts()
+        for pos in range(T):
+            e.push(windows[:1, pos : pos + 1])
+        per_window[f"sharded_S{stages}_push_T1"] = counts()
+    log(f"phase 27 sharded path ok: library and engines within 1e-5 of the reference "
+        f"(fp32/bf16/int8), chunked == one-shot, push_many bit-equal over {n_streams} "
+        f"streams, snapshots cross placements, launches {launches}, per window of T=1 "
+        f"pushes {per_window} ({time.perf_counter() - t0:.1f} s)")
+
+    # timing: the window at 1, 2 and 4 stages against the local K1 (device
+    # time from the profiler, every kernel of a call; host time to issue a
+    # call, per tick), the eager push, the batch score
+    t0 = time.perf_counter()
+    timing = {}
+    for name, (plist, cfgs) in (("enc", segments["enc"]), ("stack", segments["stack"])):
+        xw = torch.randn(1, T, 1, generator=gen).to(dev)
+        rows = {}
+        for stages in (0, 1, 2, 4):
+            if stages and len(cfgs) % stages:
+                continue
+            if stages:
+                ex = plan_stack(cfgs, impl="fused_stack_sharded", mesh=(dev,) * stages).bind(plist)
+                ticks = 2 * stages - 1  # auto n_chunks = stages at T=100
+            else:
+                ex = plan_stack(cfgs, impl="fused_stack").bind(plist)
+                ticks = 1
+            st = ex.zero_state(1)
+            with torch.no_grad():
+                call = lambda: ex.step(xw, st)  # noqa: E731
+                ms = median_ms(call, reps=50)
+                dev_ms = device_ms(call, reps=20)
+                host = []
+                for _ in range(50):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    call()
+                    host.append((time.perf_counter() - t1) * 1e3)
+                torch.cuda.synchronize()
+            rows["local" if not stages else f"S{stages}"] = {
+                "ms": ms, "device_ms": dev_ms, "host_issue_ms": statistics.median(host),
+                "host_ms_per_tick": statistics.median(host) / ticks, "ticks": ticks}
+        timing[f"window_T{T}_B1_{name}"] = rows
+    push = {}
+    for label, kw in (("replay", {}), ("sharded_S1", dict(placement="sharded")),
+                      ("sharded_S2", dict(placement="sharded", mesh=mesh2))):
+        e = StreamingAnomalyEngine(params, cfg, batch=1, **kw)
+        v = push_times(e, windows) + push_times(e, windows)
+        push[label] = {"median_ms": statistics.median(v), "p99_ms": float(np.percentile(v, 99)),
+                       "n": len(v)}
+    timing["push_T1_B1"] = push
+    score = {}
+    for label, kw in (("local", {}), ("sharded_S2", dict(placement="sharded", mesh=mesh2))):
+        e = AnomalyStreamEngine(params, cfg, **kw)
+        e.score(windows)
+        v = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            e.score(windows)
+            v.append((time.perf_counter() - t1) * 1e3)
+        score[label] = statistics.median(v)
+    timing[f"score_B{len(windows)}_ms_median"] = score
+    report["timing"] = timing
+    report["launches_per_window"] = per_window
+    log(smi)
+    log(f"phase 27 sharded timing: " + "; ".join(
+        f"{k}: " + ", ".join(f"{s} {r['ms']:.4f} ms (device {r['device_ms']}, host "
+                             f"{r['host_ms_per_tick']:.4f} ms/tick)" for s, r in v.items())
+        for k, v in timing.items() if k.startswith("window"))
+        + "; push " + ", ".join(f"{k} {r['median_ms']:.4f}/{r['p99_ms']:.4f} ms"
+                                for k, r in push.items())
+        + f"; score {score} ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 28: the CLI's server on the sharded placement ------------------
+    t0 = time.perf_counter()
+    out = serve_cli.main(["--mode", "anomaly", "--gw-model", "gw_nominal", "--placement",
+                          "sharded", "--server", "--streams", "8", "--chunk", "25",
+                          "--windows", "8", "--arrival-hz", "2000"])
+    stats = out["stats"]
+    if stats["windows_scored"] != 64 or stats["engine_errors"]:
+        raise AssertionError(f"sharded CLI server: {stats}")
+    report["cli_server"] = {k: stats[k] for k in ("processed", "windows_scored",
+                                                   "latency.p50_us", "latency.p99_us",
+                                                   "latency.max_us")}
+    log(f"phase 28 --placement sharded --server ok: {stats['windows_scored']} windows, "
+        f"p50 {stats['latency.p50_us']:.0f} us p99 {stats['latency.p99_us']:.0f} us "
+        f"({time.perf_counter() - t0:.1f} s)")
     return launches, report
 
 
@@ -2572,6 +2867,13 @@ def main() -> int:
     rw_entry["launches_per_window"]["train_step"] = \
         train_report["step_timing"]["gw_small"]["rowwise_launches_per_step"]
 
+    # phases 26-28: sharded placement (counts set to 0 before its main run,
+    # read after it)
+    sharded_launches, sharded_report = gw_sharded_phases(params, cfg, golden, dev, smi,
+                                                         compare, block_plain)
+    log(json.dumps({"sharded": sharded_report}))
+    rw_entry["launches_by_path"]["gw_sharded"] = sharded_launches["rowwise_matmul"]
+
     lm_kernels, lm_graphs = lm_phases(dev, smi)  # phases 10-14, 19
     log(smi)
     log(json.dumps({"graphs": {"gw": gw_graphs, "lm": lm_graphs,
@@ -2593,10 +2895,12 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "launches_per_window": {
                 **{m: v[0 if name == "lstm_stack_wavefront" else 1] for m, v in per_window.items()},
-                **{m: c[name] for m, c in mixed_per_window.items()}},
+                **{m: c[name] for m, c in mixed_per_window.items()},
+                **{m: c[name] for m, c in sharded_report["launches_per_window"].items()}},
             "launches_by_path": {"gw": launches[name], "gw_mixed": mixed_launches[name],
                                  **({"gw_train_eval": train_launches["train_eval"][name]}
-                                    if name in train_launches["train_eval"] else {})},
+                                    if name in train_launches["train_eval"] else {}),
+                                 "gw_sharded": sharded_launches[name]},
             "shapes": rows[name],
         })
     head = rows["lstm_scan"][0]  # the kernel backend's entry, H=32, T=100, B=1

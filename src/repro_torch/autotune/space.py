@@ -1,7 +1,7 @@
 """Per-backend knob grids, legality pulled from the backend capability table.
 
 The paper's design space is per-layer reuse factors; the port's is the
-plan-time knob tuple ``(chunk_len, block_b, fuse_gates, split)``.  This
+plan-time knob tuple ``(chunk_len, block_b, fuse_gates, n_chunks, split)``.  This
 module is the only place sweep candidates are generated, and it generates
 them from ``core.backends.BackendSpec.knobs``: a backend that does not
 declare a knob never sees grid points for it, so the sweep cannot propose
@@ -15,11 +15,11 @@ a plan ``plan_stack`` would reject.  The axes follow this port's kernels:
   ``MAX_SMEM_BYTES``, the launch's own check);
 * ``fuse_gates`` - the step kernel's single ``[x;h] @ [W_x;W_h]`` chain per
   gate; never proposed ``True`` for int8 packs, which refuse it;
+* ``n_chunks``   - the wavefront-pipelined backends' (sharded placement,
+  ``wavefront``) time chunks per window: 2 and 4 where they divide the
+  case's ``t_len`` (1 chunk is the default's coarsest hand-off);
 * ``split``      - the mixed backend's int8-early/fp32-late storage split,
   every point of 0..L.
-
-There is no ``n_chunks`` axis: the wavefront-pipelined backends that take
-it are not ported, and asking for one raises through ``get_backend``.
 
 ``None`` on any axis means "the hand-set default", so every grid contains
 the all-``None`` default point, and it comes first.
@@ -41,6 +41,7 @@ class KnobPoint:
     chunk_len: int | None = None
     block_b: int | None = None
     fuse_gates: bool | None = None
+    n_chunks: int | None = None
     split: int | None = None
 
     def overrides(self) -> dict[str, Any]:
@@ -81,6 +82,12 @@ def _block_b_axis(cfgs: Sequence, batch: int) -> list[int | None]:
     return [None] + fits
 
 
+def _n_chunks_axis(t_len: int | None) -> list[int | None]:
+    if t_len is None:
+        return [None]
+    return [None] + [n for n in (2, 4) if t_len % n == 0]
+
+
 def _split_axis(n_layers: int) -> list[int | None]:
     # every interior split plus both homogeneous ends (0 = all fp32, L = all
     # int8); None = the plan's own resolution (the cfgs' per-layer storage)
@@ -88,8 +95,9 @@ def _split_axis(n_layers: int) -> list[int | None]:
 
 
 def knob_space(cfgs: Sequence, impl: str, *, weight_dtype=None, batch: int = 8,
-               max_points: int | None = None) -> list[KnobPoint]:
-    """Every legal knob assignment for (geometry, backend, dtype, batch).
+               t_len: int | None = None, max_points: int | None = None) -> list[KnobPoint]:
+    """Every legal knob assignment for (geometry, backend, dtype, batch,
+    window length ``t_len``; without it no ``n_chunks`` point is proposed).
 
     ``max_points`` thins the grid deterministically (the default point is
     always kept, the rest evenly strided).
@@ -110,6 +118,8 @@ def knob_space(cfgs: Sequence, impl: str, *, weight_dtype=None, batch: int = 8,
         int8_possible = wd == "int8" or spec.heterogeneous or (
             isinstance(wd, (tuple, list)) and "int8" in wd)
         axes["fuse_gates"] = [None, False] if int8_possible else [None, False, True]
+    if "n_chunks" in spec.knobs:
+        axes["n_chunks"] = _n_chunks_axis(t_len)
     if "split" in spec.knobs:
         # an explicit weight_dtype pins the assignment: split on top of it
         # is refused at plan time

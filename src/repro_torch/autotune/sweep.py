@@ -137,7 +137,7 @@ def run_sweep(case: SweepCase, *, k: int = 3, reps: int = 3, max_points: int | N
     record as it lands."""
     get_backend(case.impl)  # an unknown impl fails before any timing
     points = knob_space(case.cfgs(), case.impl, weight_dtype=case.weight_dtype,
-                        batch=case.batch, max_points=max_points)
+                        batch=case.batch, t_len=case.t_len, max_points=max_points)
     records = []
     for point in points:
         rec = measure_point(case, point, k=k, reps=reps, seed=seed, device=device)

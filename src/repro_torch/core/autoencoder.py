@@ -112,6 +112,7 @@ def decoder_layers(params: Params, cfg: AutoencoderConfig):
 
 
 def _segment_executor(params: Params, cfg: AutoencoderConfig, segment: str, *,
+                      placement: str = "local", mesh: Any = None,
                       impl: str | None = None, chunk_len: int | None = None,
                       tune: str = "default"):
     from .executor import plan_stack
@@ -119,19 +120,23 @@ def _segment_executor(params: Params, cfg: AutoencoderConfig, segment: str, *,
     plist, cfgs = (encoder_layers(params, cfg) if segment == "enc"
                    else decoder_layers(params, cfg))
     return plan_stack(
-        cfgs, impl=cfg.impl if impl is None else impl, chunk_len=chunk_len,
-        act_bits=cfg.act_bits, tune=tune,
+        cfgs, impl=cfg.impl if impl is None else impl, placement=placement, mesh=mesh,
+        chunk_len=chunk_len, act_bits=cfg.act_bits, tune=tune,
     ).bind(plist)
 
 
 def segment_executors(params: Params, cfg: AutoencoderConfig, *,
+                      placement: str = "local", mesh: Any = None,
                       impl: str | None = None, chunk_len: int | None = None,
                       tune: str = "default"):
     """(encoder, decoder) ``StackExecutor``s: each segment gets its own plan
-    and pack, bound once per params identity.  ``tune`` is ``plan_stack``'s
-    ("cached": knobs from the autotune store; "balanced": the mixed
-    backend's model-chosen storage split, per segment)."""
-    kw = dict(impl=impl, chunk_len=chunk_len, tune=tune)
+    and pack, bound once per params identity.  ``placement="sharded"``
+    splits each segment across the stage devices of ``mesh`` (default:
+    the params' device's default stage mesh; see ``plan_stack``).
+    ``tune`` is ``plan_stack``'s ("cached": knobs from the autotune store;
+    "balanced": the mixed backend's model-chosen storage split, per
+    segment)."""
+    kw = dict(placement=placement, mesh=mesh, impl=impl, chunk_len=chunk_len, tune=tune)
     return (_segment_executor(params, cfg, "enc", **kw),
             _segment_executor(params, cfg, "dec", **kw))
 

@@ -5,7 +5,9 @@
   scan-kernel launch per layer, ``fused_stack`` one wavefront kernel
   launch, ``fused_step`` the same plus the step kernel for short streaming
   chunks, ``mixed`` a chain of ``fused_step`` segments with per-layer
-  weight storage), each declaring its capabilities.
+  weight storage, ``fused_stack_sharded`` the stage-pipelined wavefront
+  over fused sub-stacks on a tuple of stage devices, ``wavefront`` the
+  plain single-program pipeline), each declaring its capabilities.
 * ``check_weight_storage`` and ``resolve_impl``: quantized-storage legality
   and the engines' backend resolution.
 
@@ -33,8 +35,13 @@ class BackendSpec:
     packs: bool = False
     #: may honour non-native weight storage (bf16/int8 codes + scales)
     quantized: bool = False
+    #: threads per-layer (h, c) initial/final state (the streaming surfaces)
+    stateful: bool = True
     #: swaps non-kernel-safe activations (LUT sigmoid) for their PWL twins
     kernel_acts: bool = False
+    #: places pipeline stages on the devices of a stage mesh
+    #: (``placement="sharded"``)
+    sharded: bool = False
     #: native streaming-state layout: "layers" (per-layer [(h, c), ...] at
     #: real widths) or "packed" (the bound PackedStack's (L, B, W) pair)
     state_layout: str = "layers"
@@ -49,13 +56,14 @@ class BackendSpec:
     heterogeneous: bool = False
     #: plan-time knobs this backend accepts, the single source of sweep
     #: legality (``autotune.space`` builds its grids from them): "chunk_len",
-    #: "block_b", "fuse_gates", "split"
+    #: "block_b", "fuse_gates", "n_chunks" (the wavefront's time chunks per
+    #: tick), "split"
     knobs: tuple[str, ...] = ()
     #: plain PyTorch autograd reaches every weight (the backends a loss may
     #: be built on); the kernel backends are forward-only and refuse a call
     #: that needs a gradient
     differentiable: bool = False
-    #: (executor, xs, state) -> (h_seq, finals)
+    #: (executor, xs, state) -> (h_seq, finals | None)
     forward: Any = None
 
 
@@ -67,13 +75,6 @@ BACKENDS: dict[str, BackendSpec] = {}
 
 #: the degenerate empty-segment backend
 IDENTITY = "identity"
-
-#: backends of the reference that later slices of the port bring over
-LATER_BACKENDS = {
-    "fused_stack_sharded": "multi-GPU placement (ROADMAP queue 1, item 10)",
-    "wavefront": "multi-GPU placement (ROADMAP queue 1, item 10)",
-}
-
 
 def register_backend(spec: BackendSpec) -> BackendSpec:
     BACKENDS[spec.name] = spec
@@ -95,11 +96,6 @@ def get_backend(name: str) -> BackendSpec:
     _ensure_registered()
     spec = BACKENDS.get(name)
     if spec is None:
-        if name in LATER_BACKENDS:
-            raise ValueError(
-                f"impl={name!r} is not ported yet; later slices of the "
-                f"port bring it: {LATER_BACKENDS[name]}"
-            )
         raise ValueError(
             f"unknown impl {name!r}; registered backends: "
             f"{', '.join(available_backends())}"

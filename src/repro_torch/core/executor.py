@@ -7,10 +7,10 @@
     state = ex.step(chunk, state)                #   native-layout hot path
 
 ``plan_stack`` resolves backend legality (the rules live in
-``core.backends``), weight storage and the step-kernel threshold once; the
-executor never re-checks them per call and never re-packs.
+``core.backends``), weight storage, placement and the step-kernel threshold
+once; the executor never re-checks them per call and never re-packs.
 
-Backends ported so far (see ``core.backends.BACKENDS``):
+Backends (see ``core.backends.BACKENDS``):
 
     naive / split   layer by layer, plain PyTorch
     kernel          layer by layer, one scan-kernel launch per layer
@@ -23,6 +23,13 @@ Backends ported so far (see ``core.backends.BACKENDS``):
                     native-layout state hand-off; tune="balanced" picks the
                     int8/fp32 split that equalizes the kernels' predicted
                     per-segment cost
+    fused_stack_sharded  stages on the devices of a stage mesh (a tuple of
+                    torch.device; one device may hold several stages),
+                    each stage's body ONE wavefront kernel launch over its
+                    contiguous sub-stack, only the sub-stack's last hidden
+                    chunk handed on (``placement="sharded"``)
+    wavefront       the plain single-program pipeline of one-layer stages
+                    (``core.pipeline.wavefront``), stateless
 
 ``tune="cached"`` resolves knobs from the autotune store
 (``repro_torch.autotune.cache``); ``StackPlan.knob_provenance`` says where
@@ -66,6 +73,15 @@ class StackPlan:
     #: backends; a per-layer tuple for ``impl="mixed"``; None for
     #: layer-by-layer backends (native storage)
     weight_dtype: Any = None
+    #: "local" (one device) or "sharded" (``fused_stack_sharded``)
+    placement: str = "local"
+    #: sharded placement: the stage mesh, a tuple of ``torch.device`` (one
+    #: stage each, in order); None = the default stage mesh, resolved at
+    #: bind from the device the params live on
+    mesh: Any = None
+    #: time chunks per wavefront tick (sharded and wavefront backends; None
+    #: = auto: one chunk per stage where the stages divide T, else one)
+    n_chunks: int | None = None
     #: chunked-step backends only: chunks with T <= chunk_len run the step
     #: kernel instead of the wavefront kernel
     chunk_len: int | None = None
@@ -166,33 +182,93 @@ class StackPlan:
                 packed = pack_stack_cached(list(params), list(self.cfgs))
             else:
                 check_packed_matches_cfgs(packed, self.cfgs)
-        return StackExecutor(self, params, packed)
+        staged = None
+        if self.placement == "sharded":
+            # the sub-stacks are slices of the one pack, placed on their
+            # stage devices here, once
+            from .pipeline import StagedStack
+
+            mesh = self.mesh or _default_stage_mesh(self.n_layers, packed.device)
+            staged = StagedStack.place(packed, mesh)
+        return StackExecutor(self, params, packed, staged)
 
     def describe(self) -> str:
         """One-line human summary."""
         dims = "->".join(str(c.hidden) for c in self.cfgs) or "(identity)"
         knobs = "".join(
             f" {k}={getattr(self, k)}"
-            for k in ("chunk_len", "block_b", "act_bits", "fuse_gates")
+            for k in ("n_chunks", "chunk_len", "block_b", "act_bits", "fuse_gates")
             if getattr(self, k) is not None
         )
         if self.segments:
             knobs += f" segments={len(self.segments)}"
+        if self.placement == "sharded":
+            knobs += " mesh=" + (",".join(map(str, self.mesh)) if self.mesh else "default")
         wd = self.weight_dtype
         if isinstance(wd, tuple):
             wd = "+".join(wd)
-        return (f"impl={self.impl} layers={self.n_layers} [{dims}] "
-                f"weight_dtype={wd or 'native'}{knobs}")
+        return (f"impl={self.impl} placement={self.placement} layers={self.n_layers} "
+                f"[{dims}] weight_dtype={wd or 'native'}{knobs}")
+
+
+def _default_stage_mesh(n_layers: int, device: torch.device) -> tuple[torch.device, ...]:
+    """The largest count of ``device``'s kind that divides the stack into
+    whole sub-stacks: ``torch.cuda.device_count()`` cards for a CUDA
+    device, starting at ``device``'s own card (stage 0 holds the params'
+    card), one stage for the CPU (as the reference's default mesh has one
+    stage on one device)."""
+    if device.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        first = device.index if device.index is not None else torch.cuda.current_device()
+        devices = [torch.device("cuda", (first + i) % n_cards) for i in range(n_cards)]
+    else:
+        devices = [device]
+    n = max(1, min(len(devices), n_layers))
+    while n > 1 and n_layers % n:
+        n -= 1
+    return tuple(devices[:n])
 
 
 @functools.lru_cache(maxsize=128)
 def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
                        weight_dtype: str | None, chunk_len: int | None,
                        block_b: int | None, act_bits: int | None,
-                       fuse_gates: bool | None, knob_sources: tuple = ()) -> StackPlan:
-    spec = get_backend(impl)  # raises for unknown impl, even on empty segments
+                       fuse_gates: bool | None, knob_sources: tuple = (),
+                       placement: str = "local", mesh: tuple | None = None,
+                       n_chunks: int | None = None) -> StackPlan:
+    get_backend(impl)  # raises for unknown impl, even on empty segments
+    if placement not in ("local", "sharded"):
+        raise ValueError(f"unknown placement {placement!r}; choose 'local' or 'sharded'")
     if not cfgs:
         return StackPlan(cfgs=(), impl=IDENTITY)
+    sources = dict(knob_sources)
+    # -- placement normalization: the fused backends degrade to the sharded
+    # wavefront, dropping the step kernel's knobs with the step kernel
+    if impl == "fused_stack_sharded":
+        placement = "sharded"
+    if placement == "sharded":
+        if impl not in ("fused_stack", "fused_step", "fused_stack_sharded"):
+            raise ValueError(
+                f"placement='sharded' requires the fused_stack backend (got impl={impl!r}); "
+                "only fused sub-stacks can place pipeline stages on stage devices"
+            )
+        if impl == "fused_step":
+            chunk_len = None
+        fuse_gates = block_b = None
+        sources.update(chunk_len="default", fuse_gates="default", block_b="default")
+        impl = "fused_stack_sharded"
+    elif mesh is not None:
+        raise ValueError("a stage mesh was supplied but placement='local'; pass "
+                         "placement='sharded' to place sub-stacks on the mesh's devices")
+    spec = get_backend(impl)
+    if n_chunks is not None:
+        if "n_chunks" not in spec.knobs:
+            raise ValueError(
+                f"n_chunks only applies to wavefront-pipelined backends (impl='wavefront' "
+                f"or sharded placement); got impl={impl!r}"
+            )
+        if n_chunks < 1:
+            raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     if block_b is not None:
         if "block_b" not in spec.knobs:
             raise ValueError(
@@ -249,14 +325,20 @@ def _plan_stack_cached(cfgs: tuple[LstmConfig, ...], impl: str,
             "different fp32 accumulators, which one fused [x;h] chain would mix; drop "
             "fuse_gates or the int8 weight_dtype"
         )
-    return StackPlan(cfgs=cfgs, impl=impl, weight_dtype=resolved_wd,
-                     chunk_len=chunk_len, block_b=block_b, act_bits=act_bits,
-                     fuse_gates=fuse_gates, knob_sources=knob_sources)
+    if mesh is not None and len(cfgs) % len(mesh):
+        raise ValueError(
+            f"sharded placement needs the {len(cfgs)}-layer stack to split into whole "
+            f"sub-stacks across {len(mesh)} stage devices; pass a mesh whose length "
+            "divides the layer count"
+        )
+    return StackPlan(cfgs=cfgs, impl=impl, weight_dtype=resolved_wd, placement=placement,
+                     mesh=mesh, n_chunks=n_chunks, chunk_len=chunk_len, block_b=block_b,
+                     act_bits=act_bits, fuse_gates=fuse_gates,
+                     knob_sources=tuple(sorted(sources.items())))
 
 
 #: the knobs ``tune="cached"`` may resolve from the autotune store (in step
-#: with ``repro_torch.autotune.cache.KNOB_NAMES``, the reference's list;
-#: ``n_chunks`` belongs to the wavefront backends, which are not ported)
+#: with ``repro_torch.autotune.cache.KNOB_NAMES``, the reference's list)
 _TUNABLE_KNOBS = ("chunk_len", "block_b", "fuse_gates", "n_chunks", "split")
 
 
@@ -301,8 +383,8 @@ def _plan_mixed_cached(cfgs: tuple[LstmConfig, ...], wds: tuple, chunk_lens: tup
             start = i
     bounds.append((start, len(cfgs)))
     subs = tuple(
-        _plan_stack_cached(cfgs[a:b], "fused_step", wds[a], chunk_lens[a], block_bs[a],
-                           act_bits, fuse_gatess[a])
+        _plan_stack_cached(cfgs[a:b], "fused_step", wds[a], chunk_len=chunk_lens[a],
+                           block_b=block_bs[a], act_bits=act_bits, fuse_gates=fuse_gatess[a])
         for a, b in bounds
     )
 
@@ -322,9 +404,9 @@ def _plan_mixed_cached(cfgs: tuple[LstmConfig, ...], wds: tuple, chunk_lens: tup
     )
 
 
-def _plan_mixed(cfgs: tuple[LstmConfig, ...], weight_dtype, chunk_len, block_b,
-                fuse_gates, act_bits: int | None, split: int | None,
-                tune: str) -> StackPlan:
+def _plan_mixed(cfgs: tuple[LstmConfig, ...], weight_dtype, placement: str, mesh,
+                n_chunks, chunk_len, block_b, fuse_gates, act_bits: int | None,
+                split: int | None, tune: str) -> StackPlan:
     """Resolve per-layer weight storage for ``impl="mixed"`` and delegate.
 
     Storage precedence (first match wins, recorded in ``knob_sources``):
@@ -337,6 +419,13 @@ def _plan_mixed(cfgs: tuple[LstmConfig, ...], weight_dtype, chunk_len, block_b,
     """
     if not cfgs:
         return StackPlan(cfgs=(), impl=IDENTITY)
+    if placement != "local" or mesh is not None:
+        raise ValueError("impl='mixed' is single-host: heterogeneous segments chain "
+                         "through local native-layout state hand-off; use "
+                         "placement='local' (shard each homogeneous segment instead)")
+    if n_chunks is not None:
+        raise ValueError("n_chunks only applies to wavefront-pipelined backends; "
+                         "impl='mixed' chains local fused_step segments")
     n = len(cfgs)
     sources = {k: ("explicit" if v is not None else "default")
                for k, v in (("chunk_len", chunk_len), ("block_b", block_b),
@@ -395,16 +484,31 @@ def _plan_mixed(cfgs: tuple[LstmConfig, ...], weight_dtype, chunk_len, block_b,
 
 
 def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
-               weight_dtype=None, chunk_len=None, block_b=None,
+               weight_dtype=None, placement: str = "local", mesh=None,
+               n_chunks: int | None = None, chunk_len=None, block_b=None,
                act_bits: int | None = None, fuse_gates=None,
                split: int | None = None, tune: str = "default") -> StackPlan:
     """Resolve an execution plan for a stacked LSTM segment, exactly once.
 
-    All impl-dependent legality is checked here: unknown backends,
-    quantized storage on a non-fused backend, storage wider than compute,
-    heterogeneous fused segments, ``act_bits`` on a backend without
-    in-kernel activation quant, and a knob on a backend that does not take
-    it.  Plans are memoised on their full argument tuple.
+    All impl-dependent legality is checked here: unknown backends and
+    placements, quantized storage on a non-fused backend, storage wider
+    than compute, heterogeneous fused segments, a stage mesh that does not
+    divide the layers (or one under local placement), ``act_bits`` on a
+    backend without in-kernel activation quant, and a knob on a backend
+    that does not take it.  Plans are memoised on their full argument
+    tuple.
+
+    ``placement="sharded"`` (or ``impl="fused_stack_sharded"``) places the
+    stack's contiguous sub-stacks on the devices of ``mesh``, a sequence of
+    devices, one stage each; a device may repeat (stages sharing one
+    card).  ``fused_stack`` and ``fused_step`` degrade to
+    ``fused_stack_sharded`` there and drop the step kernel's knobs
+    (``chunk_len``, ``block_b``, ``fuse_gates``).  Without a mesh the
+    default stage mesh is resolved at bind from the params' device: the
+    largest count of CUDA cards that divides the layers, one stage on the
+    CPU.  ``n_chunks`` (sharded and ``wavefront`` plans) is the number of
+    time chunks a window is cut into; the default is one chunk per stage
+    where the stages divide T, else one.
 
     ``fuse_gates`` (``fused_step`` only) runs each gate of the step kernel
     as one chain over ``[x ; h]`` (see ``kernels/lstm_stack/step.py``); int8
@@ -434,9 +538,13 @@ def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
         )
     if isinstance(weight_dtype, list):
         weight_dtype = tuple(weight_dtype)
+    if mesh is not None:
+        from .pipeline import check_mesh
+
+        mesh = check_mesh(mesh)
     if get_backend(impl).heterogeneous:
-        return _plan_mixed(tuple(cfgs), weight_dtype, chunk_len, block_b, fuse_gates,
-                           act_bits, split, tune)
+        return _plan_mixed(tuple(cfgs), weight_dtype, placement, mesh, n_chunks, chunk_len,
+                           block_b, fuse_gates, act_bits, split, tune)
     if any(isinstance(v, (tuple, list)) for v in (weight_dtype, chunk_len, block_b, fuse_gates)):
         raise ValueError(
             "per-layer knob sequences (weight_dtype/chunk_len/block_b/fuse_gates) "
@@ -448,7 +556,8 @@ def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
     if tune == "balanced":
         raise ValueError("tune='balanced' chooses a per-layer storage split, which only "
                          f"impl='mixed' can execute; got impl={impl!r}")
-    knobs = {"chunk_len": chunk_len, "block_b": block_b, "fuse_gates": fuse_gates}
+    knobs = {"chunk_len": chunk_len, "block_b": block_b, "fuse_gates": fuse_gates,
+             "n_chunks": n_chunks}
     sources = {k: ("explicit" if v is not None else "default") for k, v in knobs.items()}
     if act_bits is not None:
         sources["act_bits"] = "explicit"
@@ -456,17 +565,13 @@ def plan_stack(cfgs: Sequence[LstmConfig], impl: str = "split", *,
         from repro_torch.autotune.cache import lookup_tuned
 
         tuned = lookup_tuned(cfgs, impl, weight_dtype) or {}
-        if tuned.get("n_chunks") is not None:
-            # the reference's plan_stack refuses it on every backend ported so far
-            raise ValueError(f"n_chunks only applies to wavefront-pipelined backends, "
-                             f"which are not ported yet; the tuned entry for "
-                             f"impl={impl!r} carries one")
         for k in knobs:
             if knobs[k] is None and tuned.get(k) is not None:
                 knobs[k], sources[k] = tuned[k], "tuned"
     return _plan_stack_cached(tuple(cfgs), impl, weight_dtype, knobs["chunk_len"],
                               knobs["block_b"], act_bits, knobs["fuse_gates"],
-                              tuple(sorted(sources.items())))
+                              tuple(sorted(sources.items())), placement, mesh,
+                              knobs["n_chunks"])
 
 
 def clear_plan_cache() -> None:
@@ -482,12 +587,16 @@ class StackExecutor:
     """A plan bound to parameters: the only call-time surface.  Construct
     via ``StackPlan.bind``."""
 
-    __slots__ = ("plan", "params", "packed", "_graphs", "_subs")
+    __slots__ = ("plan", "params", "packed", "staged", "_graphs", "_subs")
 
-    def __init__(self, plan: StackPlan, params: tuple, packed: Any = None) -> None:
+    def __init__(self, plan: StackPlan, params: tuple, packed: Any = None,
+                 staged: Any = None) -> None:
         self.plan = plan
         self.params = params
         self.packed = packed
+        #: sharded plans: the pack's sub-stacks on their stage devices and a
+        #: stream per stage (``core.pipeline.StagedStack``), made at bind
+        self.staged = staged
         self._graphs: dict = {}  # batch width -> StepGraph (step_graph)
         self._subs: tuple | None = None  # mixed plans: the segment executors
 
@@ -511,7 +620,20 @@ class StackExecutor:
         """
         self._refuse_grad(xs)
         h_seq, finals = self.plan.backend.forward(self, xs, initial_state)
-        return (h_seq, finals) if return_state else h_seq
+        if not return_state:
+            return h_seq
+        if finals is None:
+            raise ValueError(f"impl={self.plan.impl!r} does not thread per-layer state; "
+                             "call with return_state=False (and no initial_state)")
+        return h_seq, finals
+
+    def _require_stateful(self) -> None:
+        if not self.plan.backend.stateful:
+            raise ValueError(
+                f"impl={self.plan.impl!r} does not thread per-layer state; the streaming "
+                "surfaces (zero_state/step/last_hidden) need a stateful backend such as "
+                "'fused_stack'"
+            )
 
     def _refuse_grad(self, xs: torch.Tensor) -> None:
         """Only ``naive`` and ``split`` are differentiable (as in the
@@ -525,7 +647,14 @@ class StackExecutor:
                         *(t for p in self.params for t in p.values()))
 
     @property
+    def mesh(self) -> tuple | None:
+        """The stage devices of a sharded executor (None otherwise)."""
+        return None if self.staged is None else self.staged.mesh
+
+    @property
     def device(self) -> torch.device:
+        """Where the executor's inputs, outputs and state live (a sharded
+        executor's stages may run elsewhere)."""
         if isinstance(self.packed, tuple):
             return self.packed[0].device
         if self.packed is not None:
@@ -539,6 +668,7 @@ class StackExecutor:
         plan = self.plan
         if plan.impl == IDENTITY:
             return []
+        self._require_stateful()
         if plan.backend.heterogeneous:
             return tuple(pk.zero_state(batch) for pk in self.packed)
         if plan.backend.state_layout == "packed":
@@ -552,11 +682,13 @@ class StackExecutor:
         plan = self.plan
         if plan.impl == IDENTITY:
             return xs, state
+        self._require_stateful()
         self._refuse_grad(xs)
         if plan.backend.heterogeneous:
             return _mixed_seq_call(self, xs, state)
         if plan.backend.state_layout == "packed":
-            hs, h_f, c_f = _fused_seq_call(self, xs, state)
+            seq_call = _sharded_call if plan.backend.sharded else _fused_seq_call
+            hs, h_f, c_f = seq_call(self, xs, state)
             return hs[..., : plan.hidden[-1]], (h_f, c_f)
         return plan.backend.forward(self, xs, state)
 
@@ -581,6 +713,7 @@ class StackExecutor:
         plan = self.plan
         if plan.impl == IDENTITY:
             raise ValueError("identity executor has no hidden state")
+        self._require_stateful()
         if plan.backend.heterogeneous:
             return state[-1][0][-1, :, : plan.hidden[-1]]
         if plan.backend.state_layout == "packed":
@@ -732,6 +865,57 @@ def _fused_seq_call(ex: StackExecutor, xs, state):
     return lstm_stack_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
 
 
+def _resolve_n_chunks(ex: StackExecutor, t_len: int) -> int:
+    n_chunks = ex.plan.n_chunks
+    if n_chunks is not None:
+        if t_len % n_chunks:
+            raise ValueError(f"n_chunks={n_chunks} does not divide T={t_len}")
+        return n_chunks
+    # auto: one chunk per stage keeps the stages busy alike; a single chunk
+    # (the coarsest hand-off) where T does not split evenly
+    n_stages = len(ex.mesh)
+    return n_stages if t_len % n_stages == 0 else 1
+
+
+def _sharded_call(ex: StackExecutor, xs, state):
+    """The sharded wavefront on packed state: (hs (B, T, W padded), h_f,
+    c_f), every stage one K1 launch per chunk on its sub-stack."""
+    from .pipeline import wavefront_shard_map_fused
+
+    h, c = state
+    packed = ex.packed
+    return wavefront_shard_map_fused(packed, ex.staged, packed.pad_input(xs), h, c,
+                                     _resolve_n_chunks(ex, xs.shape[1]))
+
+
+def _forward_sharded(ex: StackExecutor, xs, state):
+    packed = ex.packed
+    if state is None:
+        state = packed.zero_state(xs.shape[0])
+    else:
+        state = packed.pack_state(state)
+    hs, h_f, c_f = _sharded_call(ex, xs, state)
+    return hs[..., : packed.hidden[-1]], packed.unpack_state(h_f, c_f)
+
+
+def _forward_wavefront(ex: StackExecutor, xs, state):
+    """The plain single-program pipeline over an exact max-width pack
+    (``pack_uniform``, made per call as the reference's XLA-level path
+    does); stateless."""
+    from .pipeline import pack_uniform, wavefront
+
+    if state is not None:
+        raise ValueError("impl='wavefront' does not thread state; use 'fused_stack' (or a "
+                         "layer-by-layer backend) for the streaming path")
+    cfgs = ex.plan.cfgs
+    stacked, width = pack_uniform(list(ex.params), [c.in_dim for c in cfgs],
+                                  [c.hidden for c in cfgs])
+    xs_p = torch.nn.functional.pad(xs, (0, width - xs.shape[-1]))
+    n_chunks = ex.plan.n_chunks if ex.plan.n_chunks is not None else 1
+    out = wavefront(stacked, xs_p, n_chunks, cfgs[0].acts)
+    return out[..., : cfgs[-1].hidden], None
+
+
 def _mixed_seq_call(ex: StackExecutor, xs, state):
     """Chain the mixed plan's segments through native-layout hand-off: each
     segment's real-width hidden sequence feeds the next one's
@@ -772,3 +956,9 @@ register_backend(BackendSpec(
     name="mixed", packs=True, quantized=True, kernel_acts=True,
     state_layout="packed", chunked_step=True, act_quant=True, heterogeneous=True,
     knobs=("chunk_len", "block_b", "fuse_gates", "split"), forward=_forward_mixed))
+register_backend(BackendSpec(
+    name="fused_stack_sharded", packs=True, quantized=True, kernel_acts=True,
+    sharded=True, state_layout="packed", knobs=("n_chunks",), forward=_forward_sharded))
+register_backend(BackendSpec(
+    name="wavefront", stateful=False, differentiable=True, knobs=("n_chunks",),
+    forward=_forward_wavefront))

@@ -24,6 +24,10 @@ store (fill it with ``python -m repro_torch.launch.tune``); ``--tune
 balanced`` (mixed backend) lets the roofline model choose each segment's
 int8/fp32 split.
 ``--chunk-len N`` overrides the plan's step-kernel threshold.
+``--placement sharded`` pipelines each segment's contiguous sub-stacks
+across the default stage mesh (``fused_stack_sharded``: one stage per
+CUDA card that divides the layers, one stage on the CPU), each stage one
+wavefront-kernel launch per chunk of the window.
 ``--streams N`` serves N independent streams through ``push_many``: every
 chunk advances all N with one gathered B=N step call.
 ``--server`` runs the continuous-batching ``StreamServer``: a Poisson
@@ -42,9 +46,8 @@ here).  Any of these turns on the health layer and prints its counters.
 its provenance (explicit, tuned, default, balanced) and a mixed plan's
 layer assignment, and exits.
 
-Not ported yet, each refused with a ``ValueError`` naming its later slice:
-``--mode lm`` for the ``moe``, ``hybrid`` and ``encdec`` families, and
-``--placement sharded``.
+Not ported yet, refused with a ``ValueError`` naming its later slice:
+``--mode lm`` for the ``moe``, ``hybrid`` and ``encdec`` families.
 """
 
 from __future__ import annotations
@@ -81,7 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "int8,fp32,fp32,int8); routes both segments through the mixed "
                          "backend")
     ap.add_argument("--placement", choices=("local", "sharded"), default="local",
-                    help="stage placement ('sharded' is not ported yet)")
+                    help="fused-stack stage placement (anomaly mode): 'sharded' pipelines "
+                         "fused sub-stacks across the default stage mesh "
+                         "(fused_stack_sharded)")
     ap.add_argument("--tune", choices=("default", "cached", "balanced"),
                     default="default",
                     help="'cached' resolves plan knobs from the autotune store "
@@ -118,17 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_ported(args) -> None:
-    """Refuse the flag values that belong to later slices of the port."""
-    if args.placement == "sharded":
-        raise ValueError("--placement sharded is not ported yet; it comes with a later slice "
-                         "of the port: multi-GPU placement (ROADMAP queue 1, item 10)")
-
-
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    check_ported(args)
     if args.mode == "anomaly":
         return serve_anomaly(args)
     if not args.arch:
@@ -171,8 +168,8 @@ def _engine(args, params, cfg):
     from repro_torch.serve.engine import StreamingAnomalyEngine
 
     return StreamingAnomalyEngine(params, cfg, batch=1, impl=_requested_impl(cfg),
-                                  chunk_len=args.chunk_len, tune=args.tune,
-                                  device=args.device)
+                                  placement=args.placement, chunk_len=args.chunk_len,
+                                  tune=args.tune, device=args.device)
 
 
 def serve_anomaly(args):
@@ -307,7 +304,7 @@ def serve_server(args, params, cfg, ds):
           f"{n_streams} streams x {args.windows} windows "
           f"({chunk}-sample chunks, {total_chunks} total), "
           f"{policy} max_coalesce={server.config.max_coalesce} "
-          f"overflow={args.overflow} device={args.device}"
+          f"overflow={args.overflow} placement={args.placement} device={args.device}"
           + (f", ~{args.arrival_hz:.0f} chunks/s Poisson"
              if args.arrival_hz > 0 else ", max-rate arrivals"))
 
@@ -372,6 +369,7 @@ def print_plan(args, params, cfg) -> dict:
     if reason is not None:
         print(f"note: {reason}")
     exec_enc, exec_dec = segment_executors(params, cfg, impl=effective,
+                                           placement=args.placement,
                                            chunk_len=args.chunk_len, tune=args.tune)
     print(f"{args.gw_model}: resolved serving plan (window={cfg.timesteps}, "
           f"requested {requested}, tune={args.tune})")
@@ -379,7 +377,8 @@ def print_plan(args, params, cfg) -> dict:
     for name, ex in (("encoder", exec_enc), ("decoder", exec_dec)):
         plan = ex.plan
         plans[name] = plan.describe()
-        print(f"  {name}: {plans[name]} pack_bytes={ex.packed_bytes}")
+        stages = "" if ex.mesh is None else " stages=" + ",".join(map(str, ex.mesh))
+        print(f"  {name}: {plans[name]} pack_bytes={ex.packed_bytes}{stages}")
         for knob, (value, source) in sorted(plan.knob_provenance().items()):
             shown = "auto" if value is None else value
             print(f"    {knob:<12} = {shown!s:<6} [{source}]")

@@ -23,9 +23,11 @@ plan's ``chunk_len`` and ``push_many`` one gather -> step -> scatter graph
 per pool width (the reference's ``_coalesced_step``); streams that
 complete a window in the same piece are scored by one decode padded up the
 width ladder (the reference's ``_finish_streams``), captured per width.
-Graphs need a packed backend (``fused_step``/``fused_stack``/``mixed``; a
-mixed plan's whole segment chain is one graph); the ``kernel`` backend,
-longer chunks and the CPU run eagerly.  Resident state
+Graphs need a packed local backend (``fused_step``/``fused_stack``/``mixed``;
+a mixed plan's whole segment chain is one graph); the ``kernel`` backend,
+sharded placement (``placement="sharded"``: each segment's sub-stacks
+pipelined across stage devices, ``fused_stack_sharded``), longer chunks and
+the CPU run eagerly.  Resident state
 lives in the graphs' and the pool's buffers and is updated in place; a
 snapshot copies it out.
 
@@ -141,6 +143,11 @@ class AnomalyStreamEngine:
     #: is ``effective_impl`` (the fallback is logged).
     impl: str | None = "fused_stack"
     device: str = "cuda"
+    #: stage placement of the fused path: "local" (one device) or "sharded"
+    #: (sub-stacks on the stage devices of ``mesh``, ``fused_stack_sharded``)
+    placement: str = "local"
+    #: sharded placement's stage devices; None = the default stage mesh
+    mesh: tuple | None = None
     #: plan knobs: "default" (hand-set), "cached" (the autotune store) or
     #: "balanced" (the mixed backend's model-chosen storage split)
     tune: str = "default"
@@ -157,15 +164,15 @@ class AnomalyStreamEngine:
         )
         if self.fallback_reason is not None:
             logger.warning("AnomalyStreamEngine: %s", self.fallback_reason)
-        # plan + bind eagerly: an illegal impl/weight_dtype combination raises
-        # at construction, not on the first score()
+        # plan + bind eagerly: an illegal impl/placement/weight_dtype
+        # combination raises at construction, not on the first score()
         self._execs()
 
     def _execs(self):
         """The current params' bound segment executors (plans memoised,
         packs identity-cached; re-binds if params were swapped)."""
         return segment_executors(self.params, self.cfg, impl=self.effective_impl,
-                                 tune=self.tune)
+                                 placement=self.placement, mesh=self.mesh, tune=self.tune)
 
     def calibrate(self, background: np.ndarray, fpr: float = 0.01) -> float:
         """Set the anomaly threshold at a target false-positive rate on
@@ -282,7 +289,10 @@ class StreamingAnomalyEngine:
     plan's ``chunk_len`` run the step kernel, longer pushes and the T-long
     decoder the wavefront kernel, both on the same packed weights.  On the
     card these calls replay CUDA graphs (``graphs=False`` runs them
-    eagerly, with the same bits).
+    eagerly, with the same bits).  ``placement="sharded"`` pipelines each
+    segment's sub-stacks across the stage devices of ``mesh`` (the default
+    stage mesh if None) on the wavefront kernel, eagerly; the state keeps
+    the local layout, so snapshots cross placements.
 
     ``push_many(stream_ids, chunks)`` keeps a pool of named B=1 streams at
     independent window fill levels and advances any subset with one
@@ -294,6 +304,7 @@ class StreamingAnomalyEngine:
 
     def __init__(self, params: dict, cfg: AutoencoderConfig, *, batch: int = 1,
                  window: int | None = None, impl: str | None = "fused_step",
+                 placement: str = "local", mesh: tuple | None = None,
                  chunk_len: int | None = None, tune: str = "default",
                  carry_state: bool = False, threshold: float = float("inf"),
                  device: str = "cuda", graphs: bool = True):
@@ -321,7 +332,8 @@ class StreamingAnomalyEngine:
         self._params = _params_to(params, self.device)
         self.tune = tune
         self._exec_enc, self._exec_dec = segment_executors(
-            self._params, self.cfg, impl=self.effective_impl, chunk_len=chunk_len, tune=tune
+            self._params, self.cfg, impl=self.effective_impl, placement=placement, mesh=mesh,
+            chunk_len=chunk_len, tune=tune,
         )
         self._packed_layout = (
             self._exec_enc.plan.backend.state_layout == "packed"
@@ -331,9 +343,10 @@ class StreamingAnomalyEngine:
 
     def _new_graphs(self) -> None:
         """A fresh pool and no captured graphs (construction and weight
-        swaps): graphs on the card for packed backends only, unless the
-        engine was made with ``graphs=False`` (eager)."""
-        cuda = self.device.type == "cuda" and self.graphs
+        swaps): graphs on the card for packed local backends only, unless
+        the engine was made with ``graphs=False`` (eager)."""
+        cuda = (self.device.type == "cuda" and self.graphs
+                and not self._exec_enc.plan.backend.sharded)
         self._graph_steps = cuda and self._exec_enc.plan.backend.chunked_step
         self._graph_finish = cuda and self._packed_layout
         self._pool = _Pool(self._exec_enc, self._packed_layout)

@@ -129,9 +129,16 @@ class TestKnobSpace:
         pinned = knob_space(_stack(GW_DIMS)[1], "mixed", weight_dtype="int8", batch=4)
         assert {p.split for p in pinned} == {None}
 
-    def test_sharded_backends_raise(self):
-        with pytest.raises(ValueError, match="not ported yet"):
-            knob_space(_stack(SMALL_DIMS)[1], "wavefront")
+    @pytest.mark.parametrize("impl", ["wavefront", "fused_stack_sharded"])
+    def test_n_chunks_axis_only_proposes_divisors(self, impl):
+        """The reference's axis: 2 and 4 where they divide the window (1 is
+        the default's single chunk), nothing without a window length."""
+        cfgs = _stack(SMALL_DIMS)[1]
+        assert {p.n_chunks for p in knob_space(cfgs, impl, batch=8, t_len=50)} == {None, 2}
+        assert {p.n_chunks for p in knob_space(cfgs, impl, batch=8, t_len=8)} == {None, 2, 4}
+        assert knob_space(cfgs, impl, batch=8) == [DEFAULT_POINT]
+        for point in knob_space(cfgs, impl, batch=8, t_len=8):
+            check_legal(cfgs, impl, point)
 
     def test_max_points_thins_but_keeps_default(self):
         cfgs = _stack(SMALL_DIMS)[1]

@@ -4,8 +4,9 @@ Each backend (naive, split, fused_stack, fused_step) runs the GW nominal
 encoder and decoder segments with the reference's weights and a non-zero
 initial state; full-sequence outputs, finals and the streaming ``step``
 surface are held to the reference executor at 1e-5.  Plan-time legality
-(unknown or not-yet-ported backends, knobs on the wrong backend, storage
-rules) and the engines' ``resolve_impl`` fallbacks follow the reference.
+(unknown backends and placements, stage meshes, knobs on the wrong
+backend, storage rules) and the engines' ``resolve_impl`` fallbacks follow
+the reference.
 """
 
 import dataclasses
@@ -142,10 +143,10 @@ def test_plans_are_memoised():
 
 PLAN_ERRORS = [
     (dict(impl="nope"), "unknown impl"),
-    (dict(impl="fused_stack_sharded", weight_dtype="int8"), "not ported yet"),
-    (dict(impl="wavefront", tune="cached"), "not ported yet"),
-    (dict(impl="fused_stack_sharded"), "not ported yet"),
-    (dict(impl="wavefront"), "not ported yet"),
+    (dict(impl="split", placement="sharded"), "requires the fused_stack backend"),
+    (dict(impl="fused_stack", placement="orbital"), "unknown placement"),
+    (dict(impl="fused_stack", mesh=("cpu",)), "placement='sharded'"),
+    (dict(impl="fused_stack_sharded", mesh=("cpu",) * 3), "sub-stacks"),
     (dict(impl="split", weight_dtype="int8"), "quantized-capable"),
     (dict(impl="fused_stack", chunk_len=4), "chunk_len only applies"),
     (dict(impl="split", block_b=2), "block_b only applies"),
@@ -154,8 +155,8 @@ PLAN_ERRORS = [
     (dict(impl="fused_stack", act_bits=4), "unsupported"),
     (dict(impl="fused_step", chunk_len=300), "ceiling"),
     (dict(impl="fused_step", weight_dtype="int8", fuse_gates=True), "incompatible with int8"),
-    (dict(impl="fused_stack_sharded", tune="cached"), "later slices"),
-    (dict(impl="wavefront", tune="balanced"), "later slices"),
+    (dict(impl="fused_stack", n_chunks=2), "n_chunks only applies"),
+    (dict(impl="wavefront", tune="balanced"), "only impl='mixed'"),
     (dict(impl="fused_stack", weight_dtype="fp8"), "unknown weight_dtype"),
     (dict(impl="fused_stack", fuse_gates=True), "fuse_gates only applies"),
     (dict(impl="fused_step", tune="aggressive"), "unknown tune mode"),
@@ -167,6 +168,15 @@ PLAN_ERRORS = [
     (dict(impl="mixed", weight_dtype=("int8",)), "one entry per layer"),
     (dict(impl="mixed", chunk_len=(4, 4, 4)), "one entry per layer"),
     (dict(impl="mixed", fuse_gates=True, split=1), "incompatible with int8"),
+    (dict(impl="fused_stack_sharded", act_bits=16), "act_bits only applies"),
+    (dict(impl="fused_step", placement="sharded", act_bits=16), "act_bits only applies"),
+    (dict(impl="wavefront", weight_dtype="int8"), "quantized-capable"),
+    (dict(impl="mixed", placement="sharded"), "single-host"),
+    (dict(impl="mixed", mesh=("cpu",)), "single-host"),
+    (dict(impl="mixed", n_chunks=2), "n_chunks only applies"),
+    (dict(impl="fused_stack_sharded", n_chunks=0), "n_chunks must be"),
+    (dict(impl="fused_stack_sharded", mesh=()), "at least one device"),
+    (dict(impl="fused_stack_sharded", mesh=("meta",)), "neither the CPU"),
 ]
 
 

@@ -116,13 +116,56 @@ def test_cli_plan_only(capsys):
 
 @pytest.mark.parametrize("flags,slice_", [
     (["--mode", "lm", "--arch", "hymba-1.5b", "--device", "cpu"], "item 13"),
-    (BASE + ["--placement", "sharded"], "item 10"),
-    (BASE + ["--placement", "sharded", "--tune", "cached"], "item 10"),
-    (BASE + ["--placement", "sharded", "--weight-dtypes", "int8,fp32"], "item 10"),
 ])
 def test_cli_refuses_later_slices(flags, slice_):
     with pytest.raises(ValueError, match=f"not ported yet.*{slice_}"):
         tcli.main(flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--weight-dtypes", "int8,fp32"],
+    ["--weight-dtypes", "int8,fp32", "--plan-only"],
+    ["--tune", "balanced", "--plan-only"],
+])
+def test_cli_sharded_refuses_the_mixed_backend(flags):
+    """Per-layer storage runs on ``mixed``, which chains local segments:
+    the reference refuses it under sharded placement, and so does the port."""
+    with pytest.raises(ValueError, match="single-host"):
+        tcli.main(BASE + ["--placement", "sharded"] + flags)
+
+
+def test_cli_placement_sharded_serves(capsys):
+    """``--placement sharded`` on the CPU: the default stage mesh is one CPU
+    stage; the plan and ``--server`` (whose engine ``--streams`` feeds)
+    serve through ``fused_stack_sharded``, as the reference's CLI does."""
+    plans = tcli.main(BASE + ["--placement", "sharded", "--plan-only", "--weight-dtype",
+                              "int8"])
+    text = capsys.readouterr().out
+    for seg in ("encoder", "decoder"):
+        assert "impl=fused_stack_sharded placement=sharded" in plans[seg]
+        assert "weight_dtype=int8" in plans[seg]
+    assert "stages=cpu" in text and "n_chunks     = auto" in text
+    out = tcli.main(BASE + ["--placement", "sharded", "--chunk", "25", "--streams", "4",
+                            "--server"])
+    assert "placement=sharded" in capsys.readouterr().out
+    assert out["stats"]["processed"] == 32 and out["stats"]["windows_scored"] == 8
+
+
+def test_cli_placement_sharded_tune_cached(capsys):
+    """A tuned ``n_chunks`` reaches the sharded plan; the step kernel's
+    tuned knobs are dropped with the step kernel, as in the reference."""
+    from repro_torch.autotune import cache as tcache
+
+    store = tcache.TunedPlanCache()
+    store.put([(1, 9)], "fused_step", "fp32", {"chunk_len": 8, "n_chunks": 4})
+    old = tcache.set_cache(store)
+    try:
+        plans = tcli.main(BASE + ["--placement", "sharded", "--plan-only", "--tune", "cached"])
+        text = capsys.readouterr().out
+    finally:
+        tcache.set_cache(old)
+    assert "n_chunks=4" in plans["encoder"] and "n_chunks     = 4      [tuned]" in text
+    assert "chunk_len" not in plans["encoder"] and "n_chunks" not in plans["decoder"]
 
 
 def test_cli_weight_dtypes_route_the_mixed_backend(capsys):
