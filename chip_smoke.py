@@ -20,13 +20,18 @@ and ``torch_port_gw_server.npz``, produced by the JAX reference):
   checkpoint and restore, the health screen, and a threaded run;
 
 and LM serving through ``LmEngine`` at full width in bf16 with random
-weights from a seed: ``smollm-360m`` (K5 on every decode step) and
-``mamba2-130m`` (K4 on every prefill), B=8, prompts of 512 (and 500 for
-mamba2), 64 new tokens, with the kernel path's logits held against the
-plain path's under teacher forcing.  The reduced LM golden fixtures
-(``tests/data/torch_port_lm_smollm.npz``, ``torch_port_lm_mamba2.npz``)
-are served on the card first and must match the reference's logits and
-tokens.
+weights from a seed: ``smollm-360m`` (K5 on every decode step),
+``mamba2-130m`` (K4 on every prefill), ``qwen2-moe-a2.7b`` (K5 on every
+decode step; routed experts with the reference's dense capacity dispatch)
+and ``hymba-1.5b`` (K4 on every prefill, K5 over its window ring on every
+decode step), B=8, prompts of 512 (and 500 for mamba2, 1536 for hymba:
+above the flash threshold, the ring wrapped), 64 new tokens, with the
+kernel path's logits held against the plain path's under teacher forcing
+(for qwen2-moe, with the count of routing decisions the two paths differ
+on, both held against a control: the path with K5's plain version in the
+kernel's place).  The reduced LM golden fixtures (``tests/data/torch_port_lm_*.npz``:
+smollm, mamba2, qwen2moe, hymba) are served on the card first and must
+match the reference's logits and tokens.
 
 On the card the serving calls replay CUDA graphs; phases 15-18 hold the
 GW graphs against eager runs bit for bit (the step at every pool width up
@@ -120,6 +125,8 @@ TOL = dict(rtol=1e-5, atol=1e-5)            # engine scores vs the reference's
 STREAM_TOL = dict(rtol=1e-6, atol=1e-7)     # chunked streaming vs one-shot
 
 LM_FIXTURES = {"smollm-360m": ROOT / "tests" / "data" / "torch_port_lm_smollm.npz",
+               "qwen2-moe-a2.7b": ROOT / "tests" / "data" / "torch_port_lm_qwen2moe.npz",
+               "hymba-1.5b": ROOT / "tests" / "data" / "torch_port_lm_hymba.npz",
                "mamba2-130m": ROOT / "tests" / "data" / "torch_port_lm_mamba2.npz"}
 LM_GOLDEN_TOL = dict(rtol=1e-4, atol=1e-4)  # reduced fp32 logits vs the reference's
 #: kernel vs plain version, the reference's own tolerances for K5 and K4 in
@@ -140,9 +147,16 @@ K1_BF16_TOL = dict(rtol=2e-2, atol=1e-2)
 #: later layer of a bf16 model carries that lean on; it is counted over
 #: at least K4_LEAN_MIN differing elements
 K4_LEAN_MAX, K4_LEAN_MIN = 0.55, 500
-#: dense head geometries (Hq, Hkv, D): smollm-360m, granite-3-2b, qwen1.5-4b, yi-9b
-K5_GEOMETRIES = ((15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128))
+#: head geometries (Hq, Hkv, D): smollm-360m, granite-3-2b, qwen1.5-4b, yi-9b,
+#: qwen2-moe-a2.7b (G=1), hymba-1.5b (G=5)
+K5_GEOMETRIES = ((15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128), (16, 16, 128),
+                 (25, 5, 64))
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+#: the full-width serving runs (arch, prompt length), B=LM_BATCH, LM_NEW new
+#: tokens: hymba's 1536 is above the 1024-token flash threshold and wider
+#: than its window, so its ring wraps in prefill
+LM_RUNS = (("smollm-360m", LM_PROMPT), ("mamba2-130m", LM_PROMPT), ("mamba2-130m", 500),
+           ("qwen2-moe-a2.7b", LM_PROMPT), ("hymba-1.5b", LM_PROMPT), ("hymba-1.5b", 1536))
 #: copies of smollm's serving cache the cold K5 timings rotate (12 x 5.9 MB > 50 MB of L2)
 K5_COPIES = 12
 #: full-width bf16 logits, kernel path vs plain path under teacher forcing:
@@ -152,6 +166,14 @@ K5_COPIES = 12
 #: carried on by the 24-32 bf16 layers after it); a wrong head, group or
 #: length moves logits by their own size
 LM_TF_TOL = 0.05
+#: qwen2-moe under teacher forcing: a near-tie of the k-th and (k+1)-th
+#: expert flips on a one-ulp difference of the residual, and the flip is
+#: carried on through the layers and the cache.  The served path is held
+#: against a control, the same path with K5's plain version in the
+#: kernel's place: its routing decisions apart from the plain path's, and
+#: its logit gap to it, at most this many times the control's (the gap
+#: at least LM_TF_TOL)
+TF_CONTROL_FACTOR = 2.0
 
 #: H100 SXM peaks (NVIDIA data sheet, dense).  A bound counts each
 #: kernel's work at the peak of the unit that type of work can run on,
@@ -186,13 +208,14 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
+def device_ms(fn, reps: int, kernel: str | None = None, host: bool = True) -> float | None:
     """Device time per call of ``fn`` from ``torch.profiler``: the device
     kernels whose name contains ``kernel`` (all of them if None), summed and
     divided by ``reps``.  One profiled call first counts the kernels a call
     launches; a run of ``reps`` calls whose trace holds another multiple of
     that count (the profiler dropped or split events) is run once more, and
     then None is returned, as it is when no device time was recorded.
+    ``host=False`` traces the device alone (``kernel_trace``).
 
     The first device events of a trace can go unrecorded (seen on the H100
     with torch 2.11, from one event to most of a 50-call trace), so each
@@ -202,14 +225,70 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
 
     fn()
     torch.cuda.synchronize()
-    per_call, _ = kernel_trace(fn, 1, kernel)
+    per_call, _ = kernel_trace(fn, 1, kernel, host)
     for _ in range(2):
-        count, total_us = kernel_trace(fn, reps, kernel)
+        count, total_us = kernel_trace(fn, reps, kernel, host)
         if per_call > 0 and count == per_call * reps and total_us > 0:
             return total_us / reps / 1e3
     log(f"device_ms: {count} kernel events in {reps} calls, want {per_call} per call; "
-        f"timing with CUDA events instead")
+        f"no device time")
     return None
+
+
+def graph_ms(fn, n_calls: int = 12, reps: int = 5) -> float:
+    """Device time per call of ``fn``, without the profiler: ``n_calls``
+    calls captured once as one CUDA graph (after as many warm-up calls on
+    the capture stream), the graph replayed ``reps`` times between CUDA
+    events, the median over ``n_calls``.  It counts each call's whole
+    device work, plus the gap between two kernels of a graph, about a
+    microsecond.  The kernel rows of the ``kernels`` line are timed so."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(n_calls):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n_calls)
+    return statistics.median(times)
+
+
+def top_kernels(fn, reps: int = 3, n: int = 6) -> list:
+    """The ``n`` device kernels that take most of one call of ``fn``:
+    [(name, ms per call, launches per call)] from a device-only trace of
+    ``reps`` calls (after the spin kernels ``device_ms`` describes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(name[:90], ms / reps, count / reps) for name, (ms, count) in ranked]
 
 
 def kernel_trace(fn, n_calls: int, kernel: str | None = None,
@@ -416,17 +495,12 @@ def gw_graph_phases(params, cfg, windows, T, dev, smi, all_packs, state, compare
             kernel = lambda: rowwise_matmul(xr, wr, br)  # noqa: E731
             lib = (lambda: torch.addmm(br, xr, wr)) if br is not None else \
                 (lambda: xr @ wr)  # noqa: E731
-            dev_ms = device_ms(kernel, reps=50, kernel="rowwise_kernel")
-            call_ms = median_ms(kernel, reps=50)
-            lib_dev = device_ms(lib, reps=50)
             b_ms, b_by = rowwise_bound(xr.shape[0], xr.shape[1], wr.shape[1], br is not None)
             rw_rows.append({
                 "what": name, "M": xr.shape[0], "K": xr.shape[1], "N": wr.shape[1],
-                "ms": dev_ms if dev_ms is not None else call_ms,
-                "ms_source": "profiler" if dev_ms is not None else "events",
-                "call_ms": call_ms,
+                "ms": graph_ms(kernel), "call_ms": median_ms(kernel, reps=50),
                 "plain_ms": median_ms(lambda: rowwise_matmul_plain(xr, wr, br), reps=5),
-                "library_ms": lib_dev if lib_dev is not None else median_ms(lib, reps=50),
+                "library_ms": graph_ms(lib),
                 "bound_ms": b_ms, "bound_by": b_by})
     n_fused = 0
     for key in (("fp32", "fp32"), ("bf16", "fp32"), ("bf16", "bf16")):
@@ -1878,7 +1952,7 @@ def ptxas_report(log: str) -> list:
 
 
 def k5_phase(dev) -> float:
-    """K5 against its plain version: the four dense head geometries, S in
+    """K5 against its plain version: the head geometries of K5_GEOMETRIES, S in
     {1, 511, 576, 2048}, B in {1, 8} with ragged lengths down to 1, and the
     edges of its splits (lengths SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1,
     5, 1 and S = 2 * SPLIT_ROWS + 7, NaN past every length), bf16 and fp32
@@ -1927,7 +2001,8 @@ def k5_phase(dev) -> float:
                 msg=lambda m: f"K5 {hq}/{hkv} D={d} split edges {dtype}: {m}")
             err[dtype] = max(err[dtype], (got.float() - want.float()).abs().max().item())
             n += 1
-    log(f"phase 10 K5 ok: {n} cases (4 head geometries, S 1..2048, ragged lengths, the split "
+    log(f"phase 10 K5 ok: {n} cases ({len(K5_GEOMETRIES)} head geometries, S 1..2048, ragged "
+        f"lengths, the split "
         f"edges with NaN past every length, fp32 and bf16), max |kernel - plain| = "
         f"{err[torch.float32]:.3g} in fp32, "
         f"{err[torch.bfloat16]:.3g} in bf16 ({time.perf_counter() - t0:.1f} s)")
@@ -1962,24 +2037,30 @@ def rounding_lean(y, y_plain) -> tuple[int, int]:
 def k4_phase(dev) -> float:
     """K4 against its plain version at mamba2's shapes (H=24, P=64, N=128,
     G=1, chunk 64) and the serving batch (B=8, two waves of CTAs) over T in
-    {1, 64, 500, 512}, plus G=3 at T=500; zero and non-zero s0; fp32 and
-    bf16; over the bf16 cases, the lean of the y elements that round apart
-    (K4_LEAN_MAX).  Returns the max |kernel - plain|."""
+    {1, 64, 500, 512}, plus G=3 at T=500, and at hymba's (H=25, P=64, N=16,
+    G=1: one 16-row state block per (row, head)) over T in {1, 64, 512,
+    1536}; zero and non-zero s0; fp32 and bf16; over the bf16 cases, the
+    lean of the y elements that round apart (K4_LEAN_MAX).  Returns the max
+    |kernel - plain|."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
     gen = torch.Generator(device=dev).manual_seed(11)
     err = {"y fp32": 0.0, "y bf16": 0.0, "state": 0.0}
     n, t0, differ, toward, n_bf16 = 0, time.perf_counter(), 0, 0, 0
-    cases = [(1, t) for t in (1, 64, 500, 512)] + [(3, 500)]
-    for groups, t_len in cases:
+    # (heads, groups, N, T): mamba2-130m's, then hymba-1.5b's
+    cases = ([(24, 1, 128, t) for t in (1, 64, 500, 512)] + [(24, 3, 128, 500)]
+             + [(25, 1, 16, t) for t in (1, 64, 512, 1536)])
+    for heads, groups, n_state, t_len in cases:
         for nonzero in (False, True):
             for dtype in (torch.float32, torch.bfloat16):
-                args = ssd_inputs(gen, dev, LM_BATCH, t_len, 24, groups, 64, 128, dtype, nonzero)
+                args = ssd_inputs(gen, dev, LM_BATCH, t_len, heads, groups, 64, n_state, dtype,
+                                  nonzero)
                 y, s_f = ssd_scan(*args, chunk=64)
                 y_p, s_p = ssd_chunked(*args, chunk=64)
                 torch.cuda.synchronize()
-                what = f"K4 B={LM_BATCH} G={groups} T={t_len} s0={nonzero} {dtype}"
+                what = (f"K4 B={LM_BATCH} H={heads} G={groups} N={n_state} T={t_len} "
+                        f"s0={nonzero} {dtype}")
                 tol = dict(rtol=K4_TOL, atol=K4_TOL) if dtype == torch.float32 else BF16_TOL
                 torch.testing.assert_close(y.float(), y_p.float(), **tol,
                                            msg=lambda m: f"{what} y: {m}")
@@ -1997,18 +2078,112 @@ def k4_phase(dev) -> float:
             f"({differ / n_bf16:.3g}), {share:.3f} of them toward zero")
     if differ >= K4_LEAN_MIN and share > K4_LEAN_MAX:
         raise AssertionError(f"K4 leans toward zero: {lean} (limit {K4_LEAN_MAX})")
-    log(f"phase 11 K4 ok: {n} cases (mamba2 shapes at B={LM_BATCH}, T 1..512, G 1 and 3, "
-        f"zero and non-zero s0, fp32 and bf16), max |kernel - plain| = "
+    log(f"phase 11 K4 ok: {n} cases (mamba2 shapes at B={LM_BATCH}, T 1..512, G 1 and 3; "
+        f"hymba's H=25 N=16, T 1..1536; zero and non-zero s0, fp32 and bf16), "
+        f"max |kernel - plain| = "
         + ", ".join(f"{e:.3g} ({k})" for k, e in err.items())
         + f"; {lean} ({time.perf_counter() - t0:.1f} s)")
     return max(err.values())
 
 
+@contextlib.contextmanager
+def recording_routes(moe_mod, store: list):
+    """Within the block, ``moe_mod.route`` (which ``moe_ffn`` calls) also
+    appends each call's top-k expert indices (G, S, k) to ``store``."""
+    route = moe_mod.route
+
+    def recorded(p, x, cfg):
+        out = route(p, x, cfg)
+        store.append(out[2])
+        return out
+
+    moe_mod.route = recorded
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+
+
+@contextlib.contextmanager
+def k5_plain_in_path():
+    """Within the block, the LM decode path's K5 entry (``decode_attn_op``,
+    which ``layers.attention_decode`` imports at each call) runs K5's plain
+    version: the kernel path with the kernel taken out."""
+    import repro_torch.kernels.decode_attn as k5_pkg
+
+    op = k5_pkg.decode_attn_op
+    k5_pkg.decode_attn_op = k5_pkg.decode_attn_plain
+    try:
+        yield
+    finally:
+        k5_pkg.decode_attn_op = op
+
+
+@contextlib.contextmanager
+def pinned_routes(moe_mod, decisions: list):
+    """Within the block, each ``moe_mod.route`` call returns the next of
+    ``decisions`` (top-k expert indices recorded by ``recording_routes``)
+    with this run's own probabilities for those experts."""
+    import torch
+
+    route, turn = moe_mod.route, iter(decisions)
+
+    def pinned(p, x, cfg):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        top_i = next(turn)
+        return probs, probs.gather(-1, top_i), top_i
+
+    moe_mod.route = pinned
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+    if next(turn, None) is not None:
+        raise AssertionError("pinned routing: the run made fewer moe_ffn calls than recorded")
+
+
+def tf_stats(name: str, got: tuple, want: tuple, vocab: int) -> dict:
+    """Teacher-forced logits (prefill, decode steps) of two runs over the
+    real vocabulary: max |difference|, max |logit| of ``want``, the share
+    of equal argmaxes."""
+    import torch
+
+    stats = {}
+    for what, a, b in (("prefill", got[0], want[0]), ("decode", got[1], want[1])):
+        a, b = a[..., :vocab], b[..., :vocab]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{name} {what}: non-finite logits")
+        stats[what] = {"max_abs_diff": (a - b).abs().max().item(),
+                       "max_abs_logit": b.abs().max().item(),
+                       "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
+    return stats
+
+
+def routing_flips(got: list, want: list) -> dict:
+    """The routing decisions of two runs that differ, in prefill calls and
+    in decode calls (one token per row): the (token, choice) entries that
+    name another expert, and the tokens whose set of k experts differs."""
+    if len(got) != len(want):
+        raise AssertionError(f"routing: {len(got)} moe_ffn calls against {len(want)}")
+    out = {}
+    for what in ("prefill", "decode"):
+        pairs = [(a, b) for a, b in zip(got, want) if (b.shape[1] == 1) == (what == "decode")]
+        out[what] = {
+            "decisions": sum(b.numel() for _, b in pairs),
+            "choices_differ": sum(int((a != b).sum()) for a, b in pairs),
+            "tokens": sum(b.shape[0] * b.shape[1] for _, b in pairs),
+            "tokens_with_other_experts": sum(
+                int((a.sort(-1).values != b.sort(-1).values).any(-1).sum()) for a, b in pairs)}
+    return out
+
+
 def lm_phases(dev, smi: str) -> tuple[list, dict]:
     """Phases 10-14 and 19: K5 and K4 against their plain versions, the
-    reduced LM golden fixtures, full-width serving of smollm-360m and
-    mamba2-130m (graph replay, held against the eager kernel path bit for
-    bit and against the plain path), timing, and eager vs replay timing.
+    reduced LM golden fixtures, full-width serving of the LM_RUNS (graph
+    replay, held against the eager kernel path bit for bit and against the
+    plain path; for the MoE family with the routing decisions counted and
+    held against a control, and the plain path's routing pinned), timing,
+    and eager vs replay timing.
     Returns the ``kernels`` entries of K5 and K4 and the eager vs replay
     report."""
     import torch
@@ -2020,6 +2195,7 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
     from repro_torch.models.api import get_model
     from repro_torch.serve.engine import LmEngine
+    from repro_torch.tree import tree_leaves
 
     k5_mod = sys.modules["repro_torch.kernels.decode_attn.decode_attn"]
     k4_mod = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
@@ -2038,11 +2214,11 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         return {"decode_attn": decode_attn.launches, "ssd_scan": ssd_scan.launches}
 
     def want_launches(cfg, n_steps):
-        """K5 once per layer per decode step (dense); K4 once per layer per
-        prefill (ssm)."""
-        if cfg.family == "dense":
-            return {"decode_attn": cfg.n_layers * n_steps, "ssd_scan": 0}
-        return {"decode_attn": 0, "ssd_scan": cfg.n_layers}
+        """K5 once per layer per decode step (dense, moe, hybrid); K4 once per
+        layer per prefill (ssm, hybrid)."""
+        attends, scans = cfg.family in ("dense", "moe", "hybrid"), cfg.family in ("ssm", "hybrid")
+        return {"decode_attn": cfg.n_layers * n_steps if attends else 0,
+                "ssd_scan": cfg.n_layers if scans else 0}
 
     # -- phase 12: the reduced golden fixtures, kernels on -------------------
     t0 = time.perf_counter()
@@ -2065,7 +2241,7 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         np.testing.assert_array_equal(eng.generate(gold["prompt"], n_new), gold["tokens"],
                                       err_msg=f"{name} greedy tokens vs reference")
     unblock_plain()
-    log(f"phase 12 LM golden ok: reduced smollm-360m and mamba2-130m logits within 1e-4 "
+    log(f"phase 12 LM golden ok: reduced {', '.join(LM_FIXTURES)} logits within 1e-4 "
         f"of the reference's, tokens equal ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 13: full-width serving, bf16, B=8 -------------------------------
@@ -2074,14 +2250,24 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
     rng = np.random.default_rng(0)
     report, path_launches, graphs_report = {}, {"decode_attn": 0, "ssd_scan": 0}, {}
     per_step, per_prefill = {}, {}  # measured on the serving runs (1 prefill, LM_NEW - 1 steps)
-    params = None
-    for name, prompt_len in (("smollm-360m", LM_PROMPT), ("mamba2-130m", LM_PROMPT),
-                             ("mamba2-130m", 500)):
+    moe_mod = sys.modules["repro_torch.models.moe"]
+    params = params_of = eng = plain = eager = None
+    for name, prompt_len in LM_RUNS:
         t0 = time.perf_counter()
         cfg = get_arch(name)
-        if prompt_len == LM_PROMPT:  # one set of weights per model
-            params = None
+        if name != params_of:  # one set of weights per model
+            params = eng = plain = eager = None
+            torch.cuda.empty_cache()
             params = get_model(cfg).init_params(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            params_of, init_s = name, time.perf_counter() - t0
+            # a decode step reads every weight but the embedding table once
+            leaves = tree_leaves({k: v for k, v in params.items() if k != "embed"})
+            weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+            expert_bytes = sum(params["layers"]["moe"][k].numel() * 2
+                               for k in ("w_gate", "w_up", "w_down")) if cfg.n_experts else 0
+            log(f"phase 13 {name}: init_params {init_s:.1f} s, {weight_bytes / 1e9:.2f} GB of "
+                f"weights a decode step reads (experts {expert_bytes / 1e9:.2f} GB)")
         prompts = rng.integers(0, cfg.vocab, (LM_BATCH, prompt_len)).astype(np.int32)
         eng = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev)
         eng.generate(prompts[:, :16], 2)  # warm-up (cuBLAS handles, first launches)
@@ -2121,21 +2307,11 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         eng.step = step
         plain = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev,
                          use_kernel=False)
-        p_pre, p_steps = plain.teacher_forced(prompts, tokens)
+        routes = {"plain": [], "eager": []}  # each moe_ffn call's top-k experts (MoE)
+        with recording_routes(moe_mod, routes["plain"]):
+            p_pre, p_steps = plain.teacher_forced(prompts, tokens)
         torch.cuda.synchronize()
-        stats = {}
-        for what, a, b in (("prefill", k_pre, p_pre), ("decode", k_steps, p_steps)):
-            a, b = a[..., : cfg.vocab], b[..., : cfg.vocab]
-            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-                raise AssertionError(f"{name} {what}: non-finite logits")
-            stats[what] = {"max_abs_diff": (a - b).abs().max().item(),
-                           "max_abs_logit": b.abs().max().item(),
-                           "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
-        for what, st in stats.items():
-            limit = LM_TF_TOL * st["max_abs_logit"]
-            if st["max_abs_diff"] > limit:
-                raise AssertionError(f"{name} {what}: kernel path logits differ from the plain "
-                                     f"path's by {st['max_abs_diff']:.4g} > {limit:.4g}")
+        stats = tf_stats(name, (k_pre, k_steps), (p_pre, p_steps), cfg.vocab)
         # graph replay vs the eager kernel path: the same logits bit for
         # bit, the same greedy tokens
         eager = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev, graphs=False)
@@ -2150,9 +2326,49 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
             return out
 
         eager.step = timed_eager_step
-        e_pre, e_steps = eager.teacher_forced(prompts, tokens)
+        with recording_routes(moe_mod, routes["eager"]):
+            e_pre, e_steps = eager.teacher_forced(prompts, tokens)
         eager.step = e_step
         torch.cuda.synchronize()
+        limits = {what: LM_TF_TOL * stats[what]["max_abs_logit"] for what in stats}
+        if cfg.n_experts:
+            # the control (TF_CONTROL_FACTOR), then the eager kernel path
+            # given the plain path's routing decisions: K5's own share of
+            # the gap, held to LM_TF_TOL
+            routes["control"] = []
+            with k5_plain_in_path(), recording_routes(moe_mod, routes["control"]):
+                ctrl = tf_stats(name, eager.teacher_forced(prompts, tokens), (p_pre, p_steps),
+                                cfg.vocab)
+            ctrl["routing"] = routing_flips(routes["control"], routes["plain"])
+            stats["routing"] = routing_flips(routes["eager"], routes["plain"])
+            stats["control"] = ctrl
+            stats["routing_kernel_vs_control"] = routing_flips(routes["eager"],
+                                                               routes["control"])
+            with pinned_routes(moe_mod, routes["plain"]):
+                pinned = tf_stats(name, eager.teacher_forced(prompts, tokens), (p_pre, p_steps),
+                                  cfg.vocab)
+            stats["routing_pinned"] = pinned
+            log(f"phase 13 {name} prompt {prompt_len}: under teacher forcing, against the plain "
+                f"path: kernel path routing {stats['routing']}, logits {stats['decode']}; "
+                f"control (K5's plain version in the path) routing {ctrl['routing']}, logits "
+                f"{ctrl['decode']}; kernel path vs control routing "
+                f"{stats['routing_kernel_vs_control']}; kernel path given the plain path's "
+                f"routing: logits {pinned['decode']}")
+            flips = stats["routing"]["decode"]["choices_differ"]
+            flip_limit = TF_CONTROL_FACTOR * ctrl["routing"]["decode"]["choices_differ"]
+            if flips > flip_limit:
+                raise AssertionError(f"{name}: the kernel path's routing differs from the plain "
+                                     f"path's on {flips} decode decisions > {flip_limit:.0f}")
+            limits["decode"] = max(limits["decode"],
+                                   TF_CONTROL_FACTOR * ctrl["decode"]["max_abs_diff"])
+            if pinned["decode"]["max_abs_diff"] > LM_TF_TOL * pinned["decode"]["max_abs_logit"]:
+                raise AssertionError(f"{name} decode, given the plain path's routing: kernel path "
+                                     f"logits differ by {pinned['decode']['max_abs_diff']:.4g}")
+        routes = None
+        for what, limit in limits.items():
+            if stats[what]["max_abs_diff"] > limit:
+                raise AssertionError(f"{name} {what}: kernel path logits differ from the plain "
+                                     f"path's by {stats[what]['max_abs_diff']:.4g} > {limit:.4g}")
         if not (torch.equal(k_pre, e_pre) and torch.equal(k_steps, e_steps)):
             raise AssertionError(f"{name}: replayed teacher-forced logits differ from the eager "
                                  f"kernel path's (max {(k_steps - e_steps).abs().max().item()})")
@@ -2166,13 +2382,18 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
                 e.prefill(prompts)
                 torch.cuda.synchronize()
                 pre_ms[mode].append((time.perf_counter() - t1) * 1e3)
-        # device time of a prefill and of one decode step (every kernel the
-        # profiler records, summed); the rest of the host time the card idles
+        # device time of a prefill and of one decode step (every kernel a
+        # device-only trace records, summed; None where the trace's count
+        # of kernels is off); the rest of the host time the card idles
         busy = {}
         for mode, e in (("replay", eng), ("eager", eager)):
             _, cache = e.prefill(prompts)
-            busy[mode] = (device_ms(lambda: e.prefill(prompts), reps=2),
-                          device_ms(lambda: e.step(cache, tokens[:, :1]), reps=5))
+            calls = (lambda: e.prefill(prompts), lambda: e.step(cache, tokens[:, :1]))
+            busy[mode] = [device_ms(fn, reps=r, host=False) for fn, r in zip(calls, (2, 5))]
+            if mode == "replay":
+                top = {what: top_kernels(fn) for what, fn in zip(("prefill", "decode"), calls)}
+                log(f"phase 13 {name} prompt {prompt_len}: the kernels that take most of a "
+                    f"replayed prefill and decode step (name, ms, launches per call): {top}")
         busy_pre, busy_step = busy["replay"]
         prefill_ms, decode_ms = statistics.median(pre_ms["replay"]), statistics.median(step_ms)
         e_prefill_ms, e_decode_ms = statistics.median(pre_ms["eager"]), statistics.median(e_step_ms)
@@ -2198,106 +2419,120 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
             "prefill_device_ms": busy_pre, "decode_step_device_ms": busy_step,
             "prefill_idle_share": None if busy_pre is None else 1 - busy_pre / prefill_ms,
             "decode_idle_share": None if busy_step is None else 1 - busy_step / decode_ms,
-            "launches": c, "teacher_forced": stats}
+            "launches": c, "teacher_forced": stats, "init_params_s": init_s,
+            "top_kernels": top,
+            "decode_weight_bytes": weight_bytes,
+            "decode_weight_floor_ms": weight_bytes / PEAK_BYTES_PER_S * 1e3,
+            **({"decode_expert_bytes": expert_bytes,
+                "decode_expert_floor_ms": expert_bytes / PEAK_BYTES_PER_S * 1e3}
+               if cfg.n_experts else {})}
         log(f"phase 13 {name} prompt {prompt_len} ok: B={LM_BATCH}, {LM_NEW} tokens in "
             f"{wall:.3f} s ({LM_BATCH * LM_NEW / wall:.0f} tok/s), prefill {prefill_ms:.2f} ms "
             f"(device {busy_pre} ms), decode {decode_ms:.3f} ms per step (device {busy_step} "
             f"ms), launches {c}, kernel vs plain path under teacher forcing {stats}; "
             f"replay bit-equal to the eager kernel path (eager: prefill {e_prefill_ms:.2f} ms, "
             f"decode {e_decode_ms:.3f} ms per step) ({time.perf_counter() - t0:.1f} s)")
-    params = None
+    params = eng = plain = eager = None
+    torch.cuda.empty_cache()
     log(smi)
     log(json.dumps({"lm_e2e": report}))
 
     # -- phase 14: K5 and K4 timing at the serving shapes -----------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(14)
-    cfg = get_arch("smollm-360m")
     s_len = LM_PROMPT + LM_NEW
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = torch.randn(LM_BATCH, hq, d, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(LM_BATCH, s_len, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    # a decode step finds its layer's cache cold in L2 (32 layers of weights,
-    # 720 MB, pass between two launches of one layer): the cold timings
-    # rotate K5_COPIES copies of the cache, 12 x 5.9 MB against the 50 MB L2;
-    # the warm ones call on one copy
-    copies = [(k.clone(), v.clone()) for _ in range(K5_COPIES)]
-    n_split = n_splits(s_len)
-    log(f"phase 14 K5 launch at the serving shape: {n_split} splits of {SPLIT_ROWS} rows, "
-        f"grid {LM_BATCH * hkv} x {n_split} = {LM_BATCH * hkv * n_split} CTAs")
+    # (arch, cache rows, lengths): smollm's first and last decode step, the
+    # last of qwen2-moe (G=1) and of hymba (G=5) over its 576-slot ring, and
+    # hymba's wrapped 1024-slot ring (prompt 1536), every slot valid
+    k5_cases = (("smollm-360m", s_len, (LM_PROMPT + 1, s_len)),
+                ("qwen2-moe-a2.7b", s_len, (s_len,)), ("hymba-1.5b", s_len, (s_len,)),
+                ("hymba-1.5b", 1024, (1024,)))
     k5_rows = []
-    for length in (LM_PROMPT + 1, s_len):  # the first and the last decode step's cache
-        lens = torch.full((LM_BATCH,), length, dtype=torch.int32, device=dev)
-        qs = q[:, :, None]
-        views = [(kc[:, :length].transpose(1, 2), vc[:, :length].transpose(1, 2))
-                 for kc, vc in copies]
-        turn = itertools.count()
+    for arch, rows, lengths in k5_cases:
+        cfg = get_arch(arch)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = torch.randn(LM_BATCH, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(LM_BATCH, rows, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        # a decode step finds its layer's cache cold in L2 (every layer's
+        # weights pass between two launches of one layer): the cold timings
+        # rotate K5_COPIES copies of the cache (12 x 5.9 MB at smollm's
+        # against the 50 MB L2); the warm ones call on one copy
+        copies = [(k.clone(), v.clone()) for _ in range(K5_COPIES)]
+        n_split = n_splits(rows)
+        log(f"phase 14 K5 launch at {arch}'s shape ({hq}/{hkv} heads, D={d}, {rows} rows): "
+            f"{n_split} splits of {SPLIT_ROWS} rows, grid {LM_BATCH * hkv} x {n_split} = "
+            f"{LM_BATCH * hkv * n_split} CTAs")
+        for length in lengths:
+            lens = torch.full((LM_BATCH,), length, dtype=torch.int32, device=dev)
+            qs = q[:, :, None]
+            views = [(kc[:, :length].transpose(1, 2), vc[:, :length].transpose(1, 2))
+                     for kc, vc in copies]
+            turn = itertools.count()
 
-        def lib_call(cold=False):
-            ks, vs = views[next(turn) % K5_COPIES if cold else 0]
-            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+            def lib_call(cold=False):
+                ks, vs = views[next(turn) % K5_COPIES if cold else 0]
+                return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
 
-        def kernel(cold=False):
-            kc, vc = copies[next(turn) % K5_COPIES if cold else 0]
-            return decode_attn(q, kc, vc, lens)
+            def kernel(cold=False):
+                kc, vc = copies[next(turn) % K5_COPIES if cold else 0]
+                return decode_attn(q, kc, vc, lens)
 
-        torch.testing.assert_close(kernel().float(), decode_attn_plain(q, k, v, lens).float(),
-                                   **BF16_TOL, msg=lambda m: f"K5 timing inputs {length}: {m}")
-        lib_err = (lib_call()[:, :, 0].float() - kernel().float()).abs().max().item()
-        times = {}
-        for what, fn in (("kernel", kernel), ("library", lib_call)):
-            for cold in (True, False):
-                call = functools.partial(fn, cold)
-                dev_ms = device_ms(call, reps=50,
-                                   kernel="decode_attn_kernel" if what == "kernel" else None)
-                ev_ms = median_ms(call, reps=50)
-                times[what, cold] = (dev_ms if dev_ms is not None else ev_ms, ev_ms,
-                                     "profiler" if dev_ms is not None else "events")
-        b_ms, b_by = decode_attn_bound(LM_BATCH, hq, hkv, d, LM_BATCH * length, 2)
-        k5_rows.append({
-            "B": LM_BATCH, "Hq": hq, "Hkv": hkv, "D": d, "S": s_len, "length": length,
-            "dtype": "bf16",
-            "ms": times["kernel", True][0], "ms_source": times["kernel", True][2],
-            "call_ms": times["kernel", True][1], "ms_warm": times["kernel", False][0],
-            "call_ms_warm": times["kernel", False][1],
-            "plain_ms": median_ms(lambda: decode_attn_plain(q, k, v, lens), reps=5),
-            "library_ms": times["library", True][0],
-            "library_call_ms": times["library", True][1],
-            "library_ms_warm": times["library", False][0],
-            "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by})
-    copies = views = None
-    mcfg = get_arch("mamba2-130m")
-    heads = mcfg.ssm_expand * mcfg.d_model // mcfg.ssm_head_dim
+            torch.testing.assert_close(kernel().float(), decode_attn_plain(q, k, v, lens).float(),
+                                       **BF16_TOL,
+                                       msg=lambda m: f"K5 timing inputs {arch} {length}: {m}")
+            lib_err = (lib_call()[:, :, 0].float() - kernel().float()).abs().max().item()
+            times = {}
+            for what, fn in (("kernel", kernel), ("library", lib_call)):
+                for cold in (True, False):
+                    call = functools.partial(fn, cold)
+                    times[what, cold] = (graph_ms(call, K5_COPIES), median_ms(call, reps=50))
+            b_ms, b_by = decode_attn_bound(LM_BATCH, hq, hkv, d, LM_BATCH * length, 2)
+            k5_rows.append({
+                "arch": arch, "B": LM_BATCH, "Hq": hq, "Hkv": hkv, "D": d, "S": rows,
+                "length": length, "dtype": "bf16",
+                "ms": times["kernel", True][0],
+                "call_ms": times["kernel", True][1], "ms_warm": times["kernel", False][0],
+                "call_ms_warm": times["kernel", False][1],
+                "plain_ms": median_ms(lambda: decode_attn_plain(q, k, v, lens), reps=5),
+                "library_ms": times["library", True][0],
+                "library_call_ms": times["library", True][1],
+                "library_ms_warm": times["library", False][0],
+                "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by})
+        copies = views = None
     k4_rows = []
-    for t_len in (LM_PROMPT, 500):
+    for arch, t_len in (("mamba2-130m", LM_PROMPT), ("mamba2-130m", 500),
+                        ("hymba-1.5b", LM_PROMPT), ("hymba-1.5b", 1536)):
+        mcfg = get_arch(arch)
+        # the SSM's inner width: d_model in a hybrid layer's branch
+        heads = (mcfg.d_model if mcfg.hybrid else mcfg.ssm_expand * mcfg.d_model) \
+            // mcfg.ssm_head_dim
         args = ssd_inputs(gen, dev, LM_BATCH, t_len, heads, mcfg.ssm_groups, mcfg.ssm_head_dim,
                           mcfg.ssm_state, torch.bfloat16, False)
         kernel = lambda: ssd_scan(*args, chunk=64)  # noqa: E731
         (y, s_f), (y_p, s_p) = kernel(), ssd_chunked(*args, chunk=64)
         torch.testing.assert_close(y.float(), y_p.float(), **BF16_TOL,
-                                   msg=lambda m: f"K4 timing inputs T={t_len} y: {m}")
+                                   msg=lambda m: f"K4 timing inputs {arch} T={t_len} y: {m}")
         torch.testing.assert_close(s_f, s_p, rtol=K4_TOL, atol=K4_TOL,
-                                   msg=lambda m: f"K4 timing inputs T={t_len} state: {m}")
-        ms = device_ms(kernel, reps=20)  # every kernel one ssd_scan call launches
+                                   msg=lambda m: f"K4 timing inputs {arch} T={t_len} state: {m}")
+        ms = graph_ms(kernel, 5)  # every kernel one ssd_scan call launches
         call_ms = median_ms(kernel, reps=20)
         b_ms, b_by = ssd_bound(LM_BATCH, t_len, heads, mcfg.ssm_groups, mcfg.ssm_head_dim,
                                mcfg.ssm_state, 64, 2, False)
         k4_rows.append({
-            "B": LM_BATCH, "T": t_len, "H": heads, "G": mcfg.ssm_groups, "P": mcfg.ssm_head_dim,
-            "N": mcfg.ssm_state, "chunk": 64, "dtype": "bf16",
-            "ms": ms if ms is not None else call_ms,
-            "ms_source": "profiler" if ms is not None else "events", "call_ms": call_ms,
+            "arch": arch, "B": LM_BATCH, "T": t_len, "H": heads, "G": mcfg.ssm_groups,
+            "P": mcfg.ssm_head_dim, "N": mcfg.ssm_state, "chunk": 64, "dtype": "bf16",
+            "ms": ms, "call_ms": call_ms,
             "plain_ms": median_ms(lambda: ssd_chunked(*args, chunk=64), reps=5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
-    ctas = k4_mod.library().lib.ssd_scan_ctas(LM_BATCH, heads, mcfg.ssm_head_dim)
-    for r in k4_rows:
-        log(f"phase 14 K4 B={r['B']} T={r['T']} H={r['H']} P={r['P']} N={r['N']} bf16, "
-            f"{ctas} CTAs: {r['ms']:.4g} ms ({r['ms_source']}; call {r['call_ms']:.4g} ms, "
+        r = k4_rows[-1]
+        log(f"phase 14 K4 {arch} B={r['B']} T={r['T']} H={r['H']} P={r['P']} N={r['N']} bf16, "
+            f"{k4_mod.library().lib.ssd_scan_ctas(LM_BATCH, heads, mcfg.ssm_head_dim)} CTAs: "
+            f"{r['ms']:.4g} ms (call {r['call_ms']:.4g} ms, "
             f"plain {r['plain_ms']:.4g} ms), bound {r['bound_ms']:.4g} ms ({r['bound_by']})")
     log(f"phase 14 LM kernel timing ok ({time.perf_counter() - t0:.1f} s)")
 
-    head5, head4 = k5_rows[-1], k4_rows[0]  # the last decode step; the 512-token prefill
+    head5, head4 = k5_rows[1], k4_rows[0]  # smollm's last decode step; mamba2's 512-token prefill
     kernels = [
         {"name": "decode_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
@@ -2741,16 +2976,12 @@ def main() -> int:
                 else lstm_stack(project_layer0(xs, s, "fp32"), s["w_x"], s["w_h"], s["b"], h0, c0)
             lib_err = (lib_call()[1][1] - ours[2]).abs().max().item()
             lib_ms = median_ms(lib_call, reps=50)
-            lib_dev = device_ms(lib_call, reps=50)
+            lib_dev = graph_ms(lib_call)
         b_ms, b_by = bound(name == "lstm_stack_step", L, W, t_len, B=batch)
-        call_ms = median_ms(kernel, reps=50)
-        ms = device_ms(kernel, reps=50, kernel="lstm_stack_kernel")
         rows[name].append({
-            "T": t_len, "B": batch,
-            "ms": ms if ms is not None else call_ms,
-            "ms_source": "profiler" if ms is not None else "events",
-            "call_ms": call_ms, "plain_ms": median_ms(plain, reps=3, warmup=1),
-            "library_ms": lib_dev if lib_dev is not None else lib_ms,
+            "T": t_len, "B": batch, "ms": graph_ms(kernel),
+            "call_ms": median_ms(kernel, reps=50), "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "library_ms": lib_dev,
             "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
         })
@@ -2792,17 +3023,15 @@ def main() -> int:
         lib_call = lambda: lib(x_lib, (h0[None], c0[None]))  # noqa: E731
         with torch.no_grad():
             lib_ms = median_ms(lib_call, reps=50)
-            lib_dev = device_ms(lib_call, reps=50)
+            lib_dev = graph_ms(lib_call)
         call_ms = median_ms(kernel, reps=50)
-        dev_ms = device_ms(kernel, reps=50)
-        ms = dev_ms if dev_ms is not None else call_ms
+        ms = graph_ms(kernel)
         b_ms, b_by = scan_bound(H, t_len, batch, n_in if layer_entry else 0)
         rows["lstm_scan"].append({
             "entry": entry, "H": H, "IN": n_in, "T": t_len, "B": batch,
             "kernel_path": kernel_path(H, n_in if layer_entry else 0),
-            "ms": ms, "ms_source": "profiler" if dev_ms is not None else "events",
-            "call_ms": call_ms, "plain_ms": median_ms(plain, reps=3, warmup=1),
-            "library_ms": lib_dev if lib_dev is not None else lib_ms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "library_ms": lib_dev,
             "library_call_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
         })
     # end to end, host clock: one T=1 push (a window completion every T

@@ -75,8 +75,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-#: LM leaves the reference stores at the model dtype; every other LM leaf
-#: (norm scales, QKV biases, conv weights, a_log, d_skip, dt_bias) is fp32
+#: LM leaves the reference stores at the model dtype (the MoE experts and
+#: shared SwiGLU use the MLP's names, the SSM branch its projections'); every
+#: other LM leaf (norm scales with ``norm_attn`` and ``norm_ssm``, QKV
+#: biases, the MoE router, conv weights, a_log, d_skip, dt_bias) is fp32
 LM_MODEL_DTYPE_LEAVES = frozenset({
     "embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
     "in_proj", "out_proj",

@@ -1,10 +1,15 @@
 """Serving launcher: LM decode or GW anomaly streaming on the port.
 
 LM mode (batched prefill + greedy decode through ``LmEngine``; the
-``dense`` and ``ssm`` families, random weights from seed 0):
+``dense``, ``moe``, ``ssm`` and ``hybrid`` families, random weights from
+seed 0):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch smollm-360m --reduced --prompt-len 16 --new-tokens 16
+
+(``--arch qwen2-moe-a2.7b``, ``dbrx-132b``, ``mamba2-130m`` or
+``hymba-1.5b`` likewise; ``--device cpu`` with ``--reduced`` on a machine
+without a card.)
 
 Anomaly mode (the paper's use case: persistent-state B=1 streaming on the
 fused stack, weights packed once at engine init; short chunks ride the
@@ -47,7 +52,7 @@ its provenance (explicit, tuned, default, balanced) and a mixed plan's
 layer assignment, and exits.
 
 Not ported yet, refused with a ``ValueError`` naming its later slice:
-``--mode lm`` for the ``moe``, ``hybrid`` and ``encdec`` families.
+``--mode lm`` for the ``encdec`` family.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the engine runs; cpu runs the plain versions")
     # lm mode
-    ap.add_argument("--arch", help="LM arch id (lm mode; dense and ssm families)")
+    ap.add_argument("--arch", help="LM arch id (lm mode; dense, moe, ssm and hybrid families)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

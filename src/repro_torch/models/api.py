@@ -1,8 +1,10 @@
 """Uniform model API: family dispatch.
 
 ``get_model(cfg)`` returns a ``ModelApi`` with the entry points a family's
-serving path needs.  The port has the ``dense`` and ``ssm`` families; the
-others raise a ``ValueError`` naming their later slice.  The reference's
+serving path needs.  The port has the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` families; ``encdec`` raises a ``ValueError`` naming its later
+slice.  ``forward`` returns logits only, as the reference's does (MoE's own
+``forward`` returns ``(logits, aux)``).  The reference's
 ``input_specs`` and ``abstract_*`` helpers belong to the dry run, and
 ``loss_fn`` to LM training: both come with later slices.
 """
@@ -13,7 +15,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 
 
 @dataclass(frozen=True)
@@ -24,20 +26,24 @@ class ModelApi:
     prefill: Callable        # (params, batch, cfg, max_len) -> (logits, cache)
     decode_step: Callable    # (params, cache, batch, cfg) -> (logits, cache)
     init_cache: Callable     # (cfg, batch, max_len, dtype, device) -> cache
-    kernel_entry: str        # "prefill" | "decode_step": the one that takes use_kernel
+    kernel_entry: tuple      # of "prefill", "decode_step": the ones that take use_kernel
+    ring_cache: bool         # the KV cache is a ring: a position may pass its rows
 
 
-_FAMILIES = {"dense": transformer, "ssm": ssm}
-#: the entry point through which each family reaches its kernel: K5 in the
-#: dense decode, K4 in the SSM prefill
-_KERNEL_ENTRY = {"dense": "decode_step", "ssm": "prefill"}
+#: per family: its module, the entry points through which it reaches its
+#: kernels (K5 in the attention decode, K4 in the SSM prefill), and whether
+#: its KV cache is a ring
+_FAMILIES = {"dense": (transformer, ("decode_step",), False),
+             "moe": (moe, ("decode_step",), False),
+             "ssm": (ssm, ("prefill",), False),
+             "hybrid": (hybrid, ("prefill", "decode_step"), True)}
 
 #: families of the reference that later slices of the port bring
-_LATER = {
-    "moe": "the MoE family (ROADMAP queue 1, item 13)",
-    "hybrid": "the hybrid family: window ring and SSM branch (ROADMAP queue 1, item 13)",
-    "encdec": "the encoder-decoder family (ROADMAP queue 1, item 13)",
-}
+_LATER = {"encdec": "the encoder-decoder family (ROADMAP queue 1, item 13)"}
+
+
+def _moe_logits(*args, **kwargs):
+    return moe.forward(*args, **kwargs)[0]
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
@@ -46,13 +52,14 @@ def get_model(cfg: ArchConfig) -> ModelApi:
                          f"with a later slice of the port: {_LATER[cfg.family]}")
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
-    mod = _FAMILIES[cfg.family]
+    mod, kernel_entry, ring_cache = _FAMILIES[cfg.family]
     return ModelApi(
         family=cfg.family,
         init_params=mod.init_params,
-        forward=mod.forward,
+        forward=_moe_logits if mod is moe else mod.forward,
         prefill=mod.prefill,
         decode_step=mod.decode_step,
         init_cache=mod.init_cache,
-        kernel_entry=_KERNEL_ENTRY[cfg.family],
+        kernel_entry=kernel_entry,
+        ring_cache=ring_cache,
     )

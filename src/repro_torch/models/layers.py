@@ -185,6 +185,7 @@ def attention_decode(
     cfg: ArchConfig,
     *,
     window: int | None = None,
+    ring: bool = False,
     use_kernel: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode: write this token's K/V into the cache at ``pos``
@@ -192,6 +193,11 @@ def attention_decode(
     with device ops only (no host copy), so the step can be captured in a
     CUDA graph; the caller keeps it inside the cache (``LmEngine`` checks
     the range on the host before the step).
+
+    ``ring=True`` treats the cache as a ring of S_max slots (the hybrid
+    family's window cache): the token goes to slot ``pos % S_max`` and
+    attention runs over the first ``min(pos + 1, S_max)`` slots, with no
+    window mask (every slot of a wrapped ring is inside the window).
 
     ``use_kernel=True`` runs the decode-attention kernel (K5), which has no
     window mask: a window with the kernel raises instead of being dropped
@@ -211,10 +217,11 @@ def attention_decode(
     cos, sin = rope_tables(pos, hd, cfg.rope_theta)  # (1, hd/2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    row = pos.long()
+    rows = cache_k.shape[1]
+    row = (pos % rows if ring else pos).long()
     cache_k.index_copy_(1, row, k.to(cache_k.dtype))
     cache_v.index_copy_(1, row, v.to(cache_v.dtype))
-    kv_len = pos + 1
+    kv_len = torch.clamp(pos + 1, max=rows) if ring else pos + 1
     if use_kernel:
         from repro_torch.kernels.decode_attn import decode_attn_op
 

@@ -754,7 +754,8 @@ class LmEngine:
     the next ``prefill`` of that shape overwrites it.  ``graphs=False``
     runs the kernel path eagerly; the plain path and the CPU always do.
     The engine counts each cache's position on the host and refuses a
-    step past the cache's last row before launching anything.
+    step past the cache's last row before launching anything; the hybrid
+    family's ring cache wraps instead, so its position may pass its rows.
     """
 
     def __init__(self, params: dict, cfg, max_len: int = 256,
@@ -768,9 +769,10 @@ class LmEngine:
         self.api = get_model(cfg)
         self.max_len = max_len
         self.use_kernel = use_kernel
-        # only the entry point that reaches the family's kernel takes use_kernel
+        # only the entry points that reach the family's kernels take use_kernel
         self._entry_kw = {"prefill": {}, "decode_step": {}}
-        self._entry_kw[self.api.kernel_entry] = {"use_kernel": use_kernel}
+        for entry in self.api.kernel_entry:
+            self._entry_kw[entry] = {"use_kernel": use_kernel}
         self.launches = {"decode_attn": 0, "ssd_scan": 0}
         self._graphs = graphs and use_kernel and self.device.type == "cuda"
         self._calls: dict = {}    # ("prefill", B, S) | ("step", B, rows) -> (tokens, graph)
@@ -807,7 +809,8 @@ class LmEngine:
 
     @staticmethod
     def _rows(cache: dict) -> int:
-        """Rows of a KV cache (0 for an SSM state, which has no length)."""
+        """Rows of a KV cache, a ring's slots for the hybrid family's (0 for
+        an SSM state, which has no length)."""
         return cache["k"].shape[2] if "k" in cache else 0
 
     def _static_cache(self, batch: int, like: dict) -> dict:
@@ -859,7 +862,7 @@ class LmEngine:
         """One decode step for tokens (B, 1) -> (logits (B, 1, V_padded), cache)."""
         pos = self._position(cache)
         rows = self._rows(cache)
-        if rows and not 0 <= pos < rows:
+        if rows and not self.api.ring_cache and not 0 <= pos < rows:  # a ring wraps
             raise ValueError(f"LmEngine.step: position {pos} outside a cache of {rows} rows")
         tokens = torch.as_tensor(tokens)
         kw = self._entry_kw["decode_step"]

@@ -180,8 +180,7 @@ def test_ssm_block_continues_from_a_state():
         np.testing.assert_allclose(_np(t_st[key]), _np(r_st[key]), **MODEL_TOL)
 
 
-@pytest.mark.parametrize("name,family", [("dbrx-132b", "moe"), ("hymba-1.5b", "hybrid"),
-                                         ("seamless-m4t-large-v2", "encdec")])
+@pytest.mark.parametrize("name,family", [("seamless-m4t-large-v2", "encdec")])
 def test_later_families_are_refused(name, family):
     with pytest.raises(ValueError, match=f"{family}.*not ported yet.*later slice"):
         get_model(get_arch(name))

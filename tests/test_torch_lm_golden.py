@@ -2,11 +2,14 @@
 checking the port without JAX (``chip_smoke.py`` reads them on the GPU
 machine).
 
-``tests/data/torch_port_lm_smollm.npz`` and ``torch_port_lm_mamba2.npz``
-hold, for ``smollm-360m.reduced()`` and ``mamba2-130m.reduced()`` (fp32):
-the reference's params from a fixed seed with the norm scales, biases,
-``a_log``, ``d_skip`` and ``dt_bias`` randomised (the reference's init sets
-them to constants, which would hide a wrong head or group index), a prompt,
+``tests/data/torch_port_lm_smollm.npz``, ``torch_port_lm_mamba2.npz``,
+``torch_port_lm_qwen2moe.npz`` and ``torch_port_lm_hymba.npz`` hold, for
+the ``reduced()`` smollm-360m, mamba2-130m, qwen2-moe-a2.7b and hymba-1.5b
+(fp32): the reference's params from a fixed seed with the norm scales
+(``norm_attn`` and ``norm_ssm`` too), biases, ``a_log``, ``d_skip`` and
+``dt_bias`` randomised (the reference's init sets them to constants, which
+would hide a wrong head or group index), a prompt (20 tokens for hymba,
+longer than its reduced window of 16, so its ring wraps in prefill),
 the reference ``LmEngine``'s greedy tokens, the prefill's last-token logits,
 and the logits of each decode step fed those tokens (teacher forcing).  The
 first test regenerates them from the JAX package, so the files cannot go
@@ -30,8 +33,12 @@ from repro_torch.serve.engine import LmEngine
 
 DATA = Path(__file__).parent / "data"
 FIXTURES = {"smollm-360m": DATA / "torch_port_lm_smollm.npz",
-            "mamba2-130m": DATA / "torch_port_lm_mamba2.npz"}
+            "mamba2-130m": DATA / "torch_port_lm_mamba2.npz",
+            "qwen2-moe-a2.7b": DATA / "torch_port_lm_qwen2moe.npz",
+            "hymba-1.5b": DATA / "torch_port_lm_hymba.npz"}
 SEED, BATCH, PROMPT, N_NEW = 0, 2, 12, 6
+#: prompt lengths other than PROMPT: hymba's is longer than its window
+PROMPTS = {"hymba-1.5b": 20}
 #: fp32 at reduced size: the packages sum matmuls, softmaxes and the scan in
 #: other orders, which moves logits by about 1e-6
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -40,7 +47,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 _RANDOMISED = {"ln1": (1.0, 0.3), "ln2": (1.0, 0.3), "ln_f": (1.0, 0.3), "ln": (1.0, 0.3),
                "norm": (1.0, 0.3), "d_skip": (1.0, 0.3), "bq": (0.0, 0.2),
                "bk": (0.0, 0.2), "bv": (0.0, 0.2), "a_log": (0.0, 0.5),
-               "dt_bias": (0.0, 0.5)}
+               "dt_bias": (0.0, 0.5), "norm_attn": (1.0, 0.3), "norm_ssm": (1.0, 0.3)}
 
 
 def randomise(tree: dict, seed: int) -> dict:
@@ -96,10 +103,11 @@ def make_fixture(name: str) -> dict:
     cfg = r_get_arch(name).reduced()
     params = reference_params(cfg, SEED)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
-    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
-    tokens = RLmEngine(jp, cfg, max_len=PROMPT + N_NEW).generate(prompt, N_NEW)
+    n_prompt = PROMPTS.get(name, PROMPT)
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab, (BATCH, n_prompt)).astype(np.int32)
+    tokens = RLmEngine(jp, cfg, max_len=n_prompt + N_NEW).generate(prompt, N_NEW)
     api = r_get_model(cfg)
-    logits, cache = api.prefill(jp, {"tokens": jnp.asarray(prompt)}, cfg, PROMPT + N_NEW)
+    logits, cache = api.prefill(jp, {"tokens": jnp.asarray(prompt)}, cfg, n_prompt + N_NEW)
     steps = []
     for i in range(N_NEW - 1):
         step_logits, cache = api.decode_step(jp, cache, {"tokens": jnp.asarray(tokens[:, i : i + 1])},
@@ -130,7 +138,7 @@ def test_port_cpu_matches_fixture(name):
         gold = {k: data[k] for k in data.files}
     cfg = get_arch(name).reduced()
     params = lm_params_from_numpy(unflatten(gold), "cpu")
-    engine = LmEngine(params, cfg, max_len=PROMPT + N_NEW, device="cpu")
+    engine = LmEngine(params, cfg, max_len=gold["prompt"].shape[1] + N_NEW, device="cpu")
     pre, steps = engine.teacher_forced(gold["prompt"], gold["tokens"])
     np.testing.assert_allclose(pre.numpy(), gold["prefill_logits"], **TOL)
     np.testing.assert_allclose(steps.numpy(), gold["decode_logits"], **TOL)

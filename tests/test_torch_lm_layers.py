@@ -170,12 +170,6 @@ def test_flash_attention_matches_reference(sq, sk, causal, q_offset):
     np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL)
 
 
-def test_flash_attention_refuses_a_window():
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(ValueError, match="hybrid"):
-        flash_attention(x, x, x, True, 16, 0)
-
-
 def test_prefill_above_the_flash_threshold():
     """S = 1030 > 1024: both packages take their blocked path."""
     rcfg, tcfg, rp, tp = _pair("smollm-360m", seed=4)

@@ -115,7 +115,7 @@ def test_cli_plan_only(capsys):
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--mode", "lm", "--arch", "hymba-1.5b", "--device", "cpu"], "item 13"),
+    (["--mode", "lm", "--arch", "seamless-m4t-large-v2", "--device", "cpu"], "item 13"),
 ])
 def test_cli_refuses_later_slices(flags, slice_):
     with pytest.raises(ValueError, match=f"not ported yet.*{slice_}"):
