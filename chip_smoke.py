@@ -29,9 +29,17 @@ above the flash threshold, the ring wrapped), 64 new tokens, with the
 kernel path's logits held against the plain path's under teacher forcing
 (for qwen2-moe, with the count of routing decisions the two paths differ
 on, both held against a control: the path with K5's plain version in the
-kernel's place).  The reduced LM golden fixtures (``tests/data/torch_port_lm_*.npz``:
-smollm, mamba2, qwen2moe, hymba) are served on the card first and must
-match the reference's logits and tokens.
+kernel's place).  The frontend-fed LMs take their embeddings from a seed:
+``llava-next-34b`` (68.8 GB of bf16 weights drawn on the card; 576 patches
+spliced in front of 512 tokens, K5 at 56/8 heads on every decode step)
+and ``seamless-m4t-large-v2`` (512 frames + 512 tokens and 1536 frames +
+16 tokens through one engine; no kernel on its path, so its served
+decode is also held against ``forward`` over the same frames and
+tokens).  Each run logs its peak
+device memory.  The reduced LM golden fixtures
+(``tests/data/torch_port_lm_*.npz``: smollm, mamba2, qwen2moe, hymba,
+seamless, llava) are served on the card first and must match the
+reference's logits and tokens.
 
 On the card the serving calls replay CUDA graphs; phases 15-18 hold the
 GW graphs against eager runs bit for bit (the step at every pool width up
@@ -89,6 +97,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import shutil
@@ -127,7 +136,9 @@ STREAM_TOL = dict(rtol=1e-6, atol=1e-7)     # chunked streaming vs one-shot
 LM_FIXTURES = {"smollm-360m": ROOT / "tests" / "data" / "torch_port_lm_smollm.npz",
                "qwen2-moe-a2.7b": ROOT / "tests" / "data" / "torch_port_lm_qwen2moe.npz",
                "hymba-1.5b": ROOT / "tests" / "data" / "torch_port_lm_hymba.npz",
-               "mamba2-130m": ROOT / "tests" / "data" / "torch_port_lm_mamba2.npz"}
+               "mamba2-130m": ROOT / "tests" / "data" / "torch_port_lm_mamba2.npz",
+               "seamless-m4t-large-v2": ROOT / "tests" / "data" / "torch_port_lm_seamless.npz",
+               "llava-next-34b": ROOT / "tests" / "data" / "torch_port_lm_llava.npz"}
 LM_GOLDEN_TOL = dict(rtol=1e-4, atol=1e-4)  # reduced fp32 logits vs the reference's
 #: kernel vs plain version, the reference's own tolerances for K5 and K4 in
 #: fp32 (other summation orders).  In bf16 both read the same bf16 inputs,
@@ -148,15 +159,23 @@ K1_BF16_TOL = dict(rtol=2e-2, atol=1e-2)
 #: at least K4_LEAN_MIN differing elements
 K4_LEAN_MAX, K4_LEAN_MIN = 0.55, 500
 #: head geometries (Hq, Hkv, D): smollm-360m, granite-3-2b, qwen1.5-4b, yi-9b,
-#: qwen2-moe-a2.7b (G=1), hymba-1.5b (G=5)
+#: qwen2-moe-a2.7b (G=1), hymba-1.5b (G=5), llava-next-34b (G=7: the odd
+#: tail of K5's tiles of kQTile=4 heads)
 K5_GEOMETRIES = ((15, 5, 64), (32, 8, 64), (20, 20, 128), (32, 4, 128), (16, 16, 128),
-                 (25, 5, 64))
+                 (25, 5, 64), (56, 8, 128))
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
-#: the full-width serving runs (arch, prompt length), B=LM_BATCH, LM_NEW new
-#: tokens: hymba's 1536 is above the 1024-token flash threshold and wider
-#: than its window, so its ring wraps in prefill
-LM_RUNS = (("smollm-360m", LM_PROMPT), ("mamba2-130m", LM_PROMPT), ("mamba2-130m", 500),
-           ("qwen2-moe-a2.7b", LM_PROMPT), ("hymba-1.5b", LM_PROMPT), ("hymba-1.5b", 1536))
+#: the full-width serving runs (arch, prompt length, frontend rows), B=LM_BATCH,
+#: LM_NEW new tokens: hymba's 1536 is above the 1024-token flash threshold
+#: and wider than its window, so its ring wraps in prefill; llava's 576
+#: patches in front of 512 tokens put its prefill on the flash path; seamless
+#: serves 512 frames + 512 tokens (every attention on sdpa) and 1536 frames +
+#: 16 tokens (the encoder on flash; a short decoder prompt, as speech
+#: translation gives) through one engine
+LM_RUNS = (("smollm-360m", LM_PROMPT, 0), ("mamba2-130m", LM_PROMPT, 0),
+           ("mamba2-130m", 500, 0), ("qwen2-moe-a2.7b", LM_PROMPT, 0),
+           ("hymba-1.5b", LM_PROMPT, 0), ("hymba-1.5b", 1536, 0),
+           ("llava-next-34b", LM_PROMPT, 576), ("seamless-m4t-large-v2", LM_PROMPT, 512),
+           ("seamless-m4t-large-v2", 16, 1536))
 #: copies of smollm's serving cache the cold K5 timings rotate (12 x 5.9 MB > 50 MB of L2)
 K5_COPIES = 12
 #: full-width bf16 logits, kernel path vs plain path under teacher forcing:
@@ -2142,6 +2161,20 @@ def pinned_routes(moe_mod, decisions: list):
         raise AssertionError("pinned routing: the run made fewer moe_ffn calls than recorded")
 
 
+def decode_weights(cfg, params: dict) -> list:
+    """The weights one LM decode step reads: every leaf but the embedding
+    table (a step gathers B of its rows); of an encoder-decoder model only
+    the decoder's, without the cross-attention's wk and wv (prefill cached
+    their products), and the head."""
+    from repro_torch.tree import tree_leaves
+
+    if not cfg.encdec:
+        return tree_leaves({k: v for k, v in params.items() if k != "embed"})
+    dec = dict(params["dec_layers"])
+    dec["cross_attn"] = {k: v for k, v in dec["cross_attn"].items() if k not in ("wk", "wv")}
+    return tree_leaves({"dec": dec, "ln_f": params["ln_f"], "lm_head": params["lm_head"]})
+
+
 def tf_stats(name: str, got: tuple, want: tuple, vocab: int) -> dict:
     """Teacher-forced logits (prefill, decode steps) of two runs over the
     real vocabulary: max |difference|, max |logit| of ``want``, the share
@@ -2193,9 +2226,8 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
     from repro_torch.kernels.decode_attn.decode_attn import SPLIT_ROWS, n_splits
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
-    from repro_torch.models.api import get_model
+    from repro_torch.models.api import cache_rows, get_model
     from repro_torch.serve.engine import LmEngine
-    from repro_torch.tree import tree_leaves
 
     k5_mod = sys.modules["repro_torch.kernels.decode_attn.decode_attn"]
     k4_mod = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
@@ -2228,9 +2260,10 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
             gold = {k: data[k] for k in data.files}
         cfg = get_arch(name).reduced()
         n_new = gold["tokens"].shape[1]
-        eng = LmEngine(lm_params_from_numpy(unflatten(gold), dev), cfg,
-                       max_len=gold["prompt"].shape[1] + n_new, device=dev)
-        pre, steps = eng.teacher_forced(gold["prompt"], gold["tokens"])
+        fe = gold.get("frontend_embeds")  # seamless's frames, llava's patches
+        rows = cache_rows(cfg, gold["prompt"].shape[1], n_new, 0 if fe is None else fe.shape[1])
+        eng = LmEngine(lm_params_from_numpy(unflatten(gold), dev), cfg, max_len=rows, device=dev)
+        pre, steps = eng.teacher_forced(gold["prompt"], gold["tokens"], fe)
         np.testing.assert_allclose(pre.cpu().numpy(), gold["prefill_logits"], **LM_GOLDEN_TOL,
                                    err_msg=f"{name} prefill logits vs reference")
         np.testing.assert_allclose(steps.cpu().numpy(), gold["decode_logits"], **LM_GOLDEN_TOL,
@@ -2238,7 +2271,7 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         if eng.launches != want_launches(cfg, n_new - 1):
             raise AssertionError(f"{name} golden: launches {eng.launches}, want "
                                  f"{want_launches(cfg, n_new - 1)}")
-        np.testing.assert_array_equal(eng.generate(gold["prompt"], n_new), gold["tokens"],
+        np.testing.assert_array_equal(eng.generate(gold["prompt"], n_new, fe), gold["tokens"],
                                       err_msg=f"{name} greedy tokens vs reference")
     unblock_plain()
     log(f"phase 12 LM golden ok: reduced {', '.join(LM_FIXTURES)} logits within 1e-4 "
@@ -2250,32 +2283,53 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
     rng = np.random.default_rng(0)
     report, path_launches, graphs_report = {}, {"decode_attn": 0, "ssd_scan": 0}, {}
     per_step, per_prefill = {}, {}  # measured on the serving runs (1 prefill, LM_NEW - 1 steps)
+    by_run = {}  # each serving run's launches
     moe_mod = sys.modules["repro_torch.models.moe"]
     params = params_of = eng = plain = eager = None
-    for name, prompt_len in LM_RUNS:
+    for name, prompt_len, n_front in LM_RUNS:
         t0 = time.perf_counter()
         cfg = get_arch(name)
+        run = f"{name}_p{prompt_len}" + (f"_f{n_front}" if n_front else "")
         if name != params_of:  # one set of weights per model
             params = eng = plain = eager = None
+            gc.collect()  # an engine and its captured graphs refer to each other
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             params = get_model(cfg).init_params(cfg, seed=0, device=dev)
             torch.cuda.synchronize()
             params_of, init_s = name, time.perf_counter() - t0
-            # a decode step reads every weight but the embedding table once
-            leaves = tree_leaves({k: v for k, v in params.items() if k != "embed"})
-            weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+            init_peak = torch.cuda.max_memory_allocated()
+            weight_bytes = sum(t.numel() * t.element_size() for t in decode_weights(cfg, params))
             expert_bytes = sum(params["layers"]["moe"][k].numel() * 2
                                for k in ("w_gate", "w_up", "w_down")) if cfg.n_experts else 0
-            log(f"phase 13 {name}: init_params {init_s:.1f} s, {weight_bytes / 1e9:.2f} GB of "
-                f"weights a decode step reads (experts {expert_bytes / 1e9:.2f} GB)")
+            log(f"phase 13 {name}: init_params {init_s:.1f} s, peak device memory "
+                f"{init_peak / 1e9:.2f} GB, {weight_bytes / 1e9:.2f} GB of weights a decode step "
+                f"reads (experts {expert_bytes / 1e9:.2f} GB)")
+        torch.cuda.reset_peak_memory_stats()
         prompts = rng.integers(0, cfg.vocab, (LM_BATCH, prompt_len)).astype(np.int32)
-        eng = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev)
-        eng.generate(prompts[:, :16], 2)  # warm-up (cuBLAS handles, first launches)
+        fe = None  # llava's patches, seamless's frames: standard normal from a seed
+        if n_front:
+            fe = torch.randn(LM_BATCH, n_front, cfg.d_model, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(n_front))
+            fe = fe.to(cfg.dtype)
+        # an encoder-decoder model's runs share one engine, whose keys tell
+        # their frame counts apart
+        rows = (max(cache_rows(cfg, p, LM_NEW, f) for n, p, f in LM_RUNS if n == name)
+                if cfg.encdec else cache_rows(cfg, prompt_len, LM_NEW, n_front))
+        if eng is None or not cfg.encdec:
+            eng = LmEngine(params, cfg, max_len=rows, device=dev)
+        # warm-up (cuBLAS handles, first launches); a frontend-fed run warms
+        # up on its own shapes, since a graph of another prompt shape holds
+        # a pool of its own as large as the cache (2.26 GB for llava)
+        if n_front:
+            eng.generate(prompts, 2, fe)
+        else:
+            eng.generate(prompts[:, :16], 2)
         torch.cuda.synchronize()
         block_plain()
         decode_attn.launches = ssd_scan.launches = 0
         t1 = time.perf_counter()
-        tokens = eng.generate(prompts, LM_NEW)
+        tokens = eng.generate(prompts, LM_NEW, fe)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         c = counts()
@@ -2285,8 +2339,9 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
                                  f"{want_launches(cfg, LM_NEW - 1)}")
         for key in path_launches:
             path_launches[key] += c[key]
-        per_step[f"{name}_p{prompt_len}"] = c["decode_attn"] / (LM_NEW - 1)
-        per_prefill[f"{name}_p{prompt_len}"] = c["ssd_scan"]
+        by_run[run] = c
+        per_step[run] = c["decode_attn"] / (LM_NEW - 1)
+        per_prefill[run] = c["ssd_scan"]
         if tokens.shape != (LM_BATCH, LM_NEW) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
             raise AssertionError(f"{name}: bad tokens {tokens.shape} in "
                                  f"[{tokens.min()}, {tokens.max()}]")
@@ -2303,18 +2358,36 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
             return out
 
         eng.step = timed_step
-        k_pre, k_steps = eng.teacher_forced(prompts, tokens)
-        eng.step = step
-        plain = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev,
-                         use_kernel=False)
+        k_pre, k_steps = eng.teacher_forced(prompts, tokens, fe)
+        del eng.step  # the class's method again (an instance attribute would be a cycle)
+        plain = LmEngine(params, cfg, max_len=rows, device=dev, use_kernel=False)
         routes = {"plain": [], "eager": []}  # each moe_ffn call's top-k experts (MoE)
         with recording_routes(moe_mod, routes["plain"]):
-            p_pre, p_steps = plain.teacher_forced(prompts, tokens)
-        torch.cuda.synchronize()
+            p_pre, p_steps = plain.teacher_forced(prompts, tokens, fe)
+        plain = None  # engines are freed before the next is built (llava: 68.8 GB of weights)
+        torch.cuda.empty_cache()
         stats = tf_stats(name, (k_pre, k_steps), (p_pre, p_steps), cfg.vocab)
+        if cfg.encdec:
+            # no kernel on this path: the served decode is also held against
+            # forward over the same frames and tokens (forward's
+            # cross-attention takes flash above 1024 frames, prefill's sdpa)
+            with torch.inference_mode():
+                seq = torch.as_tensor(np.concatenate([prompts, tokens[:, :-1]], axis=1),
+                                      device=dev)
+                full = get_model(cfg).forward(params, {"frontend_embeds": fe, "tokens": seq},
+                                              cfg)
+                fwd = (full[:, prompt_len - 1].float(),
+                       full[:, prompt_len:].transpose(0, 1).float())
+            stats["vs_forward"] = tf_stats(name, (k_pre, k_steps), fwd, cfg.vocab)
+            full = fwd = seq = None
+            for what, st in stats["vs_forward"].items():
+                if st["max_abs_diff"] > LM_TF_TOL * st["max_abs_logit"]:
+                    raise AssertionError(f"{run} {what}: served logits differ from forward's by "
+                                         f"{st['max_abs_diff']:.4g} (max |logit| "
+                                         f"{st['max_abs_logit']:.4g})")
         # graph replay vs the eager kernel path: the same logits bit for
         # bit, the same greedy tokens
-        eager = LmEngine(params, cfg, max_len=prompt_len + LM_NEW, device=dev, graphs=False)
+        eager = LmEngine(params, cfg, max_len=rows, device=dev, graphs=False)
         e_step_ms: list = []
         e_step = eager.step
 
@@ -2327,26 +2400,26 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
 
         eager.step = timed_eager_step
         with recording_routes(moe_mod, routes["eager"]):
-            e_pre, e_steps = eager.teacher_forced(prompts, tokens)
-        eager.step = e_step
+            e_pre, e_steps = eager.teacher_forced(prompts, tokens, fe)
+        del eager.step
         torch.cuda.synchronize()
-        limits = {what: LM_TF_TOL * stats[what]["max_abs_logit"] for what in stats}
+        limits = {what: LM_TF_TOL * stats[what]["max_abs_logit"] for what in ("prefill", "decode")}
         if cfg.n_experts:
             # the control (TF_CONTROL_FACTOR), then the eager kernel path
             # given the plain path's routing decisions: K5's own share of
             # the gap, held to LM_TF_TOL
             routes["control"] = []
             with k5_plain_in_path(), recording_routes(moe_mod, routes["control"]):
-                ctrl = tf_stats(name, eager.teacher_forced(prompts, tokens), (p_pre, p_steps),
-                                cfg.vocab)
+                ctrl = tf_stats(name, eager.teacher_forced(prompts, tokens, fe),
+                                (p_pre, p_steps), cfg.vocab)
             ctrl["routing"] = routing_flips(routes["control"], routes["plain"])
             stats["routing"] = routing_flips(routes["eager"], routes["plain"])
             stats["control"] = ctrl
             stats["routing_kernel_vs_control"] = routing_flips(routes["eager"],
                                                                routes["control"])
             with pinned_routes(moe_mod, routes["plain"]):
-                pinned = tf_stats(name, eager.teacher_forced(prompts, tokens), (p_pre, p_steps),
-                                  cfg.vocab)
+                pinned = tf_stats(name, eager.teacher_forced(prompts, tokens, fe),
+                                  (p_pre, p_steps), cfg.vocab)
             stats["routing_pinned"] = pinned
             log(f"phase 13 {name} prompt {prompt_len}: under teacher forcing, against the plain "
                 f"path: kernel path routing {stats['routing']}, logits {stats['decode']}; "
@@ -2372,14 +2445,14 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         if not (torch.equal(k_pre, e_pre) and torch.equal(k_steps, e_steps)):
             raise AssertionError(f"{name}: replayed teacher-forced logits differ from the eager "
                                  f"kernel path's (max {(k_steps - e_steps).abs().max().item()})")
-        np.testing.assert_array_equal(eager.generate(prompts, LM_NEW), tokens,
+        np.testing.assert_array_equal(eager.generate(prompts, LM_NEW, fe), tokens,
                                       err_msg=f"{name}: greedy tokens, eager vs replay")
         pre_ms = {"eager": [], "replay": []}
         for mode in ("eager", "replay", "replay", "eager"):  # in turns
             e = eager if mode == "eager" else eng
             for _ in range(3):
                 t1 = time.perf_counter()
-                e.prefill(prompts)
+                e.prefill(prompts, fe)
                 torch.cuda.synchronize()
                 pre_ms[mode].append((time.perf_counter() - t1) * 1e3)
         # device time of a prefill and of one decode step (every kernel a
@@ -2387,8 +2460,12 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         # of kernels is off); the rest of the host time the card idles
         busy = {}
         for mode, e in (("replay", eng), ("eager", eager)):
-            _, cache = e.prefill(prompts)
-            calls = (lambda: e.prefill(prompts), lambda: e.step(cache, tokens[:, :1]))
+            _, cache = e.prefill(prompts, fe)
+            # the cache a decode step reads: self K/V (a ring's slots) and
+            # an encoder-decoder model's cross K/V
+            cache_bytes = sum(cache[k].numel() * cache[k].element_size()
+                              for k in ("k", "v", "xk", "xv") if k in cache)
+            calls = (lambda: e.prefill(prompts, fe), lambda: e.step(cache, tokens[:, :1]))
             busy[mode] = [device_ms(fn, reps=r, host=False) for fn, r in zip(calls, (2, 5))]
             if mode == "replay":
                 top = {what: top_kernels(fn) for what, fn in zip(("prefill", "decode"), calls)}
@@ -2398,7 +2475,11 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
         prefill_ms, decode_ms = statistics.median(pre_ms["replay"]), statistics.median(step_ms)
         e_prefill_ms, e_decode_ms = statistics.median(pre_ms["eager"]), statistics.median(e_step_ms)
         e_busy_pre, e_busy_step = busy["eager"]
-        graphs_report[f"{name}_p{prompt_len}"] = {
+        # nothing of this run may keep an engine (and with it its caches and
+        # graph pools) alive past it: the bound methods and closures too
+        cache = eager = e = calls = step = e_step = None
+        peak = torch.cuda.max_memory_allocated()
+        graphs_report[run] = {
             "replay": {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
                        "prefill_device_ms": busy_pre, "decode_step_device_ms": busy_step,
                        "prefill_idle_share": None if busy_pre is None
@@ -2412,8 +2493,9 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
                       "decode_idle_share": None if e_busy_step is None
                       else 1 - e_busy_step / e_decode_ms},
             "bit_equal": True}
-        report[f"{name}_p{prompt_len}"] = {
-            "batch": LM_BATCH, "prompt": prompt_len, "new_tokens": LM_NEW,
+        report[run] = {
+            "batch": LM_BATCH, "prompt": prompt_len, "frontend_rows": n_front,
+            "new_tokens": LM_NEW, "max_memory_allocated_bytes": peak,
             "generate_s": wall, "tokens_per_s": LM_BATCH * LM_NEW / wall,
             "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
             "prefill_device_ms": busy_pre, "decode_step_device_ms": busy_step,
@@ -2423,16 +2505,22 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
             "top_kernels": top,
             "decode_weight_bytes": weight_bytes,
             "decode_weight_floor_ms": weight_bytes / PEAK_BYTES_PER_S * 1e3,
+            "decode_cache_bytes": cache_bytes,
+            "decode_floor_ms": (weight_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3,
             **({"decode_expert_bytes": expert_bytes,
                 "decode_expert_floor_ms": expert_bytes / PEAK_BYTES_PER_S * 1e3}
                if cfg.n_experts else {})}
-        log(f"phase 13 {name} prompt {prompt_len} ok: B={LM_BATCH}, {LM_NEW} tokens in "
+        log(f"phase 13 {run} ok: B={LM_BATCH}, {LM_NEW} tokens in "
             f"{wall:.3f} s ({LM_BATCH * LM_NEW / wall:.0f} tok/s), prefill {prefill_ms:.2f} ms "
             f"(device {busy_pre} ms), decode {decode_ms:.3f} ms per step (device {busy_step} "
             f"ms), launches {c}, kernel vs plain path under teacher forcing {stats}; "
             f"replay bit-equal to the eager kernel path (eager: prefill {e_prefill_ms:.2f} ms, "
-            f"decode {e_decode_ms:.3f} ms per step) ({time.perf_counter() - t0:.1f} s)")
+            f"decode {e_decode_ms:.3f} ms per step); decode floor "
+            f"{(weight_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3:.3f} ms (weights "
+            f"{weight_bytes / 1e9:.3f} GB, cache {cache_bytes / 1e9:.3f} GB); peak device memory "
+            f"{peak / 1e9:.2f} GB ({time.perf_counter() - t0:.1f} s)")
     params = eng = plain = eager = None
+    gc.collect()
     torch.cuda.empty_cache()
     log(smi)
     log(json.dumps({"lm_e2e": report}))
@@ -2442,11 +2530,13 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
     gen = torch.Generator(device=dev).manual_seed(14)
     s_len = LM_PROMPT + LM_NEW
     # (arch, cache rows, lengths): smollm's first and last decode step, the
-    # last of qwen2-moe (G=1) and of hymba (G=5) over its 576-slot ring, and
-    # hymba's wrapped 1024-slot ring (prompt 1536), every slot valid
+    # last of qwen2-moe (G=1) and of hymba (G=5) over its 576-slot ring,
+    # hymba's wrapped 1024-slot ring (prompt 1536), every slot valid, and
+    # llava's (G=7) over 576 patches + 512 tokens + 64 new ones
+    llava_rows = 576 + LM_PROMPT + LM_NEW
     k5_cases = (("smollm-360m", s_len, (LM_PROMPT + 1, s_len)),
                 ("qwen2-moe-a2.7b", s_len, (s_len,)), ("hymba-1.5b", s_len, (s_len,)),
-                ("hymba-1.5b", 1024, (1024,)))
+                ("hymba-1.5b", 1024, (1024,)), ("llava-next-34b", llava_rows, (llava_rows,)))
     k5_rows = []
     for arch, rows, lengths in k5_cases:
         cfg = get_arch(arch)
@@ -2541,7 +2631,9 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
          "ms": head5["ms"], "kernel_ms": head5["ms"], "plain_ms": head5["plain_ms"],
          "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
          "library_ms": head5["library_ms"],
-         "launches_per_decode_step": per_step, "shapes": k5_rows},
+         "launches_per_decode_step": per_step,
+         "launches_by_path": {run: c["decode_attn"] for run, c in by_run.items()},
+         "shapes": k5_rows},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:94",
@@ -2549,7 +2641,9 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
          "ms": head4["ms"], "kernel_ms": head4["ms"], "plain_ms": head4["plain_ms"],
          "bound_ms": head4["bound_ms"], "bound_by": head4["bound_by"], "library_ms": None,
          "library_note": "none: no single PyTorch call computes the SSD scan",
-         "launches_per_prefill": per_prefill, "shapes": k4_rows},
+         "launches_per_prefill": per_prefill,
+         "launches_by_path": {run: c["ssd_scan"] for run, c in by_run.items()},
+         "shapes": k4_rows},
     ]
     return kernels, graphs_report
 

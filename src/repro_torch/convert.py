@@ -76,8 +76,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 #: LM leaves the reference stores at the model dtype (the MoE experts and
-#: shared SwiGLU use the MLP's names, the SSM branch its projections'); every
-#: other LM leaf (norm scales with ``norm_attn`` and ``norm_ssm``, QKV
+#: shared SwiGLU use the MLP's names, the SSM branch its projections', an
+#: encoder-decoder model's ``enc_layers``, ``dec_layers`` and
+#: ``cross_attn`` the attention's and the MLP's); every other LM leaf (norm
+#: scales with ``norm_attn``, ``norm_ssm``, ``ln_x`` and ``ln_enc``, QKV
 #: biases, the MoE router, conv weights, a_log, d_skip, dt_bias) is fp32
 LM_MODEL_DTYPE_LEAVES = frozenset({
     "embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",

@@ -1,15 +1,19 @@
 """Serving launcher: LM decode or GW anomaly streaming on the port.
 
-LM mode (batched prefill + greedy decode through ``LmEngine``; the
-``dense``, ``moe``, ``ssm`` and ``hybrid`` families, random weights from
-seed 0):
+LM mode (batched prefill + greedy decode through ``LmEngine``; every
+family: ``dense`` with its VLM backbone, ``moe``, ``ssm``, ``hybrid`` and
+``encdec``; random weights from seed 0):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch smollm-360m --reduced --prompt-len 16 --new-tokens 16
 
-(``--arch qwen2-moe-a2.7b``, ``dbrx-132b``, ``mamba2-130m`` or
-``hymba-1.5b`` likewise; ``--device cpu`` with ``--reduced`` on a machine
-without a card.)
+(``--arch qwen2-moe-a2.7b``, ``dbrx-132b``, ``mamba2-130m``,
+``hymba-1.5b``, ``llava-next-34b`` or ``seamless-m4t-large-v2`` likewise;
+``--device cpu`` with ``--reduced`` on a machine without a card.)  The
+frontend stubs' embeddings are drawn from seed 1, standard normal, at the
+model's dtype: ``frontend_tokens`` patches in front of each prompt for a
+VLM, and ``--prompt-len`` encoder frames beside each decoder prompt for
+``encdec`` (the reference's even split of a prefill's length).
 
 Anomaly mode (the paper's use case: persistent-state B=1 streaming on the
 fused stack, weights packed once at engine init; short chunks ride the
@@ -51,8 +55,6 @@ here).  Any of these turns on the health layer and prints its counters.
 its provenance (explicit, tuned, default, balanced) and a mixed plan's
 layer assignment, and exits.
 
-Not ported yet, refused with a ``ValueError`` naming its later slice:
-``--mode lm`` for the ``encdec`` family.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the engine runs; cpu runs the plain versions")
     # lm mode
-    ap.add_argument("--arch", help="LM arch id (lm mode; dense, moe, ssm and hybrid families)")
+    ap.add_argument("--arch", help="LM arch id (lm mode; every family)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -140,23 +142,30 @@ def main(argv=None):
 
 def serve_lm(args):
     """Batched prefill + greedy decode of random prompts (seed 0) with
-    random weights (seed 0) on ``--device``."""
+    random weights (seed 0) on ``--device``; a VLM's patches and an
+    encoder-decoder model's frames from seed 1."""
+    import torch
+
     from repro_torch.configs import get_arch
-    from repro_torch.models.api import get_model
+    from repro_torch.models.api import cache_rows, get_model
     from repro_torch.serve.engine import LmEngine
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    api = get_model(cfg)  # a family of a later slice raises here
-    params = api.init_params(cfg, seed=0, device=args.device)
-    engine = LmEngine(params, cfg, max_len=args.prompt_len + args.new_tokens,
-                      device=args.device)
+    params = get_model(cfg).init_params(cfg, seed=0, device=args.device)
+    n_front = args.prompt_len if cfg.encdec else cfg.frontend_tokens if cfg.frontend else 0
+    frontend = None
+    if n_front:
+        frontend = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (args.batch, n_front, cfg.d_model), dtype=np.float32)).to(cfg.dtype)
+    rows = cache_rows(cfg, args.prompt_len, args.new_tokens, n_front)
+    engine = LmEngine(params, cfg, max_len=rows, device=args.device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
 
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.new_tokens)
+    out = engine.generate(prompts, args.new_tokens, frontend_embeds=frontend)
     dt = time.perf_counter() - t0
     tok_s = args.batch * args.new_tokens / dt
     print(f"{args.arch}: generated {out.shape} in {dt:.2f}s ({tok_s:.1f} tok/s on "

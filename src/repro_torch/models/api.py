@@ -1,10 +1,11 @@
 """Uniform model API: family dispatch.
 
 ``get_model(cfg)`` returns a ``ModelApi`` with the entry points a family's
-serving path needs.  The port has the ``dense``, ``moe``, ``ssm`` and
-``hybrid`` families; ``encdec`` raises a ``ValueError`` naming its later
-slice.  ``forward`` returns logits only, as the reference's does (MoE's own
-``forward`` returns ``(logits, aux)``).  The reference's
+serving path needs.  The port has every family of the reference:
+``dense`` (with the VLM backbone), ``moe``, ``ssm``, ``hybrid`` and
+``encdec``.  ``cache_rows`` says how many cache rows a request takes.
+``forward`` returns logits only, as the reference's does
+(MoE's own ``forward`` returns ``(logits, aux)``).  The reference's
 ``input_specs`` and ``abstract_*`` helpers belong to the dry run, and
 ``loss_fn`` to LM training: both come with later slices.
 """
@@ -15,7 +16,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 
 
 @dataclass(frozen=True)
@@ -31,15 +32,21 @@ class ModelApi:
 
 
 #: per family: its module, the entry points through which it reaches its
-#: kernels (K5 in the attention decode, K4 in the SSM prefill), and whether
-#: its KV cache is a ring
+#: kernels (K5 in the attention decode, K4 in the SSM prefill; ``encdec``
+#: runs none, as the reference's), and whether its KV cache is a ring
 _FAMILIES = {"dense": (transformer, ("decode_step",), False),
              "moe": (moe, ("decode_step",), False),
              "ssm": (ssm, ("prefill",), False),
-             "hybrid": (hybrid, ("prefill", "decode_step"), True)}
+             "hybrid": (hybrid, ("prefill", "decode_step"), True),
+             "encdec": (encdec, (), False)}
 
-#: families of the reference that later slices of the port bring
-_LATER = {"encdec": "the encoder-decoder family (ROADMAP queue 1, item 13)"}
+
+def cache_rows(cfg: ArchConfig, n_prompt: int, n_new: int = 0, n_front: int = 0) -> int:
+    """Rows of the self-attention cache that ``n_front`` frontend
+    embeddings, ``n_prompt`` tokens and ``n_new`` decode steps take, and
+    the position after them: a VLM's patches are rows of its cache, an
+    encoder-decoder model's frames are not."""
+    return (0 if cfg.encdec else n_front) + n_prompt + n_new
 
 
 def _moe_logits(*args, **kwargs):
@@ -47,9 +54,6 @@ def _moe_logits(*args, **kwargs):
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family in _LATER:
-        raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not ported yet; it comes "
-                         f"with a later slice of the port: {_LATER[cfg.family]}")
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     mod, kernel_entry, ring_cache = _FAMILIES[cfg.family]

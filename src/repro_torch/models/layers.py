@@ -16,6 +16,7 @@ training loss (``softmax_xent``) belong to later slices.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -23,19 +24,25 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
-# initializers (drawn on the CPU from an explicit generator; ``lead`` stacks
-# a leading axis, e.g. (n_layers,))
+# initializers (drawn on the explicit generator's device; ``lead`` stacks a
+# leading axis, e.g. (n_layers,))
 # ---------------------------------------------------------------------------
 
 
 def dense_init(gen: torch.Generator, n_in: int, n_out: int, dtype: torch.dtype,
                lead: tuple = ()) -> torch.Tensor:
+    """x @ W weights (*lead, n_in, n_out) at ``dtype`` on ``gen``'s device,
+    drawn in fp32 one (n_in, n_out) matrix at a time: a stacked leaf is
+    never held in fp32 (llava-next-34b's MLP leaves would be 35 GB)."""
     scale = (1.0 / n_in) ** 0.5
-    return (torch.randn(*lead, n_in, n_out, generator=gen) * scale).to(dtype)
+    out = torch.empty(*lead, n_in, n_out, dtype=dtype, device=gen.device)
+    for idx in np.ndindex(*lead):
+        out[idx] = torch.randn(n_in, n_out, generator=gen, device=gen.device).mul_(scale).to(dtype)
+    return out
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> torch.Tensor:
-    return (torch.randn(vocab, d, generator=gen) * 0.02).to(dtype)
+    return torch.randn(vocab, d, generator=gen, device=gen.device).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,10 @@ replayed (``serve/engine.LmEngine``).  ``decode_step`` writes each layer's
 new row and advances ``pos`` in place and attends through the
 decode-attention kernel (K5) unless the caller asks for the plain path or
 the model has a sliding window.
+
+``init_params`` draws on the target device, each stacked leaf one layer
+at a time: at llava-next-34b's width a stacked fp32 MLP leaf would be
+35.2 GB, and the bf16 weights alone are 68.8 GB.
 """
 
 from __future__ import annotations
@@ -34,10 +38,12 @@ _FLASH_THRESHOLD = 1024  # use flash attention above this sequence length
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: str | torch.device = "cuda") -> dict:
-    """Random parameters from ``seed`` (drawn on the CPU, then moved); the
-    reference's shapes, dtypes and scales."""
+    """Random parameters from ``seed``: the reference's shapes, dtypes and
+    scales.  Every weight is drawn on ``device`` (a generator there, seeded
+    from ``seed``), a stacked leaf one layer's matrix at a time, so the
+    same seed gives other weights on the CPU than on the card."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     lead = (cfg.n_layers,)
     layers = {
         "attn": L.init_attention(gen, cfg, lead=lead),

@@ -31,10 +31,12 @@ the CPU run eagerly.  Resident state
 lives in the graphs' and the pool's buffers and is updated in place; a
 snapshot copies it out.
 
-``LmEngine``: LM serving for the ``dense`` and ``ssm`` families: one
-batched prefill, then greedy decode steps against the cache, with the
-decode-attention (K5) and SSD-scan (K4) kernels on their paths; on the
-card each prefill shape and each decode batch replays a captured graph.
+``LmEngine``: LM serving for every LM family (``dense`` with its VLM
+backbone, ``moe``, ``ssm``, ``hybrid``, ``encdec``): one batched prefill,
+with the frontend's embeddings where the model takes them, then greedy
+decode steps against the cache, with the decode-attention (K5) and
+SSD-scan (K4) kernels on their paths; on the card each prefill shape and
+each decode batch replays a captured graph.
 
 Fault tolerance (``StreamingAnomalyEngine``): ``snapshot``/``restore``
 carry every stream's state, partial windows and the threshold through the
@@ -66,7 +68,7 @@ from repro_torch.core.executor import state_leaves, state_like
 from repro_torch.core.graphs import CapturedCall
 from repro_torch.convert import dtype_name, to_numpy, to_tensor
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.serve.health import (
     SNAPSHOT_VERSION,
     SnapshotMismatchError,
@@ -747,15 +749,28 @@ class LmEngine:
     the prefill scan.  ``launches`` counts the K5 (``decode_attn``) and K4
     (``ssd_scan``) launches this engine made.
 
+    Frontend input.  ``prefill``, ``teacher_forced`` and ``generate`` take
+    an optional ``frontend_embeds`` (B, P, d_model): a VLM's patch
+    embeddings, spliced in front of the tokens (without them a VLM serves
+    text only, as in the reference), or an encoder-decoder model's frames,
+    which it needs (a ``ValueError`` names them when they are missing).  A
+    model with neither refuses them.  After prefill the position is P + S
+    for a VLM and S for an encoder-decoder model, whose frames are not in
+    its self-attention cache.
+
     On the card the kernel path replays CUDA graphs, the counterparts of
-    the reference's two ``jax.jit``s: one per prompt shape (B, S_prompt) for
-    ``prefill`` and one per batch for ``step``.  The cache they return is
-    the engine's own for that batch and cache length, updated in place:
-    the next ``prefill`` of that shape overwrites it.  ``graphs=False``
-    runs the kernel path eagerly; the plain path and the CPU always do.
-    The engine counts each cache's position on the host and refuses a
-    step past the cache's last row before launching anything; the hybrid
-    family's ring cache wraps instead, so its position may pass its rows.
+    the reference's two ``jax.jit``s: one per prompt shape (B, S_prompt,
+    P) for ``prefill`` and one per cache shape (every leaf's, so the
+    batch, the rows and an encoder-decoder cache's encoder length) for
+    ``step``.  The tokens and the frontend embeddings are
+    staged in buffers of their own.  The cache they return is the engine's
+    own for that batch and cache shape, updated in place: the next
+    ``prefill`` that makes a cache of that shape overwrites it.
+    ``graphs=False`` runs the kernel path eagerly; the plain path and the
+    CPU always do.  The engine counts each cache's position on the host
+    and refuses a step past the cache's last row before launching
+    anything; the hybrid family's ring cache wraps instead, so its
+    position may pass its rows.
     """
 
     def __init__(self, params: dict, cfg, max_len: int = 256,
@@ -775,9 +790,10 @@ class LmEngine:
             self._entry_kw[entry] = {"use_kernel": use_kernel}
         self.launches = {"decode_attn": 0, "ssd_scan": 0}
         self._graphs = graphs and use_kernel and self.device.type == "cuda"
-        self._calls: dict = {}    # ("prefill", B, S) | ("step", B, rows) -> (tokens, graph)
-        self._static: dict = {}   # (B, rows) -> this engine's cache of that shape
-        self._prefilled: dict = {}  # (B, S) -> the cache its prefill graph fills
+        # ("prefill", B, S, P) | ("step", *cache leaf shapes) -> (input buffers, graph)
+        self._calls: dict = {}
+        self._static: dict = {}   # cache leaf shapes -> this engine's cache of that shape
+        self._prefilled: dict = {}  # (B, S, P) -> the cache its prefill graph fills
         self._positions: dict = {}  # id(cache["pos"]) -> (weakref to it, host position)
 
     @staticmethod
@@ -813,49 +829,89 @@ class LmEngine:
         an SSM state, which has no length)."""
         return cache["k"].shape[2] if "k" in cache else 0
 
-    def _static_cache(self, batch: int, like: dict) -> dict:
+    @staticmethod
+    def _shape_key(cache: dict) -> tuple:
+        """The shape of every leaf of a cache, which tells apart caches of
+        other batches, lengths or encoder lengths."""
+        return tuple(t.shape for t in tree_leaves(cache))
+
+    def _static_cache(self, like: dict) -> dict:
         """The engine's cache for ``like``'s shape, made at first use."""
-        key = (batch, self._rows(like))
+        key = self._shape_key(like)
         if key not in self._static:
             self._static[key] = tree_map(torch.empty_like, like)
         return self._static[key]
 
-    def _graph(self, key, tokens: torch.Tensor, fn):
-        """``fn(tokens_buffer)`` replayed: at first use run eagerly, then
-        captured, over a tokens buffer of ``tokens``' shape."""
+    def _graph(self, key, inputs: dict, fn):
+        """``fn(buffers)`` replayed: at first use run eagerly, then captured,
+        over one buffer per input tensor (``inputs``: name -> tensor)."""
         entry = self._calls.get(key)
         if entry is None:
-            buf = tokens.to(self.device, torch.int64, copy=True)  # never the caller's tensor
-            call = self._counted(CapturedCall, lambda: fn(buf), self.device)
-            self._calls[key] = (buf, call)
+            # never the caller's tensors
+            bufs = {name: t.to(self.device, copy=True) for name, t in inputs.items()}
+            call = self._counted(CapturedCall, lambda: fn(bufs), self.device)
+            self._calls[key] = (bufs, call)
             return call.first
-        buf, call = entry
-        buf.copy_(tokens)
+        bufs, call = entry
+        for name, t in inputs.items():
+            bufs[name].copy_(t)
         return self._counted(call.replay)
+
+    def _frontend(self, frontend_embeds, batch: int) -> torch.Tensor | None:
+        """``frontend_embeds`` checked against the model: (B, P, d_model) at
+        the model's dtype, or None for a text-only prompt."""
+        cfg = self.cfg
+        if frontend_embeds is None:
+            if cfg.encdec:
+                raise ValueError(
+                    f"LmEngine: {cfg.name} is an encoder-decoder model: its prefill needs "
+                    f"frontend_embeds, the encoder's frames (B, S_enc, {cfg.d_model})")
+            return None
+        if not cfg.encdec and cfg.frontend is None:
+            raise ValueError(f"LmEngine: {cfg.name} takes tokens only; frontend_embeds are "
+                             f"for a VLM backbone or an encoder-decoder model")
+        fe = frontend_embeds if isinstance(frontend_embeds, torch.Tensor) else \
+            torch.as_tensor(np.asarray(frontend_embeds))
+        if fe.dim() != 3 or fe.shape[0] != batch or fe.shape[2] != cfg.d_model:
+            raise ValueError(f"LmEngine: frontend_embeds of shape {tuple(fe.shape)}; "
+                             f"want ({batch}, P, {cfg.d_model})")
+        return fe.to(cfg.dtype)
 
     # -- serving ----------------------------------------------------------------
 
-    def prefill(self, tokens) -> tuple[torch.Tensor, dict]:
-        """tokens: (B, S_prompt) -> (last-token logits (B, 1, V_padded), cache)."""
+    def prefill(self, tokens, frontend_embeds=None) -> tuple[torch.Tensor, dict]:
+        """tokens: (B, S_prompt), with the frontend's embeddings (B, P,
+        d_model) where the model takes them -> (last-token logits (B, 1,
+        V_padded), cache)."""
+        from repro_torch.models.api import cache_rows
+
         tokens = torch.as_tensor(np.asarray(tokens))
         batch, s_len = tokens.shape
+        fe = self._frontend(frontend_embeds, batch)
+        n_front = 0 if fe is None else fe.shape[1]
+        inputs = {"tokens": tokens.long()}
+        if fe is not None:
+            inputs["frontend_embeds"] = fe
         kw = self._entry_kw["prefill"]
         with torch.inference_mode():
             if not self._graphs:
                 logits, cache = self._counted(
-                    self.api.prefill, self.params, {"tokens": tokens.to(self.device)},
+                    self.api.prefill, self.params,
+                    {name: t.to(self.device) for name, t in inputs.items()},
                     self.cfg, self.max_len, **kw)
             else:
-                def run(buf):
-                    logits, made = self.api.prefill(self.params, {"tokens": buf}, self.cfg,
-                                                    self.max_len, **kw)
-                    static = self._prefilled[batch, s_len] = self._static_cache(batch, made)
+                key = (batch, s_len, n_front)
+
+                def run(bufs):
+                    logits, made = self.api.prefill(self.params, bufs, self.cfg, self.max_len,
+                                                    **kw)
+                    static = self._prefilled[key] = self._static_cache(made)
                     _copy_tree(static, made)
                     return logits
 
-                logits = self._graph(("prefill", batch, s_len), tokens, run).clone()
-                cache = self._prefilled[batch, s_len]
-        self._set_position(cache, s_len)
+                logits = self._graph(("prefill", *key), inputs, run).clone()
+                cache = self._prefilled[key]
+        self._set_position(cache, cache_rows(self.cfg, s_len, n_front=n_front))
         return logits, cache
 
     def step(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
@@ -872,35 +928,37 @@ class LmEngine:
                     self.api.decode_step, self.params, cache,
                     {"tokens": tokens.to(self.device)}, self.cfg, **kw)
             else:
-                batch = tokens.shape[0]
-                static = self._static_cache(batch, cache)
+                static = self._static_cache(cache)
                 if cache is not static:
                     _copy_tree(static, cache)
                 cache = static
                 logits = self._graph(
-                    ("step", batch, rows), tokens,
-                    lambda buf: self.api.decode_step(self.params, static, {"tokens": buf},
-                                                     self.cfg, **kw)[0]).clone()
+                    ("step", *self._shape_key(static)), {"tokens": tokens.long()},
+                    lambda bufs: self.api.decode_step(self.params, static, bufs,
+                                                      self.cfg, **kw)[0]).clone()
         self._set_position(cache, pos + 1)
         return logits, cache
 
-    def teacher_forced(self, prompt, tokens) -> tuple[torch.Tensor, torch.Tensor]:
-        """Logits of ``prompt``, then of ``tokens`` (B, n) fed one by one
-        (teacher forcing): (prefill (B, V_padded), decode steps (n-1, B,
-        V_padded)), float32 on the engine's device."""
+    def teacher_forced(self, prompt, tokens,
+                       frontend_embeds=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Logits of ``prompt`` (with ``frontend_embeds`` as ``prefill``
+        takes them), then of ``tokens`` (B, n) fed one by one (teacher
+        forcing): (prefill (B, V_padded), decode steps (n-1, B, V_padded)),
+        float32 on the engine's device."""
         tokens = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
-        logits, cache = self.prefill(prompt)
+        logits, cache = self.prefill(prompt, frontend_embeds)
         pre, steps = logits[:, 0].float(), []
         for i in range(tokens.shape[1] - 1):
             logits, cache = self.step(cache, tokens[:, i : i + 1])
             steps.append(logits[:, 0].float())
         return pre, torch.stack(steps) if steps else pre.new_zeros((0, *pre.shape))
 
-    def generate(self, tokens: np.ndarray, n_new: int) -> np.ndarray:
-        """tokens: (B, S_prompt) -> (B, n_new) greedy continuation (argmax
-        over the real vocabulary, never the padded rows)."""
+    def generate(self, tokens: np.ndarray, n_new: int, frontend_embeds=None) -> np.ndarray:
+        """tokens: (B, S_prompt), with ``frontend_embeds`` as ``prefill``
+        takes them -> (B, n_new) greedy continuation (argmax over the real
+        vocabulary, never the padded rows)."""
         vocab = self.cfg.vocab
-        logits, cache = self.prefill(tokens)
+        logits, cache = self.prefill(tokens, frontend_embeds)
         out = []
         for i in range(n_new):
             nxt = logits[:, -1, :vocab].argmax(dim=-1, keepdim=True)

@@ -46,7 +46,7 @@ def test_import_loads_no_jax_and_no_reference():
                  "repro_torch.configs.mamba2_130m", "repro_torch.data.lm",
                  "repro_torch.models.layers", "repro_torch.models.flash_attention",
                  "repro_torch.models.transformer", "repro_torch.models.ssm",
-                 "repro_torch.models.moe", "repro_torch.models.hybrid",
+                 "repro_torch.models.moe", "repro_torch.models.hybrid", "repro_torch.models.encdec",
                  "repro_torch.models.api", "repro_torch.kernels.decode_attn.decode_attn",
                  "repro_torch.kernels.decode_attn.ops", "repro_torch.kernels.decode_attn.ref",
                  "repro_torch.kernels.ssd_scan.ssd_scan", "repro_torch.kernels.ssd_scan.ops",

@@ -114,12 +114,37 @@ def test_cli_plan_only(capsys):
     assert "weight_dtype=int8" in plans["encoder"]
 
 
-@pytest.mark.parametrize("flags,slice_", [
-    (["--mode", "lm", "--arch", "seamless-m4t-large-v2", "--device", "cpu"], "item 13"),
+@pytest.mark.parametrize("arch,n_front,rows_front", [
+    ("seamless-m4t-large-v2", 6, 0),   # 6 encoder frames beside the 6-token prompts
+    ("llava-next-34b", 8, 8),          # 8 patches (reduced) in front of each prompt
 ])
-def test_cli_refuses_later_slices(flags, slice_):
-    with pytest.raises(ValueError, match=f"not ported yet.*{slice_}"):
-        tcli.main(flags)
+def test_cli_refuses_later_slices(arch, n_front, rows_front, monkeypatch, capsys):
+    """No LM family is refused any more (the test keeps the name of the
+    refusal it replaced): ``--mode lm`` serves the frontend-fed ones, with their embeddings drawn from a seed.  The
+    engine's position after prefill counts a VLM's patches, not an
+    encoder's frames, and agrees with the cache's own."""
+    from repro_torch.serve.engine import LmEngine
+
+    positions, frontends = [], []
+    set_position, prefill = LmEngine._set_position, LmEngine.prefill
+
+    def recording_position(self, cache, pos):
+        positions.append((pos, int(cache["pos"])))
+        return set_position(self, cache, pos)
+
+    def recording_prefill(self, tokens, frontend_embeds=None):
+        frontends.append(tuple(frontend_embeds.shape))
+        return prefill(self, tokens, frontend_embeds)
+
+    monkeypatch.setattr(LmEngine, "_set_position", recording_position)
+    monkeypatch.setattr(LmEngine, "prefill", recording_prefill)
+    out = tcli.main(["--mode", "lm", "--arch", arch, "--reduced", "--device", "cpu",
+                     "--batch", "2", "--prompt-len", "6", "--new-tokens", "4"])
+    assert out["tokens"].shape == (2, 4)
+    assert out["launches"] == {"decode_attn": 0, "ssd_scan": 0}
+    assert f"{arch}: generated (2, 4)" in capsys.readouterr().out
+    assert frontends == [(2, n_front, 64)]
+    assert positions == [(rows_front + 6 + i, rows_front + 6 + i) for i in range(4)]
 
 
 @pytest.mark.parametrize("flags", [
