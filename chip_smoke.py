@@ -60,6 +60,19 @@ versions at the shapes training and that evaluation give them; step
 times eager and replayed with the device's idle share; and a
 kill-and-resume through ``Trainer`` bit-equal to an uninterrupted run.
 
+Phases 29-31 train LMs on the card (``launch/train.py``, ``loss_fn``
+of each family, each step after the first replayed as one CUDA graph):
+every family's reduced golden training fixture
+(``tests/data/torch_port_lm_train.npz``: loss, gradients, 3 AdamW
+steps) in fp32, then ``smollm-360m`` and ``mamba2-130m`` at full width
+(S=4096, B=8, 8 steps, bf16 weights and fp32 moments; smollm with
+PyTorch's math attention backend disabled, so a training attention that
+is not fused raises), with the flash gradients at the training shape
+against the plain ``sdpa``'s fp32 ones, replayed steps bit-equal to
+eager ones, step times, tokens/s, the idle share, peak memory and the
+model-FLOP share (the ``lm_train`` JSON line); K4 and K5 launch on no
+training path.
+
 Phases 26-28 place ``gw_nominal`` on a stage mesh (``fused_stack_sharded``:
 each stage a contiguous sub-stack on its own CUDA stream, one K1 launch per
 chunk; the stages share the card, or take one card each where there are
@@ -100,6 +113,7 @@ import functools
 import gc
 import itertools
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -202,6 +216,43 @@ TF_CONTROL_FACTOR = 2.0
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+
+#: LM training (phases 29-31): the reduced golden fixture and its limits
+#: (tests/test_torch_lm_train_golden.py says why ``a_log`` is held to 3e-5),
+#: the optimizer the fixture's 3 steps ran with
+LM_TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_port_lm_train.npz"
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_REL = 1e-6, 1e-5
+LM_TRAIN_GRAD_REL_LEAF = {"layers/ssm/a_log": 3e-5}
+LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=50)
+#: the full-width training runs through launch/train.py: (arch, sequence
+#: length, batch, steps).  4096 is train_4k's length (above the 1,024-token
+#: flash threshold: SDPA's fused backward at 4k; mamba2's scan in 64
+#: chunks); train_4k's global batch of 256 is cut to one card's 8
+LM_TRAIN_RUNS = (("smollm-360m", 4096, 8, 8), ("mamba2-130m", 4096, 8, 8))
+#: flash attention at the training shape (bf16, fused SDPA) against the
+#: plain ``sdpa`` in fp32 on the same bf16 inputs, each tensor scaled by its
+#: largest |value|: the output within the forward's bf16 tolerance, the
+#: gradients within twice its rtol and four times its atol, since the
+#: backward rounds to bf16 twice on the way (the probabilities and dS
+#: before their products) besides the result, and a rehearsal of this check
+#: on the CPU's bf16 flash kernel put 2 of 65,920 dq entries 1.6e-3 off
+FLASH_OUT_TOL = BF16_TOL
+FLASH_GRAD_TOL = dict(rtol=1.6e-2, atol=4e-3)
+#: smollm-360m's replayed steps in PyTorch's default mode (the mode the
+#: times are taken in), where cuDNN's fused attention backward is not
+#: bit-reproducible, against eager steps from the same state: each step's
+#: loss gap over the eager loss, and each state leaf's max |difference| over
+#: its largest |value|, the bf16 parameters and the fp32 AdamW moments apart.
+#: Read on an NVIDIA H100 80GB HBM3 at 700 W: replay 1.4e-6 / 1.06e-3 /
+#: 1.11e-3; a second eager run from the same state (the control) 2.4e-6 /
+#: 1.06e-3 / 1.81e-3; the state one step apart 7.7e-3 / 1.06e-3 / 0.205;
+#: another run's loss gap 1.46e-5.  So the loss is held 3x above the largest
+#: reading and the moments 5x above the control's, each over 20x below one
+#: step; the parameters' largest difference is one AdamW update either way
+#: (about lr, the sign of a near-zero gradient's update flips), so their
+#: limit catches only a corrupted state, and the loss and moments catch a
+#: lost or repeated step
+LM_TRAIN_DEFAULT_TOL = dict(loss=5e-5, params=4e-3, moments=1e-2)
 
 
 def log(msg: str) -> None:
@@ -2648,7 +2699,417 @@ def lm_phases(dev, smi: str) -> tuple[list, dict]:
     return kernels, graphs_report
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic mode within the block (the fused attention
+    backward then gives the same bits run after run), without filling fresh memory
+    (the results do not depend on it).  cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG`` set before its first call: ``main`` sets
+    it."""
+    import torch
+    import torch.utils.deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def flash_check(cfg, seq: int, seed: int, dev) -> dict:
+    """``flash_attention`` (bf16, on a fused SDPA backend: the caller
+    disables the math one) at the training shape with B=1: its output and
+    gradients against the plain ``sdpa``'s in fp32 on the same bf16
+    inputs, each scaled by its largest |value| (``FLASH_GRAD_TOL``); and
+    whether two backward passes give the same bits, in the default mode
+    and in deterministic mode."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.flash_attention import flash_attention
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, seq, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, seq, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    dout = torch.randn(1, seq, hq, d, generator=g, device=dev).to(torch.bfloat16)
+
+    def flash():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*leaves, True, None, 0)
+        out.backward(dout)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    got = flash()
+    reproducible = {"default": all(torch.equal(a, b) for a, b in zip(got, flash()))}
+    with deterministic():
+        first = flash()
+        reproducible["deterministic"] = all(torch.equal(a, b) for a, b in zip(first, flash()))
+    refs = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out_ref = L.sdpa(*refs, causal=True)
+    out_ref.backward(dout.float())
+    want = [out_ref.detach()] + [t.grad for t in refs]
+    errs, failed = {}, []
+    for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        scale = b.abs().max()
+        errs[what] = ((a.float() - b).abs().max() / scale).item()
+        try:
+            torch.testing.assert_close(a.float() / scale, b / scale,
+                                       **(FLASH_OUT_TOL if what == "out" else FLASH_GRAD_TOL))
+        except AssertionError as exc:
+            failed.append(f"{what}: {exc}")
+    report = {"shape": [1, seq, hq, hkv, d], "max_err_over_max": errs,
+              "tol_out": FLASH_OUT_TOL, "tol_grads": FLASH_GRAD_TOL,
+              "fused_backends_only": True, "bit_reproducible": reproducible}
+    if failed:
+        raise AssertionError(f"{cfg.name} flash at B=1 S={seq}: {report}; " + "; ".join(failed))
+    return report
+
+
+def matmul_params(params: dict) -> int:
+    """Weights an LM's products read per token: every matrix (a stacked
+    layer leaf of 3 dims, a top-level leaf of 2), without the embedding
+    table where the model has its own head (its lookup is a gather)."""
+    from repro_torch.tree import flatten
+
+    return sum(t.numel() for k, t in flatten(params).items()
+               if t.dim() >= 2 + ("/" in k) and not (k == "embed" and "lm_head" in params))
+
+
+def lm_train_phases(dev, smi: str) -> tuple[dict, dict]:
+    """Phases 29-31, this slice's path: LM training on the card.
+
+    29. The reduced golden fixture (``tests/data/torch_port_lm_train.npz``)
+        of every family in fp32: each ``loss_fn`` and every gradient leaf
+        against the reference's, and 3 AdamW steps' losses.
+    30. smollm-360m at full width through ``launch/train.py``'s
+        ``make_trainer`` (bf16 weights, fp32 moments, ``lm_stream`` data,
+        S=4096, B=8, 8 steps, each after the first one replayed graph),
+        with PyTorch's math attention backend disabled (``sdpa_kernel``):
+        a training attention that is not fused raises.  The flash
+        gradients at the training shape (B=1) against the plain ``sdpa``'s
+        fp32 gradients; from the trained state, replayed steps bit-equal to
+        eager ones (parameters and moments) in deterministic mode, and
+        within ``LM_TRAIN_DEFAULT_TOL`` of them in the default mode, beside
+        two controls (eager twice; one step apart); step times eager and
+        replayed, tokens/s, the device's idle share, peak memory, the
+        model-FLOP share.
+    31. mamba2-130m the same (the backward of ``ssd_chunked`` at 24 heads,
+        N=128, 64 chunks), without the attention checks and the idle
+        share: a step is hundreds of thousands of small operations (64
+        chunks x 24 layers, forward, remat and backward), far more than a
+        trace counts exactly (PERF.md §7); its costliest kernels come from
+        one trace whose count is not checked.
+
+    K4 and K5 launch on no training path: their counts are set to 0 before
+    each run (the golden fixture, the launcher, each mode's replay check)
+    and read after it (the reference's training runs no Pallas kernel).  Returns (launches by kernel, the report)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_numpy, unflatten
+    from repro_torch.core.graphs import CapturedStep
+    from repro_torch.data.lm import LmDataConfig, lm_batch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.api import get_model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step, value_and_grad
+    from repro_torch.tree import flatten, tree_leaves, tree_map
+
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    launches = {"decode_attn": 0, "ssd_scan": 0}
+
+    def zero_counts():
+        decode_attn.launches = ssd_scan.launches = 0
+
+    def read_counts(what, into):
+        got = {"decode_attn": decode_attn.launches, "ssd_scan": ssd_scan.launches}
+        for k, v in got.items():
+            launches[k] += v
+            into[k] = into.get(k, 0) + v
+        if any(got.values()):
+            raise AssertionError(f"{what}: a forward-only kernel launched on a training path: "
+                                 f"{got}")
+
+    def on_dev(batch):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def state_gap(got, want, pairs) -> dict:
+        """How far the state ``got`` lies from ``want``: the largest gap of
+        the (wanted, got) loss pairs over the wanted loss, and the largest
+        max |difference| over a leaf's largest |value|, of the bf16
+        parameters and of the fp32 moments; whether the integer leaves (the
+        step count) are equal."""
+        gap = {"loss": max(abs(b - a) / abs(a) for a, b in pairs), "params": 0.0,
+               "moments": 0.0, "max_abs_diff": 0.0, "ints_equal": True}
+        for key, part in (("params", "params"), ("moments", "opt")):
+            for x, y in zip(tree_leaves(got[part]), tree_leaves(want[part]), strict=True):
+                if not x.is_floating_point():
+                    gap["ints_equal"] &= torch.equal(x, y)
+                    continue
+                d = (x.float() - y.float()).abs().max().item()
+                gap["max_abs_diff"] = max(gap["max_abs_diff"], d)
+                gap[key] = max(gap[key], d / max(y.float().abs().max().item(), 1e-30))
+        return gap
+
+    report: dict = {}
+
+    # -- phase 29: the reduced golden fixture, fp32 ---------------------------
+    t0 = time.perf_counter()
+    with np.load(LM_TRAIN_FIXTURE) as data:
+        fixture = {k: data[k] for k in data.files}
+    golden = {}
+    zero_counts()
+    for name, path in LM_FIXTURES.items():
+        cfg = get_arch(name).reduced()
+        api = get_model(cfg)
+        with np.load(path) as data:
+            params = lm_params_from_numpy(unflatten({k: data[k] for k in data.files}), dev)
+        gold = {k[len(name) + 1:]: v for k, v in fixture.items() if k.startswith(name + "/")}
+
+        def batch_at(i, gold=gold):
+            b = {"tokens": gold["tokens"][i], "labels": gold["labels"][i]}
+            if "frontend_embeds" in gold:
+                b["frontend_embeds"] = gold["frontend_embeds"]
+            return on_dev(b)
+
+        def loss_fn(p, b, api=api, cfg=cfg):
+            return api.loss_fn(p, b, cfg)
+
+        loss, grads = value_and_grad(loss_fn, params, batch_at(0))
+        loss_err = abs(loss.item() - float(gold["loss"])) / abs(float(gold["loss"]))
+        want = flatten(unflatten(gold, prefix="grads/"))
+        got = flatten(grads)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{name}: gradient leaves {sorted(got)} vs {sorted(want)}")
+        worst = (0.0, None)  # (error over its limit, leaf)
+        grad_err = 0.0
+        for key, ref in want.items():
+            err = np.abs(got[key].double().cpu().numpy() - ref).max() / max(
+                float(np.abs(ref).max()), 1e-30)
+            grad_err = max(grad_err, float(err))
+            worst = max(worst, (float(err) / LM_TRAIN_GRAD_REL_LEAF.get(key, LM_TRAIN_GRAD_REL),
+                                key))
+        step = make_train_step(loss_fn, AdamWConfig(**LM_TRAIN_OPT))
+        p, opt, losses = params, init_opt_state(params, AdamWConfig(**LM_TRAIN_OPT)), []
+        for i in range(len(gold["step_losses"])):
+            value, p, opt = step(p, opt, batch_at(i))
+            losses.append(value.item())
+        step_err = float(np.max(np.abs(np.array(losses) - gold["step_losses"])
+                                / np.abs(gold["step_losses"])))
+        golden[name] = {"S": int(gold["tokens"].shape[-1]), "loss_rel_err": loss_err,
+                        "grad_rel_err_max": grad_err, "worst_leaf": worst[1],
+                        "worst_leaf_over_limit": worst[0], "step_losses_rel_err": step_err}
+        if loss_err > LM_TRAIN_LOSS_RTOL or worst[0] > 1 or step_err > LM_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"LM training golden {name}: {golden[name]}")
+    report["launches_golden"] = {}
+    read_counts("phase 29", report["launches_golden"])
+    params = grads = p = opt = None
+    report["golden"] = golden
+    log(f"phase 29 LM training golden ok: reduced {', '.join(golden)} in fp32: loss within "
+        f"{max(g['loss_rel_err'] for g in golden.values()):.3g} relative, gradients within "
+        f"{max(g['grad_rel_err_max'] for g in golden.values()):.3g} of each leaf's largest, "
+        f"3 AdamW steps' losses within "
+        f"{max(g['step_losses_rel_err'] for g in golden.values()):.3g}; no K4/K5 launch "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- phases 30-31: full width through the launcher -------------------------
+    for phase, (arch, seq, batch, steps) in zip((30, 31), LM_TRAIN_RUNS):
+        t0 = time.perf_counter()
+        cfg = get_arch(arch)
+        attends = not cfg.attn_free
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run: dict = {"B": batch, "S": seq, "steps": steps, "dtype": "bf16"}
+        with tempfile.TemporaryDirectory() as ckpt, \
+                (sdpa_kernel(fused) if attends else contextlib.nullcontext()):
+            argv = ["--arch", arch, "--seq-len", str(seq), "--batch", str(batch),
+                    "--steps", str(steps), "--ckpt", ckpt]
+            trainer = tlaunch.make_trainer(tlaunch.parser().parse_args(argv))
+            zero_counts()
+            t1 = time.perf_counter()
+            result = trainer.run(torch.Generator().manual_seed(tlaunch.SEED))
+            torch.cuda.synchronize()
+            run["launcher_wall_s"] = time.perf_counter() - t1
+            run["launches_launcher"] = {}
+            read_counts(f"phase {phase} {arch}", run["launches_launcher"])
+            run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            run["losses"] = result.losses
+            log(f"phase {phase} {tlaunch.summary(arch, result)} "
+                f"(python -m repro_torch.launch.train {' '.join(argv[:-2])}; "
+                f"{run['launcher_wall_s']:.1f} s, peak {run['peak_memory_gb']:.2f} GB)")
+            if result.step != steps or not all(np.isfinite(result.losses)):
+                raise AssertionError(f"{arch}: the launcher's run: {result}")
+            state = {"params": trainer.params, "opt": trainer.opt_state}
+            step_fn = trainer.step_fn
+            n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+            n_matmul = matmul_params(trainer.params)
+            trainer = result = None
+            gc.collect()
+
+            if attends:  # the flash gradients at the training shape, B=1
+                run["flash_vs_plain_fp32"] = flash_check(cfg, seq, phase, dev)
+                log(f"phase {phase} {arch} flash at B=1 S={seq} (fused backends only) vs the "
+                    f"plain sdpa's fp32: {run['flash_vs_plain_fp32']}")
+
+            data_cfg = LmDataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+            batches = [on_dev(lm_batch(data_cfg, steps + i)) for i in range(3)]
+
+            def as_state(st, b):
+                loss, p, o = step_fn(st["params"], st["opt"], b)
+                return loss, {"params": p, "opt": o}
+
+            def timed(fn, b):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                value = fn(b)
+                end.record()
+                end.synchronize()
+                return value, start.elapsed_time(end)
+
+            # from the trained state: 3 replayed steps (the first the
+            # capture's eager warm-up) against 3 eager steps.  The fused
+            # attention backward (cuDNN's here) is not bit-reproducible
+            # unless PyTorch's deterministic mode is on (``flash_check``
+            # shows it), so with attention the bits are held in that mode,
+            # and the times taken in the default one, from where the first
+            # pass's eager steps left the state.  There the replay is held
+            # to ``LM_TRAIN_DEFAULT_TOL``, beside two controls: a second
+            # eager run from the same state (the mode's own spread) and the
+            # eager state one step earlier (what one lost or repeated step
+            # would show).  The memory the warm-up cached on the capture's
+            # stream is freed before the eager steps.
+            run["launches"] = {}
+            modes = (True, False) if attends else (False,)
+            for det in modes:
+                eager_state = [state]
+                state = None
+                controlled = attends and not det
+                control = [tree_map(lambda t: t.clone(), eager_state[0])] if controlled else None
+                with (deterministic() if det else contextlib.nullcontext()):
+                    captured = CapturedStep(as_state, tree_map(lambda t: t.clone(),
+                                                               eager_state[0]), dev)
+
+                    def eager(b, st=eager_state):
+                        loss, p, o = step_fn(st[0]["params"], st[0]["opt"], b)
+                        st[0] = {"params": p, "opt": o}
+                        return float(loss)
+
+                    zero_counts()
+                    t1 = time.perf_counter()
+                    captured(batches[0])  # the eager warm-up step and the capture
+                    torch.cuda.synchronize()
+                    capture_s = time.perf_counter() - t1
+                    torch.cuda.empty_cache()
+                    ms = {"eager": [], "replay": []}
+                    pairs, control_pairs, before_last = [], [], None
+                    for i, b in enumerate(batches):
+                        if controlled and i == len(batches) - 1:
+                            before_last = eager_state[0]
+                        e_loss, e_ms = timed(eager, b)
+                        ms["eager"].append(e_ms)
+                        if i:
+                            r_loss, r_ms = timed(lambda b: float(captured(b)), b)
+                            ms["replay"].append(r_ms)
+                            pairs.append((e_loss, r_loss))
+                        if controlled:
+                            control_pairs.append((e_loss, eager(b, control)))
+                    gap = state_gap(captured.state, eager_state[0], pairs)
+                    equal = (gap["max_abs_diff"] == 0 and gap["ints_equal"]
+                             and all(a == b for a, b in pairs))
+                    held = {"replay_bit_equal_eager": equal, **gap, "losses": pairs,
+                            "capture_s": capture_s}
+                    over = []
+                    if controlled:
+                        held["limits"] = LM_TRAIN_DEFAULT_TOL
+                        held["control_eager_twice"] = state_gap(control[0], eager_state[0],
+                                                                control_pairs)
+                        held["control_one_step_apart"] = state_gap(
+                            before_last, eager_state[0], [(pairs[-1][0], pairs[-2][0])])
+                        control = before_last = None
+                        over = [k for k, limit in LM_TRAIN_DEFAULT_TOL.items()
+                                if not gap[k] <= limit]  # a NaN fails too
+                        over += [] if gap["ints_equal"] else ["step count"]
+                    run["deterministic_mode" if det else "default_mode"] = held
+                    if (not controlled and not equal) or over:
+                        raise AssertionError(f"{arch}: 3 replayed steps vs 3 eager steps "
+                                             f"(deterministic mode {det}): {held}")
+                    if det:
+                        read_counts(f"phase {phase} {arch} replay check, deterministic mode",
+                                    run["launches"])
+                        state = eager_state[0]
+                        captured = eager_state = None
+                        gc.collect()
+                        torch.cuda.empty_cache()
+                        continue
+                    for _ in range(3):
+                        ms["replay"].append(timed(lambda b: float(captured(b)), batches[0])[1])
+                    read_counts(f"phase {phase} {arch} replay check", run["launches"])
+                    replay_ms = statistics.median(ms["replay"])
+                    busy = None
+                    if attends:  # mamba2's step is far too many kernels (docstring)
+                        busy = device_ms(lambda: float(captured(batches[0])), 1, host=False)
+                    t1 = time.perf_counter()
+                    top = top_kernels(lambda: float(captured(batches[0])), reps=1, n=8)
+                    run["top_kernels_s"] = time.perf_counter() - t1
+            tokens = batch * seq
+            attn_fwd = (2 * batch * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+                        if attends else 0)  # causal: QK^T and PV over half the keys
+            flops_model = 6 * n_matmul * tokens + 4 * attn_fwd  # attention fwd + bwd + remat
+            flops_run = 8 * n_matmul * tokens + 4 * attn_fwd    # the weight products' remat too
+            run.update({
+                "params": n_params, "matmul_params": n_matmul,
+                "eager_step_ms": ms["eager"], "replay_step_ms": ms["replay"],
+                "eager_step_ms_median": statistics.median(ms["eager"]),
+                "replay_step_ms_median": replay_ms,
+                "tokens_per_s": tokens / (replay_ms / 1e3),
+                "device_busy_ms": busy,
+                "idle_share": None if busy is None else 1 - busy / replay_ms,
+                "top_kernels": top,
+                "flops_model": flops_model, "flops_run": flops_run,
+                "model_flop_share": flops_model / (replay_ms / 1e3 * PEAK_BF16_FLOPS),
+                "run_flop_share": flops_run / (replay_ms / 1e3 * PEAK_BF16_FLOPS),
+                "peak_memory_gb_all": torch.cuda.max_memory_allocated() / 1e9,
+            })
+            captured = eager_state = batches = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        run["phase_s"] = time.perf_counter() - t0
+        report[arch] = run
+        held = run["deterministic_mode" if attends else "default_mode"]
+        log(f"phase {phase} {arch} ok: B={batch} S={seq} bf16, launcher {steps} steps in "
+            f"{run['launcher_wall_s']:.1f} s (peak {run['peak_memory_gb']:.2f} GB, losses "
+            f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}); replay bit-equal to eager "
+            f"{held['replay_bit_equal_eager']}"
+            + (" in deterministic mode; default mode against eager: "
+               + ", ".join(f"{k} {run['default_mode'][k]:.3g} (limit {limit:.3g}, eager twice "
+                           f"{run['default_mode']['control_eager_twice'][k]:.3g}, one step apart "
+                           f"{run['default_mode']['control_one_step_apart'][k]:.3g})"
+                           for k, limit in LM_TRAIN_DEFAULT_TOL.items())
+               if attends else "")
+            + f"; step eager {run['eager_step_ms_median']:.1f} ms, replayed {replay_ms:.1f} ms, "
+            f"{run['tokens_per_s']:.0f} tokens/s, device busy {busy} ms, idle share "
+            f"{run['idle_share']}, model-FLOP share {run['model_flop_share']:.3f} "
+            f"({flops_model:.3g} FLOP a step), peak {run['peak_memory_gb_all']:.2f} GB; "
+            f"K4/K5 launches: launcher {run['launches_launcher']}, replay checks "
+            f"{run['launches']} ({run['phase_s']:.1f} s)")
+    log(smi)
+    return launches, report
+
+
 def main() -> int:
+    # deterministic mode (phase 30) needs cuBLAS's workspace fixed before
+    # its first call: 8 buffers of 4 MiB
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3198,6 +3659,12 @@ def main() -> int:
     rw_entry["launches_by_path"]["gw_sharded"] = sharded_launches["rowwise_matmul"]
 
     lm_kernels, lm_graphs = lm_phases(dev, smi)  # phases 10-14, 19
+    # phases 29-31: LM training (K4 and K5 counts set to 0 before each run,
+    # read after it: none launches)
+    lm_train_launches, lm_train_report = lm_train_phases(dev, smi)
+    log(json.dumps({"lm_train": lm_train_report}))
+    for entry in lm_kernels:
+        entry["launches_by_path"]["lm_train"] = lm_train_launches[entry["name"]]
     log(smi)
     log(json.dumps({"graphs": {"gw": gw_graphs, "lm": lm_graphs,
                                "server_replay_threaded": server_report["fused_step"]["threaded"]}}))

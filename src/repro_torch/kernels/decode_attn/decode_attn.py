@@ -24,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.lstm_stack.lstm_stack import MAX_SMEM_BYTES
 
 SOURCE = Path(__file__).parent / "csrc" / "decode_attn.cu"
@@ -138,6 +139,7 @@ def decode_attn(
                          f"want ({batch},)")
     if not (q.device == k.device == v.device == lengths.device):
         raise ValueError("decode_attn: operands on different devices")
+    refuse_grad("decode_attn", q, k, v)
     if q.device.type == "cpu":
         return decode_attn_plain(q, k, v, lengths)
     return _launch(q, k, v, lengths)

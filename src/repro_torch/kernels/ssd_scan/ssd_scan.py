@@ -32,6 +32,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.lstm_stack.lstm_stack import MAX_SMEM_BYTES
 
 SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
@@ -153,6 +154,7 @@ def ssd_scan(
         raise ValueError("ssd_scan: operands on different devices")
     if chunk < 1 or t_len < 1:
         raise ValueError(f"ssd_scan: chunk and T must be >= 1, got {chunk} and {t_len}")
+    refuse_grad("ssd_scan", x, dt, a, bm, cm, s0)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a, bm, cm, s0=s0, chunk=chunk)
     return _launch(x, dt, a, bm, cm, s0, min(chunk, max(t_len, 1)))

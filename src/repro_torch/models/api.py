@@ -1,13 +1,15 @@
 """Uniform model API: family dispatch.
 
 ``get_model(cfg)`` returns a ``ModelApi`` with the entry points a family's
-serving path needs.  The port has every family of the reference:
-``dense`` (with the VLM backbone), ``moe``, ``ssm``, ``hybrid`` and
-``encdec``.  ``cache_rows`` says how many cache rows a request takes.
+serving and training paths need.  The port has every family of the
+reference: ``dense`` (with the VLM backbone), ``moe``, ``ssm``, ``hybrid``
+and ``encdec``.  ``cache_rows`` says how many cache rows a request takes.
 ``forward`` returns logits only, as the reference's does
-(MoE's own ``forward`` returns ``(logits, aux)``).  The reference's
-``input_specs`` and ``abstract_*`` helpers belong to the dry run, and
-``loss_fn`` to LM training: both come with later slices.
+(MoE's own ``forward`` returns ``(logits, aux)``).  ``loss_fn`` is the
+training loss on the reference's training path: plain PyTorch with each
+layer rematerialised, never a kernel of this package (none has a
+backward).  The reference's ``input_specs`` and ``abstract_*`` helpers
+belong to the dry run, which comes with a later slice.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class ModelApi:
     prefill: Callable        # (params, batch, cfg, max_len) -> (logits, cache)
     decode_step: Callable    # (params, cache, batch, cfg) -> (logits, cache)
     init_cache: Callable     # (cfg, batch, max_len, dtype, device) -> cache
+    loss_fn: Callable        # (params, batch, cfg) -> 0-d fp32 loss
     kernel_entry: tuple      # of "prefill", "decode_step": the ones that take use_kernel
     ring_cache: bool         # the KV cache is a ring: a position may pass its rows
 
@@ -64,6 +67,7 @@ def get_model(cfg: ArchConfig) -> ModelApi:
         prefill=mod.prefill,
         decode_step=mod.decode_step,
         init_cache=mod.init_cache,
+        loss_fn=mod.loss_fn,
         kernel_entry=kernel_entry,
         ring_cache=ring_cache,
     )

@@ -21,8 +21,9 @@ packages only agree branch by branch:
 ``decode_step`` writes each layer's new row and advances ``pos`` in place,
 as ``transformer.decode_step`` does, so a step can be captured once and
 replayed.  ``init_params`` draws on the target device, each stacked leaf
-one layer at a time, as the dense transformer's does.  The training loss
-(``loss_fn``) comes with LM training.
+one layer at a time, as the dense transformer's does.  ``loss_fn`` scores
+``forward``'s logits; every encoder and decoder layer is rematerialised
+under grad, as the reference's are.
 """
 
 from __future__ import annotations
@@ -101,11 +102,12 @@ def _enc_layer(x, lp, cfg: ArchConfig, rope):
 
 
 def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """frames: (B, S_enc, d) precomputed frontend embeddings -> (B, S_enc, d)."""
+    """frames: (B, S_enc, d) precomputed frontend embeddings -> (B, S_enc, d);
+    each layer rematerialised under grad."""
     x = torch.as_tensor(frames, device=params["embed"].device).to(cfg.dtype)
     rope = L.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_enc_layers):
-        x = _enc_layer(x, L.layer(params["enc_layers"], i), cfg, rope)
+        x = L.remat(_enc_layer, x, L.layer(params["enc_layers"], i), cfg, rope)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -123,14 +125,20 @@ def _dec_layer(x, lp, enc_out, cfg: ArchConfig, rope):
 
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """batch: {"frontend_embeds": (B, S_enc, d), "tokens": (B, S_dec)} ->
-    logits (B, S_dec, V_padded)."""
+    logits (B, S_dec, V_padded); each layer rematerialised under grad.  A
+    batch without frames raises ValueError."""
     enc_out = encode(params, _frames(batch, params["embed"].device), cfg)
     x = T.embed_inputs(params, {"tokens": batch["tokens"]}, cfg)
     rope = L.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = _dec_layer(x, L.layer(params["dec_layers"], i), enc_out, cfg, rope)
+        x = L.remat(_dec_layer, x, L.layer(params["dec_layers"], i), enc_out, cfg, rope)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"]
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of the decoder's logits."""
+    return L.softmax_xent(forward(params, batch, cfg), batch["labels"], cfg.vocab)
 
 
 # ---------------------------------------------------------------------------

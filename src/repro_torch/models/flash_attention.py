@@ -13,7 +13,17 @@ on top of causality and ``q_offset``, as the reference's block mask has
 it) the queries go in blocks of ``_Q_BLOCK``, each against its band of at
 most ``_Q_BLOCK + window - 1`` keys with an explicit band mask, and the
 K/V heads of the band repeated for GQA: memory grows with S, never S x S.
-The backward pass (the reference's custom VJP) comes with LM training.
+
+The backward pass is ``scaled_dot_product_attention``'s own autograd, the
+counterpart of the reference's custom VJP (``_flash_bwd``, the
+FlashAttention-2 recurrences): on the card the fused backends recompute
+the score tiles from the saved log-sum-exp instead of keeping S x S, which
+is why the reference wrote its VJP.  Its gradients match the reference's
+to about 1e-6 of their largest in fp32 (``tests/test_torch_lm_train.py``),
+so no ``autograd.Function`` of this package stands in for it.  A training
+shape that falls back to PyTorch's math backend would build S x S
+silently: ``chip_smoke.py`` runs smollm-360m's training with that backend
+disabled, so such a fallback raises there.
 """
 
 from __future__ import annotations

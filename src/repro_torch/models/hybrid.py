@@ -15,7 +15,8 @@ wrapped every slot holds one of the last ``w`` positions, RoPE was applied
 at write time, and softmax does not care about slot order.  So decode
 attention is K5 with ``lengths = min(pos + 1, w)`` per row.  The SSM
 branch is ``ssm.ssm_block`` (the scan through K4 in prefill) and
-``ssm.ssm_block_decode`` with ``hybrid_branch=True``.
+``ssm.ssm_block_decode`` with ``hybrid_branch=True``.  ``loss_fn``, as
+the reference's training, runs the scan on ``ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -71,15 +72,26 @@ def _layer_fwd(x, lp, cfg: ArchConfig, rope, use_kernel: bool):
     return x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps)), k, v, state
 
 
+def _layer_out(x, lp, cfg: ArchConfig, rope, use_kernel: bool):
+    return _layer_fwd(x, lp, cfg, rope, use_kernel)[0]
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, use_kernel: bool = True):
-    """Full-sequence forward -> logits (B, S, V_padded)."""
+    """Full-sequence forward -> logits (B, S, V_padded); each layer
+    rematerialised under grad."""
     x = T.embed_inputs(params, batch, cfg)
     s = x.shape[1]
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, _, _, _ = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope, use_kernel)
+        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope, use_kernel)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"]
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy; the SSM branch's scan on ``ssd_chunked``."""
+    return L.softmax_xent(forward(params, batch, cfg, use_kernel=False), batch["labels"],
+                          cfg.vocab)
 
 
 # ---------------------------------------------------------------------------

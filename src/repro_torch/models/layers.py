@@ -10,8 +10,10 @@ back, ``_proj_qkv`` adds biases in fp32, ``sdpa`` forms scores and the
 weighted sum in fp32 from operands at their own dtype (bf16 products are
 exact in fp32), with the softmax weights rounded to V's dtype first.
 
-The reference's mesh code (``ShardCtx``, ``constrain_residual``) and its
-training loss (``softmax_xent``) belong to later slices.
+``softmax_xent`` is the training loss and ``remat`` the per-layer
+rematerialisation every family's ``forward`` runs its layers through (the
+reference's ``jax.checkpoint``).  The reference's mesh code (``ShardCtx``,
+``constrain_residual``) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.tree import tree_map
@@ -257,6 +260,33 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype,
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# training: the loss and per-layer rematerialisation
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels, valid_vocab: int | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32: logits (B, S, V_padded),
+    labels (B, S) integers.  ``valid_vocab`` masks the padded vocabulary
+    columns with -1e30, so the pad takes no probability mass."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    lf = logits.float()
+    if valid_vocab is not None and valid_vocab < lf.shape[-1]:
+        lf = torch.where(torch.arange(lf.shape[-1], device=lf.device) < valid_vocab, lf, -1e30)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    return (torch.logsumexp(lf, dim=-1) - gold).mean()
+
+
+def remat(fn, *args):
+    """``fn(*args)``, one layer of a forward.  Under grad the layer keeps
+    only its inputs and recomputes its activations in the backward, as the
+    reference's ``jax.checkpoint`` does; with grad off (prefill, serving
+    graphs) it is the plain call.  No layer draws random numbers, so no
+    RNG state is saved (saving the CUDA one fails inside a graph capture)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

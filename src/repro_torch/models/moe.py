@@ -18,8 +18,8 @@ value back to the host or makes a shape from data, so prefill and decode
 can be captured as CUDA graphs.  The expert products and the shared SwiGLU
 are plain ``torch.einsum``/``matmul`` (the reference runs them outside any
 Pallas kernel); decode attention runs through K5 as the dense
-transformer's does.  ``aux`` is the Switch load-balance loss, kept for LM
-training.
+transformer's does.  ``aux`` is the Switch load-balance loss, which
+``loss_fn`` adds at ``AUX_COEF``.
 
 Attention, embeddings and the KV cache are the dense transformer's.
 ``init_params`` draws the routed experts on the target device, one layer
@@ -167,17 +167,32 @@ def _layer_fwd(x, lp, cfg: ArchConfig, rope):
     return x + h, aux, k, v
 
 
+def _layer_out(x, lp, cfg: ArchConfig, rope):
+    return _layer_fwd(x, lp, cfg, rope)[:2]
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B, S, V_padded), mean aux loss per layer)."""
+    """Full-sequence forward -> (logits (B, S, V_padded), mean aux loss per
+    layer); each layer rematerialised under grad."""
     x = T.embed_inputs(params, batch, cfg)
     s = x.shape[1]
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        x, a, _, _ = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope)
+        x, a = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope)
         aux = aux + a
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"], aux / cfg.n_layers
+
+
+#: weight of the Switch load-balance loss in ``loss_fn``, as the reference's
+AUX_COEF = 1e-2
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Next-token cross-entropy plus ``AUX_COEF`` x the aux loss."""
+    logits, aux = forward(params, batch, cfg)
+    return L.softmax_xent(logits, batch["labels"], cfg.vocab) + AUX_COEF * aux
 
 
 init_cache = T.init_cache  # the dense transformer's KV cache

@@ -8,7 +8,10 @@ per head), D skip, silu(z) gating, RMSNorm, output projection.
 The full-sequence scan (prefill) runs through ``ssd_scan_op``, the chunked
 SSD kernel (K4), with chunk 64; ``use_kernel=False`` runs its plain
 version ``ssd_chunked`` instead, the pure-jnp path the reference's
-``ssm_block`` takes.  Decode keeps O(1) state per token, (conv window, SSD
+``ssm_block`` takes.  K4 has no backward (its wrapper raises when a
+gradient is asked for), so ``loss_fn`` runs the forward on
+``ssd_chunked``, as the reference's training does, each layer
+rematerialised under grad.  Decode keeps O(1) state per token, (conv window, SSD
 state), updated by ``ssd_decode_step`` in plain PyTorch.
 
 The conventions that are easy to flip, as in the reference: ``causal_conv``
@@ -182,16 +185,26 @@ def _embed(params: dict, tokens) -> torch.Tensor:
     return embed[torch.as_tensor(tokens, device=embed.device).long()]
 
 
+def _layer_out(x, lp, cfg: ArchConfig, use_kernel: bool):
+    h, _ = ssm_block(lp["ssm"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                     use_kernel=use_kernel)
+    return x + h
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, use_kernel: bool = True):
-    """Full-sequence forward -> logits (B, S, V_padded)."""
+    """Full-sequence forward -> logits (B, S, V_padded); each layer
+    rematerialised under grad."""
     x = _embed(params, batch["tokens"])
     for i in range(cfg.n_layers):
-        lp = L.layer(params["layers"], i)
-        h, _ = ssm_block(lp["ssm"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
-                         use_kernel=use_kernel)
-        x = x + h
+        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, use_kernel)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["lm_head"]
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy; the scan on ``ssd_chunked``."""
+    return L.softmax_xent(forward(params, batch, cfg, use_kernel=False), batch["labels"],
+                          cfg.vocab)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,

@@ -19,6 +19,9 @@ the model has a sliding window.
 ``init_params`` draws on the target device, each stacked leaf one layer
 at a time: at llava-next-34b's width a stacked fp32 MLP leaf would be
 35.2 GB, and the bf16 weights alone are 68.8 GB.
+
+``loss_fn`` is the training loss over ``forward``, whose layers run
+through ``layers.remat`` under grad (the reference's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -104,15 +107,31 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return x
 
 
+def _layer_out(x, lp, cfg: ArchConfig, rope):
+    return _layer_fwd(x, lp, cfg, rope)[0]
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence causal LM forward -> logits (B, S, V_padded)."""
+    """Full-sequence causal LM forward -> logits (B, S, V_padded); each
+    layer rematerialised under grad."""
     x = embed_inputs(params, batch, cfg)
     s = x.shape[1]
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope)
+        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ _head(params, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``forward`` against
+    ``batch["labels"]``; with frontend embeddings (a VLM's patches) only
+    the text tail is scored."""
+    logits = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        logits = logits[:, -labels.shape[1]:]
+    return L.softmax_xent(logits, labels, cfg.vocab)
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,8 @@ def test_import_loads_no_jax_and_no_reference():
                  "repro_torch.kernels.ssd_scan.ssd_scan", "repro_torch.kernels.ssd_scan.ops",
                  "repro_torch.kernels.ssd_scan.ref", "repro_torch.tree",
                  "repro_torch.train.optimizer", "repro_torch.train.step",
-                 "repro_torch.train.checkpoint", "repro_torch.train.trainer"):
+                 "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+                 "repro_torch.launch.train"):
         assert name in report["modules"]
 
 
