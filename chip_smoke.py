@@ -73,6 +73,17 @@ eager ones, step times, tokens/s, the idle share, peak memory and the
 model-FLOP share (the ``lm_train`` JSON line); K4 and K5 launch on no
 training path.
 
+Phases 32-34 run the mesh and the dry run (``launch/dryrun.py``): an
+NCCL process group of one rank and ``make_host_mesh()`` on the card;
+smollm-360m's ``train_4k`` cell (cut to B=8) through ``build_cell``'s
+DTensor step for 3 steps against the plain step (deterministic mode,
+within ``LM_TRAIN_DEFAULT_TOL``), the dry run's prediction for it
+(argument bytes exactly, the traced peak against
+``max_memory_allocated``, dot FLOPs against ``FlopCounterMode``), its
+``decode_32k`` cell (B=8, 16 steps) against ``LmEngine``'s plain path
+(``LM_TF_TOL``), and three production cells traced on ``pod_32x8`` on
+the card's host beside them (the ``dryrun`` JSON line).
+
 Phases 26-28 place ``gw_nominal`` on a stage mesh (``fused_stack_sharded``:
 each stage a contiguous sub-stack on its own CUDA stream, one K1 launch per
 chunk; the stages share the card, or take one card each where there are
@@ -3106,6 +3117,319 @@ def lm_train_phases(dev, smi: str) -> tuple[dict, dict]:
     return launches, report
 
 
+#: phase 32's real step (smollm-360m train_4k cut to B=8) and phase 33's
+#: decode (decode_32k cut to B=8, a 512-token prompt, 16 steps)
+DRY_TRAIN = ("smollm-360m", 4096, 8, 3)
+DRY_DECODE = ("smollm-360m", 32768, 8, 512, 16)
+#: phase 34: production cells traced on the pod_32x8 mesh (256 H100s) on
+#: the card's host, one process each, side by side with phases 32-33.
+#: llava-next-34b.train_4k traces in about 260 s (PERF.md §4): it is in
+#: the --all sweep, not here
+DRY_CELLS = (("dbrx-132b", "train_4k"), ("dbrx-132b", "decode_32k"),
+             ("llava-next-34b", "decode_32k"))
+DRY_PHASE_S = 150
+#: the traced peak (fake CPU tensors, MemTracker) against
+#: torch.cuda.max_memory_allocated over the real step: the trace sees no
+#: cuBLAS or cuDNN workspace and the CPU's fused attention keeps other
+#: buffers than the card's, so the two are held to a quarter apart
+DRY_PEAK_REL = 0.25
+DRY_FLOPS_REL = 0.01
+_PREDICT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import InputShape
+from repro_torch.launch.dryrun import run_cell
+arch, name, seq, batch, kind = sys.argv[2], sys.argv[3], int(sys.argv[4]), int(sys.argv[5]), sys.argv[6]
+rec = run_cell(get_arch(arch), InputShape(name, seq, batch, kind), mesh_shape=(1, 1))
+print("RECORD " + json.dumps(rec))
+"""
+
+
+def _spawn_dryruns(out_dir: Path) -> dict:
+    """Phase 34's production cells (``python -m repro_torch.launch.dryrun``)
+    and the (1, 1)-mesh predictions of phases 32-33, each a process of
+    its own on the host's cores: {name: (process, output file)}."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    for arch, shape in DRY_CELLS:
+        log_path = out_dir / f"{arch}.{shape}.log"
+        procs[f"{arch}.{shape}"] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", "pod", "--out", str(out_dir)], cwd=ROOT, env=env,
+            stdout=open(log_path, "w"), stderr=subprocess.STDOUT), log_path)
+    arch, seq, batch, _ = DRY_TRAIN
+    darch, dseq, dbatch, _, _ = DRY_DECODE
+    for name, args in (("predict_train", (arch, "train_4k", seq, batch, "train")),
+                       ("predict_decode", (darch, "decode_32k", dseq, dbatch, "decode"))):
+        log_path = out_dir / f"{name}.log"
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", _PREDICT, str(ROOT / "src"), *map(str, args)], cwd=ROOT,
+            env=env, stdout=open(log_path, "w"), stderr=subprocess.STDOUT), log_path)
+    return procs
+
+
+def _predicted(procs: dict, name: str, timeout: float) -> dict:
+    proc, path = procs[name]
+    proc.wait(timeout=timeout)
+    text = path.read_text()
+    lines = [ln for ln in text.splitlines() if ln.startswith("RECORD ")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"dry-run prediction {name} failed: {text[-3000:]}")
+    rec = json.loads(lines[-1][len("RECORD "):])
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run prediction {name}: {rec}")
+    return rec
+
+
+def dryrun_phases(dev, smi: str) -> tuple[dict, dict]:
+    """Phases 32-34, this slice's path: the mesh, the sharding rules and
+    the dry run (``launch/dryrun.py``).
+
+    32. A real step through the dry run: an NCCL process group of one rank,
+        ``make_host_mesh()`` on the card ((1, 1), ("data", "model")),
+        smollm-360m ``train_4k`` cut to B=8 through ``build_cell``'s step:
+        DTensor parameters, AdamW, 3 steps, in deterministic mode, against
+        the plain step (``make_train_step`` on the family's ``loss_fn``)
+        from the same seed: bit for bit, or within
+        ``LM_TRAIN_DEFAULT_TOL`` (losses, parameters, moments).  The dry run's own
+        prediction for that cell (a fake (1, 1) mesh, fake CPU tensors)
+        against the card: argument bytes exactly equal to the bytes the
+        real parameters, moments and batch occupy; the traced peak
+        against ``torch.cuda.max_memory_allocated`` over the first real
+        step (``DRY_PEAK_REL``); its dot FLOPs against ``FlopCounterMode``
+        over that step (``DRY_FLOPS_REL``).
+    33. Decode: smollm-360m ``decode_32k`` cut to B=8 on the same mesh with
+        the serve rules, 16 steps after a 512-token prompt, its logits
+        against ``LmEngine``'s plain path (``use_kernel=False``, eager)
+        under teacher forcing (``LM_TF_TOL``); predicted argument bytes
+        against the real ones.
+    34. The dry run at production size on the card's host: ``DRY_CELLS``
+        on ``pod_32x8``, each ``status: "ok"``, with per-rank argument
+        bytes, traced peak, fit against 80 GB, dot FLOPs and collective
+        bytes by type; the phase within ``DRY_PHASE_S``.
+
+    K4 and K5 launch on none of these paths (the dry-run cells pass
+    ``use_kernel=False``; training runs none): their counts are set to 0
+    before phases 32-33 and read after them.  Returns (launches by
+    kernel, the report)."""
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    t_c = time.time()  # wall clock: phase 34 ends when its last record is written
+    procs = _spawn_dryruns(out_dir)
+    try:
+        return _dryrun_run(dev, smi, procs, out_dir, t_c)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _dryrun_run(dev, smi: str, procs: dict, out_dir: Path, t_c: float) -> tuple[dict, dict]:
+    """The body of ``dryrun_phases`` (which stops ``procs`` whatever
+    happens)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.costs import argument_bytes, attention_flops
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.lm import LmDataConfig, lm_batch
+    from repro_torch.kernels.decode_attn import decode_attn
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import distribute
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import LmEngine
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten
+
+    report: dict = {}
+    decode_attn.launches = ssd_scan.launches = 0
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+
+        # -- phase 32: a real train step through the dry run's cell ---------
+        t0 = time.perf_counter()
+        arch, seq, batch, steps = DRY_TRAIN
+        cfg = get_arch(arch)
+        api = get_model(cfg)
+        shape = InputShape("train_4k", seq, batch, "train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = api.init_params(cfg, seed=0, device=dev)
+        opt = init_opt_state(params)
+        data_cfg = LmDataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in lm_batch(data_cfg, i).items()}
+                   for i in range(steps)]
+        plain_step = make_train_step(lambda p, b: api.loss_fn(p, b, cfg), AdamWConfig(),
+                                     microbatches=cfg.train_microbatches)
+        run: dict = {"arch": arch, "S": seq, "B": batch, "steps": steps, "mesh": [1, 1]}
+        with deterministic():
+            cell = build_cell(cfg, shape, mesh, state=(params, opt, batches[0]))
+            real_args = argument_bytes(*cell.args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counter = FlopCounterMode(display=False, custom_mapping=attention_flops())
+            with counter:
+                loss, p_d, o_d = cell.fn(*cell.args)
+            torch.cuda.synchronize()
+            run["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            run["flop_counter_flops"] = counter.get_total_flops()
+            sharded_losses = [float(loss.full_tensor())]
+            for b in batches[1:]:
+                loss, p_d, o_d = cell.fn(p_d, o_d, distribute(mesh, b, cell.specs[2]))
+                sharded_losses.append(float(loss.full_tensor()))
+            cell = None
+            plain_losses, p, o = [], params, opt
+            for b in batches:
+                loss, p, o = plain_step(p, o, b)
+                plain_losses.append(float(loss))
+        got = flatten({"params": p_d, "opt": o_d})
+        want = flatten({"params": p, "opt": o})
+        gap = {"loss": max(abs(a - b) / abs(b) for a, b in zip(sharded_losses, plain_losses)),
+               "params": 0.0, "moments": 0.0, "max_abs_diff": 0.0}
+        for k, w in want.items():
+            if not w.is_floating_point():
+                continue
+            d = (got[k].full_tensor().float() - w.float()).abs().max().item()
+            part = "params" if k.startswith("params/") else "moments"
+            gap["max_abs_diff"] = max(gap["max_abs_diff"], d)
+            gap[part] = max(gap[part], d / max(w.float().abs().max().item(), 1e-30))
+        run.update(losses_sharded=sharded_losses, losses_plain=plain_losses, gap=gap,
+                   bit_equal=gap["max_abs_diff"] == 0 and sharded_losses == plain_losses,
+                   limits=LM_TRAIN_DEFAULT_TOL)
+        p_d = o_d = p = o = params = opt = got = want = None
+        if not run["bit_equal"] and not all(gap[k] <= v for k, v in LM_TRAIN_DEFAULT_TOL.items()):
+            raise AssertionError(f"phase 32: the dry run's step on the card against the plain "
+                                 f"step in deterministic mode: {run}")
+        pred = _predicted(procs, "predict_train", 900)
+        run["predicted"] = {"argument_bytes": pred["memory"]["argument_bytes"],
+                            "peak_bytes": pred["memory"]["peak_bytes"],
+                            "dot_flops": pred["hlo_dot_flops"], "trace_s": pred["trace_s"]}
+        run["argument_bytes"] = real_args
+        run["peak_gap_rel"] = (pred["memory"]["peak_bytes"] - run["peak_bytes"]) / run["peak_bytes"]
+        run["flops_gap_rel"] = ((pred["hlo_dot_flops"] - run["flop_counter_flops"])
+                                / run["flop_counter_flops"])
+        run["phase_s"] = time.perf_counter() - t0
+        report["train"] = run
+        log(f"phase 32 dry-run train step ok: {arch} S={seq} B={batch} on the (1, 1) mesh, "
+            f"{steps} steps against the plain step in deterministic mode: bit-equal "
+            f"{run['bit_equal']}, gap {gap} (limits {LM_TRAIN_DEFAULT_TOL}; losses "
+            f"{sharded_losses}); predicted "
+            f"argument bytes {pred['memory']['argument_bytes']} vs real {real_args}; peak "
+            f"predicted {pred['memory']['peak_bytes'] / 1e9:.3f} GB vs max_memory_allocated "
+            f"{run['peak_bytes'] / 1e9:.3f} GB (gap {run['peak_gap_rel']:+.3f}, limit "
+            f"{DRY_PEAK_REL}); dot FLOPs predicted {pred['hlo_dot_flops']:.4e} vs "
+            f"FlopCounterMode {run['flop_counter_flops']:.4e} (gap {run['flops_gap_rel']:+.4f}, "
+            f"limit {DRY_FLOPS_REL}) ({run['phase_s']:.1f} s)")
+        if pred["memory"]["argument_bytes"] != real_args:
+            raise AssertionError(f"phase 32: predicted argument bytes {run['predicted']} != "
+                                 f"real {real_args}")
+        if not abs(run["peak_gap_rel"]) <= DRY_PEAK_REL:
+            raise AssertionError(f"phase 32: traced peak vs the card's: {run}")
+        if not abs(run["flops_gap_rel"]) <= DRY_FLOPS_REL:
+            raise AssertionError(f"phase 32: dot FLOPs vs FlopCounterMode: {run}")
+
+        # -- phase 33: decode through the dry run's cell ---------------------
+        t0 = time.perf_counter()
+        arch, rows, batch, n_prompt, n_steps = DRY_DECODE
+        cfg = get_arch(arch)
+        api = get_model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = api.init_params(cfg, seed=0, device=dev)
+        toks = lm_batch(LmDataConfig(vocab=cfg.vocab, seq_len=n_prompt + n_steps + 1,
+                                     global_batch=batch), 0)["tokens"]
+        prompt, follow = toks[:, :n_prompt], toks[:, n_prompt:]
+        engine = LmEngine(params, cfg, max_len=rows, device=dev, use_kernel=False,
+                          graphs=False)
+        want = engine.teacher_forced(prompt, follow)
+        engine = None
+        with torch.no_grad():
+            _, cache = api.prefill(params, {"tokens": torch.as_tensor(prompt).to(dev)}, cfg, rows)
+        dshape = InputShape("decode_32k", rows, batch, "decode")
+        first = {"tokens": torch.as_tensor(follow[:, :1]).to(dev)}
+        cell = build_cell(cfg, dshape, mesh, state=(params, cache, first))
+        real_args = argument_bytes(*cell.args)
+        p_d, c_d = cell.args[0], cell.args[1]
+        steps_logits = []
+        with torch.no_grad():
+            for i in range(n_steps):
+                b = distribute(mesh, {"tokens": torch.as_tensor(follow[:, i:i + 1]).to(dev)},
+                               cell.specs[2])
+                logits, c_d = cell.fn(p_d, c_d, b)
+                steps_logits.append(logits.full_tensor()[:, 0].float())
+        got = (want[0], torch.stack(steps_logits))
+        stats = tf_stats(arch, got, want, cfg.vocab)["decode"]
+        cell = cache = c_d = p_d = params = None
+        pred = _predicted(procs, "predict_decode", 900)
+        run = {"arch": arch, "rows": rows, "B": batch, "prompt": n_prompt, "steps": n_steps,
+               "vs_plain_engine": stats, "limit_rel": LM_TF_TOL,
+               "argument_bytes": real_args,
+               "predicted_argument_bytes": pred["memory"]["argument_bytes"],
+               "predicted_peak_bytes": pred["memory"]["peak_bytes"],
+               "phase_s": time.perf_counter() - t0}
+        report["decode"] = run
+        log(f"phase 33 dry-run decode ok: {arch} {n_steps} steps against a {rows}-row cache "
+            f"(B={batch}) on the (1, 1) mesh vs LmEngine's plain path: max |diff| "
+            f"{stats['max_abs_diff']:.4g} of max |logit| {stats['max_abs_logit']:.4g} (limit "
+            f"{LM_TF_TOL}), argmax agree {stats['argmax_agree']:.3f}; argument bytes predicted "
+            f"{run['predicted_argument_bytes']} vs real {real_args} ({run['phase_s']:.1f} s)")
+        if not stats["max_abs_diff"] <= LM_TF_TOL * stats["max_abs_logit"]:
+            raise AssertionError(f"phase 33: decode logits vs the plain engine: {run}")
+        if run["predicted_argument_bytes"] != real_args:
+            raise AssertionError(f"phase 33: predicted argument bytes != real: {run}")
+    finally:
+        dist.destroy_process_group()
+    launches = {"decode_attn": decode_attn.launches, "ssd_scan": ssd_scan.launches}
+    if any(launches.values()):
+        raise AssertionError(f"phases 32-33: a kernel launched on the dry run's path: {launches}")
+
+    # -- phase 34: the production cells, traced beside phases 32-33 ----------
+    cells = {}
+    for arch, shape in DRY_CELLS:
+        proc, path = procs[f"{arch}.{shape}"]
+        proc.wait(timeout=max(DRY_PHASE_S * 4 - (time.time() - t_c), 1))
+        rec_path = out_dir / f"{arch}.{shape}.pod_32x8.json"
+        if proc.returncode or not rec_path.exists():
+            raise AssertionError(f"phase 34 {arch}.{shape}: {path.read_text()[-3000:]}")
+        rec = json.loads(rec_path.read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 34 {arch}.{shape}: {rec}")
+        m = rec["memory"]
+        cells[rec["cell"]] = {
+            "argument_bytes": m["argument_bytes"], "peak_bytes": m["peak_bytes"],
+            "fits_80gb": m["fits"], "dot_flops": rec["hlo_dot_flops"],
+            "collective_bytes": rec["collective_bytes"], "trace_s": rec["trace_s"]}
+        log(f"phase 34 {rec['cell']} ok: {m['argument_bytes'] / 1e9:.3f} GB of arguments "
+            f"and a {m['peak_bytes'] / 1e9:.3f} GB peak per rank (fits 80 GB: {m['fits']}), "
+            f"{rec['hlo_dot_flops']:.4e} dot FLOPs, collective bytes "
+            f"{ {k: f'{v:.4e}' for k, v in rec['collective_bytes'].items()} } "
+            f"(traced in {rec['trace_s']} s)")
+    phase_s = max((out_dir / f"{a}.{sh}.pod_32x8.json").stat().st_mtime
+                  for a, sh in DRY_CELLS) - t_c
+    report["production"] = {"cells": cells, "phase_s": phase_s, "limit_s": DRY_PHASE_S}
+    log(f"phase 34 ok: {len(cells)} production cells on pod_32x8, the last written "
+        f"{phase_s:.1f} s after they started, beside phases 32-33 (limit {DRY_PHASE_S} s)")
+    if phase_s > DRY_PHASE_S:
+        raise AssertionError(f"phase 34 took {phase_s:.1f} s (limit {DRY_PHASE_S} s)")
+    log(smi)
+    return launches, report
+
+
 def main() -> int:
     # deterministic mode (phase 30) needs cuBLAS's workspace fixed before
     # its first call: 8 buffers of 4 MiB
@@ -3663,8 +3987,13 @@ def main() -> int:
     # read after it: none launches)
     lm_train_launches, lm_train_report = lm_train_phases(dev, smi)
     log(json.dumps({"lm_train": lm_train_report}))
+    # phases 32-34: the mesh and the dry run (K4 and K5 counts set to 0
+    # before phases 32-33, read after them: none launches)
+    dry_launches, dry_report = dryrun_phases(dev, smi)
+    log(json.dumps({"dryrun": dry_report}))
     for entry in lm_kernels:
         entry["launches_by_path"]["lm_train"] = lm_train_launches[entry["name"]]
+        entry["launches_by_path"]["dryrun"] = dry_launches[entry["name"]]
     log(smi)
     log(json.dumps({"graphs": {"gw": gw_graphs, "lm": lm_graphs,
                                "server_replay_threaded": server_report["fused_step"]["threaded"]}}))

@@ -13,6 +13,13 @@ CONFIG = ArchConfig(
     d_ff=20480, vocab=64000, head_dim=128,
     rope_theta=5e6,
     frontend="vision", frontend_tokens=576,
-    train_microbatches=4,  # 60L x d7168 remat stacks: fit 16 GB/chip
-    serve_2d=True,          # 34B weights + 32k KV cache: fit 16 GB/chip
+    # the reference's values.  The dry run (python -m repro_torch.launch.dryrun
+    # --mesh pod, sized for one NVIDIA H100 80GB HBM3, 700 W) traces on
+    # pod_32x8: train_4k a 4.69 GB peak per rank with 4 microbatches and
+    # 6.63 GB with 2 (--variant mb2); decode_32k with serve_2d 4.30 GB of
+    # arguments and a 4.44 GB peak.  The H100 needs neither to fit 80 GB:
+    # 1-D serve sharding (not traced) holds 68.8 GB / 8 = 8.6 GB of weights
+    # a rank
+    train_microbatches=4,
+    serve_2d=True,
 )

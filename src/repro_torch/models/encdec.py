@@ -29,6 +29,7 @@ under grad, as the reference's are.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -93,21 +94,24 @@ def _frames(batch: dict, device: torch.device) -> torch.Tensor:
 # encoder
 # ---------------------------------------------------------------------------
 
-def _enc_layer(x, lp, cfg: ArchConfig, rope):
+def _enc_layer(x, lp, cfg: ArchConfig, rope, ctx: L.ShardCtx = L.NO_SHARD):
+    lp = ctx.gather(lp)
     # layers.attention takes the reference encoder's branches: non-causal
     # flash above T._FLASH_THRESHOLD (1024) frames, sdpa up to it
     x = x + L.attention(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope=rope,
-                        causal=False)
-    return x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+                        causal=False, ctx=ctx)
+    return L.constrain_residual(
+        x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx), ctx)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
+           ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed frontend embeddings -> (B, S_enc, d);
     each layer rematerialised under grad."""
     x = torch.as_tensor(frames, device=params["embed"].device).to(cfg.dtype)
     rope = L.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_enc_layers):
-        x = L.remat(_enc_layer, x, L.layer(params["enc_layers"], i), cfg, rope)
+        x = L.remat(_enc_layer, x, L.layer(params["enc_layers"], i), cfg, rope, ctx)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -115,30 +119,36 @@ def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # decoder (forward / prefill)
 # ---------------------------------------------------------------------------
 
-def _dec_layer(x, lp, enc_out, cfg: ArchConfig, rope):
-    out, _, _ = T._attn_full(lp["self_attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope)
+def _dec_layer(x, lp, enc_out, cfg: ArchConfig, rope, ctx: L.ShardCtx = L.NO_SHARD):
+    lp = ctx.gather(lp)
+    out, _, _ = T._attn_full(lp["self_attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope,
+                             ctx)
     x = x + out
     x = x + L.attention(lp["cross_attn"], L.rms_norm(x, lp["ln_x"], cfg.norm_eps), cfg,
-                        rope=None, causal=False, x_kv=enc_out)
-    return x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+                        rope=None, causal=False, x_kv=enc_out, ctx=ctx)
+    return L.constrain_residual(
+        x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx), ctx)
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: ArchConfig,
+            ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """batch: {"frontend_embeds": (B, S_enc, d), "tokens": (B, S_dec)} ->
     logits (B, S_dec, V_padded); each layer rematerialised under grad.  A
     batch without frames raises ValueError."""
-    enc_out = encode(params, _frames(batch, params["embed"].device), cfg)
+    params = L.gather_top(params, ctx)
+    enc_out = encode(params, _frames(batch, params["embed"].device), cfg, ctx)
     x = T.embed_inputs(params, {"tokens": batch["tokens"]}, cfg)
     rope = L.rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = L.remat(_dec_layer, x, L.layer(params["dec_layers"], i), enc_out, cfg, rope)
+        x = L.remat(_dec_layer, x, L.layer(params["dec_layers"], i), enc_out, cfg, rope, ctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return L.head_logits(x, params["lm_head"], ctx)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """Mean next-token cross-entropy of the decoder's logits."""
-    return L.softmax_xent(forward(params, batch, cfg), batch["labels"], cfg.vocab)
+    return L.softmax_xent(forward(params, batch, cfg, ctx), batch["labels"], cfg.vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +171,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | N
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def prefill(params: dict, batch: dict, cfg: ArchConfig,
-            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = None,
+            ctx: L.ShardCtx = L.NO_SHARD) -> tuple[torch.Tensor, dict]:
     """Encode the frames and process the decoder prompt; returns (last-token
     logits (B, 1, V_padded), the cache: self K/V filled up to S_dec of
     ``max(max_len, S_dec)`` rows, the cross K/V at the encoder's length,
     ``pos`` = S_dec)."""
-    enc_out = encode(params, _frames(batch, params["embed"].device), cfg)
+    params = L.gather_top(params, ctx)
+    enc_out = encode(params, _frames(batch, params["embed"].device), cfg, ctx)
     x = T.embed_inputs(params, {"tokens": batch["tokens"]}, cfg)
     b, s, _ = x.shape
     s_enc = enc_out.shape[1]
@@ -175,33 +186,45 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     dev = x.device
     self_shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.hd)
     cross_shape = (cfg.n_layers, b, s_enc, cfg.n_kv_heads, cfg.hd)
-    cache = {"k": torch.zeros(self_shape, dtype=cfg.dtype, device=dev),
-             "v": torch.zeros(self_shape, dtype=cfg.dtype, device=dev),
-             "xk": torch.empty(cross_shape, dtype=cfg.dtype, device=dev),
-             "xv": torch.empty(cross_shape, dtype=cfg.dtype, device=dev),
-             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    sharded = isinstance(x, DTensor)
+    rows = {"k": [], "v": [], "xk": [], "xv": []}
+    cache = None if sharded else {
+        "k": torch.zeros(self_shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(self_shape, dtype=cfg.dtype, device=dev),
+        "xk": torch.empty(cross_shape, dtype=cfg.dtype, device=dev),
+        "xv": torch.empty(cross_shape, dtype=cfg.dtype, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev)}
     rope = L.rope_tables(torch.arange(s, device=dev), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        lp = L.layer(params["dec_layers"], i)
+        lp = ctx.gather(L.layer(params["dec_layers"], i))
         out, k, v = T._attn_full(lp["self_attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                                  rope)
         x = x + out
         xn = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
         xq, xk, xv = L._proj_qkv(lp["cross_attn"], xn, enc_out, cfg)
-        xout = L.sdpa(xq, xk, xv, causal=False)
+        xq = ctx.constrain(xq, (ctx.batch_spec, None, ctx.model_axis, None))
+        xout = L.attend(lambda q, k, v: L.sdpa(q, k, v, causal=False), xq, xk, xv)
         x = x + xout.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["cross_attn"]["wo"]
-        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
+        if sharded:
+            for key, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+                rows[key].append(t.to(cfg.dtype))
+            continue
         cache["k"][i, :, :s] = k.to(cfg.dtype)
         cache["v"][i, :, :s] = v.to(cfg.dtype)
         cache["xk"][i] = xk.to(cfg.dtype)
         cache["xv"][i] = xv.to(cfg.dtype)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    if sharded:
+        cache = {key: L.stack_rows(rows[key], max_len if key in ("k", "v") else s_enc)
+                 for key in rows}
+        cache["pos"] = torch.zeros((), dtype=torch.int32)
     cache["pos"].fill_(s)
-    return x @ params["lm_head"], cache
+    return L.head_logits(x, params["lm_head"], ctx), cache
 
 
-def decode_step(params: dict, cache: dict, batch: dict,
-                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
+                ctx: L.ShardCtx = L.NO_SHARD) -> tuple[torch.Tensor, dict]:
     """One new decoder token against the cache; batch["tokens"]: (B, 1).
     Writes the token's self-attention K/V rows into ``cache`` and advances
     its ``pos`` in place (the caller keeps ``pos`` inside the cache:
@@ -218,9 +241,12 @@ def decode_step(params: dict, cache: dict, batch: dict,
         x = x + out
         xn = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
         xq = (xn @ lp["cross_attn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
-        xout = L.sdpa(xq, cache["xk"][i], cache["xv"][i], causal=False)
+        if isinstance(cache["xk"], DTensor):
+            xout = L.split_decode_attend(xq, cache["xk"][i], cache["xv"][i])
+        else:
+            xout = L.sdpa(xq, cache["xk"][i], cache["xv"][i], causal=False)
         x = x + xout.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["cross_attn"]["wo"]
-        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     pos.add_(1)
-    return x @ params["lm_head"], cache
+    return L.head_logits(x, params["lm_head"], ctx), cache

@@ -22,6 +22,7 @@ the reference's training, runs the scan on ``ssd_chunked``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -57,40 +58,46 @@ def _mix(lp: dict, a_out: torch.Tensor, s_out: torch.Tensor, cfg: ArchConfig) ->
                   + L.rms_norm(s_out, lp["norm_ssm"], cfg.norm_eps))
 
 
-def _fused_branches(lp: dict, xn: torch.Tensor, cfg: ArchConfig, rope, use_kernel: bool):
+def _fused_branches(lp: dict, xn: torch.Tensor, cfg: ArchConfig, rope, use_kernel: bool,
+                    ctx: L.ShardCtx = L.NO_SHARD):
     """Both branches over the sequence: (mixed output, k, v, SSM state)."""
-    a_out, k, v = T._attn_full(lp["attn"], xn, cfg, rope)
+    a_out, k, v = T._attn_full(lp["attn"], xn, cfg, rope, ctx)
     s_out, state = S.ssm_block(lp["ssm"], xn, cfg, hybrid_branch=True, use_kernel=use_kernel)
     return _mix(lp, a_out, s_out, cfg), k, v, state
 
 
-def _layer_fwd(x, lp, cfg: ArchConfig, rope, use_kernel: bool):
+def _layer_fwd(x, lp, cfg: ArchConfig, rope, use_kernel: bool, ctx: L.ShardCtx = L.NO_SHARD):
     """One block; returns (x, k, v, SSM state)."""
+    lp = ctx.gather(lp)
     mixed, k, v, state = _fused_branches(lp, L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope,
-                                         use_kernel)
+                                         use_kernel, ctx)
     x = x + mixed
-    return x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps)), k, v, state
+    x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
+    return L.constrain_residual(x, ctx), k, v, state
 
 
-def _layer_out(x, lp, cfg: ArchConfig, rope, use_kernel: bool):
-    return _layer_fwd(x, lp, cfg, rope, use_kernel)[0]
+def _layer_out(x, lp, cfg: ArchConfig, rope, use_kernel: bool, ctx: L.ShardCtx):
+    return _layer_fwd(x, lp, cfg, rope, use_kernel, ctx)[0]
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig, *, use_kernel: bool = True):
+def forward(params: dict, batch: dict, cfg: ArchConfig, ctx: L.ShardCtx = L.NO_SHARD, *,
+            use_kernel: bool = True):
     """Full-sequence forward -> logits (B, S, V_padded); each layer
     rematerialised under grad."""
+    params = L.gather_top(params, ctx)
     x = T.embed_inputs(params, batch, cfg)
     s = x.shape[1]
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope, use_kernel)
+        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope, use_kernel, ctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return L.head_logits(x, params["lm_head"], ctx)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """Mean next-token cross-entropy; the SSM branch's scan on ``ssd_chunked``."""
-    return L.softmax_xent(forward(params, batch, cfg, use_kernel=False), batch["labels"],
+    return L.softmax_xent(forward(params, batch, cfg, ctx, use_kernel=False), batch["labels"],
                           cfg.vocab)
 
 
@@ -124,27 +131,46 @@ def _write_ring(dst: torch.Tensor, t: torch.Tensor) -> None:
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = None,
-            *, use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+            ctx: L.ShardCtx = L.NO_SHARD, *, use_kernel: bool = True
+            ) -> tuple[torch.Tensor, dict]:
     """Process the prompt (the SSM scan through K4 unless ``use_kernel`` is
     False); returns (last-token logits (B, 1, V_padded), the cache: ring,
     SSM state and ``pos``)."""
+    params = L.gather_top(params, ctx)
     x = T.embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
-    cache = init_cache(cfg, b, max(max_len or s, s), device=x.device)
+    max_len = max(max_len or s, s)
+    sharded = isinstance(x, DTensor)
+    cache = None if sharded else init_cache(cfg, b, max_len, device=x.device)
+    rows = {"k": [], "v": [], "conv": [], "ssd": []}
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, k, v, state = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope, use_kernel)
+        x, k, v, state = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope, use_kernel, ctx)
+        if sharded:
+            w = min(cfg.sliding_window or max_len, max_len)
+            for key, t in (("k", k), ("v", v)):
+                t = t.to(cfg.dtype)
+                rows[key].append(t[:, s - w:].roll((s - w) % w, 1) if s > w else t)
+            rows["conv"].append(state["conv"])
+            rows["ssd"].append(state["ssd"])
+            continue
         _write_ring(cache["k"][i], k.to(cfg.dtype))
         _write_ring(cache["v"][i], v.to(cfg.dtype))
         for key in ("conv", "ssd"):
             cache["state"][key][i] = state[key]
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    if sharded:
+        w = min(cfg.sliding_window or max_len, max_len)
+        cache = {"k": L.stack_rows(rows["k"], w), "v": L.stack_rows(rows["v"], w),
+                 "state": {key: torch.stack(rows[key]) for key in ("conv", "ssd")},
+                 "pos": torch.zeros((), dtype=torch.int32)}
     cache["pos"].fill_(s)
-    return x @ params["lm_head"], cache
+    return L.head_logits(x, params["lm_head"], ctx), cache
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
-                *, use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+                ctx: L.ShardCtx = L.NO_SHARD, *, use_kernel: bool = True
+                ) -> tuple[torch.Tensor, dict]:
     """One new token; batch["tokens"]: (B, 1).  Writes the token's K/V at
     its ring slot, updates the SSM state and advances ``pos``, all in place;
     attention through K5 unless ``use_kernel`` is False."""
@@ -158,9 +184,9 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
         s_out, st = S.ssm_block_decode(lp["ssm"], xn, {k: v[i] for k, v in state.items()}, cfg,
                                        hybrid_branch=True)
         x = x + _mix(lp, a_out, s_out, cfg)
-        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
         for key in ("conv", "ssd"):
             state[key][i] = st[key]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     pos.add_(1)
-    return x @ params["lm_head"], cache
+    return L.head_logits(x, params["lm_head"], ctx), cache

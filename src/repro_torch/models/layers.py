@@ -12,19 +12,118 @@ exact in fp32), with the softmax weights rounded to V's dtype first.
 
 ``softmax_xent`` is the training loss and ``remat`` the per-layer
 rematerialisation every family's ``forward`` runs its layers through (the
-reference's ``jax.checkpoint``).  The reference's mesh code (``ShardCtx``,
-``constrain_residual``) belongs to a later slice.
+reference's ``jax.checkpoint``).
+
+``ShardCtx`` carries the mesh into a sharded run (``launch/dryrun.py``):
+parameters, batch and cache are DTensors, and ``ctx.constrain`` at the
+reference's sites redistributes an activation to the placements its spec
+names.  With ``NO_SHARD``, or on a plain tensor, it returns the tensor as
+it is, so the unsharded path keeps its ops and its bits.  Attention on
+DTensors runs the plain attention on each rank's heads (``attend``).
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+from typing import Any
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.tree import tree_map
+
+
+# ---------------------------------------------------------------------------
+# sharding context
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """Optional activation-sharding context (mesh + axis names).
+
+    ``residual``: how the carried (B, S, d) residual stream is sharded over
+    the model axis between layers:
+      "d"   : feature-sharded (Megatron-SP style; gathers d per layer)
+      "seq" : sequence-sharded (Ulysses style; MLP/norms are token-local,
+              attention reshards seq<->heads)
+    """
+
+    mesh: Any = None                  # a DeviceMesh; None: no sharding
+    data_axes: tuple = ("data",)      # ("pod","data") on the multi-pod mesh
+    model_axis: str | None = "model"  # None: no tensor parallelism (dp_all)
+    residual: str = "d"
+
+    def constrain(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """Redistribute a DTensor to ``spec``'s placements (axes dropped from
+        dims they do not divide, as the rules' ``_sanitize`` drops them); a
+        plain tensor, or any tensor without a mesh, comes back as it is."""
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        from repro_torch.launch.mesh import placements
+        from repro_torch.launch.sharding import _sanitize
+
+        want = placements(self.mesh, _sanitize(self.mesh, spec, tuple(x.shape)))
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(self.mesh, want)
+
+    def gather(self, tree):
+        """FSDP's gather: each DTensor leaf all-gathered over the "pod" and
+        "data" axes that shard its storage, its model-axis sharding kept
+        (a layer's weights, taken at the start of the layer, so under
+        remat the backward gathers them again and their gradients
+        reduce-scatter back).  A plain tree comes back as it is."""
+        if self.mesh is None:
+            return tree
+
+        def one(t):
+            if not isinstance(t, DTensor):
+                return t
+            names = t.device_mesh.mesh_dim_names
+            want = tuple(Replicate() if names[i] in ("pod", "data") else p
+                         for i, p in enumerate(t.placements))
+            return t if want == tuple(t.placements) else t.redistribute(t.device_mesh, want)
+
+        return tree_map(one, tree)
+
+    @property
+    def batch_spec(self):
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
+
+
+NO_SHARD = ShardCtx()
+
+_STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def gather_top(params: dict, ctx: ShardCtx) -> dict:
+    """``params`` with the leaves outside the layer stacks (embeddings,
+    head, final norms) gathered by ``ctx.gather``; the stacks are gathered
+    a layer at a time inside each layer."""
+    if ctx.mesh is None:
+        return params
+    return {k: v if k in _STACKED else ctx.gather(v) for k, v in params.items()}
+
+
+def replicate_features(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """A block's (B, S, d) input replicated over the model axis (an
+    all-gather of the feature-sharded residual): column-parallel weights
+    then give head- or d_ff-sharded outputs.  Left to itself DTensor may
+    instead all-gather the weights and compute every column on every
+    rank."""
+    return ctx.constrain(x, (ctx.batch_spec, None, None))
+
+
+def constrain_residual(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """Shard the carried residual stream (B, S, d) per ctx.residual."""
+    if ctx.residual == "seq":
+        return ctx.constrain(x, (ctx.batch_spec, ctx.model_axis, None))
+    return ctx.constrain(x, (ctx.batch_spec, None, ctx.model_axis))
 
 # ---------------------------------------------------------------------------
 # initializers (drawn on the explicit generator's device; ``lead`` stacks a
@@ -106,8 +205,6 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, cross: bool = False,
 
 
 def _proj_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor, cfg: ArchConfig):
-    b, s = x.shape[:2]
-    s_kv = x_kv.shape[1]
     hd = cfg.hd
     q = x @ p["wq"]
     k = x_kv @ p["wk"]
@@ -116,10 +213,36 @@ def _proj_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor, cfg: ArchConfig):
         q = (q.float() + p["bq"]).to(q.dtype)
         k = (k.float() + p["bk"]).to(k.dtype)
         v = (v.float() + p["bv"]).to(v.dtype)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s_kv, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s_kv, cfg.n_kv_heads, hd)
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
     return q, k, v
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, H * D).  On a DTensor the gradient is held to
+    the forward's placements: the output projection's backward would give
+    it sharded over H * D, across head boundaries where the model axis
+    does not divide the heads, and such a gradient cannot be split back
+    into heads."""
+    t = t.reshape(*t.shape[:2], -1)
+    if isinstance(t, DTensor):
+        t = DTensor.from_local(t.to_local(), t.device_mesh, t.placements, run_check=False,
+                               shape=t.shape, stride=t.stride())
+    return t
+
+
+def _split_heads(t: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd).  A DTensor whose last dim
+    is sharded across heads' boundaries (smollm's 15 heads over 8 ranks)
+    is replicated on that dim first: DTensor cannot split such a dim."""
+    if isinstance(t, DTensor):
+        pl = tuple(t.placements)
+        n = math.prod(t.device_mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+        if heads % n:
+            t = t.redistribute(t.device_mesh, tuple(Replicate() if p == Shard(2) else p
+                                                    for p in pl))
+    return t.reshape(*t.shape[:2], heads, hd)
 
 
 def sdpa(
@@ -168,22 +291,48 @@ def attention(
     causal: bool = True,
     x_kv: torch.Tensor | None = None,   # cross-attention source
     window: int | None = None,
+    ctx: ShardCtx = NO_SHARD,
 ) -> torch.Tensor:
-    """Full-sequence attention (prefill)."""
+    """Full-sequence attention (train / prefill)."""
     b, s, _ = x.shape
+    x = replicate_features(x, ctx)
     q, k, v = _proj_qkv(p, x, x_kv if x_kv is not None else x, cfg)
     if rope is not None and x_kv is None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = ctx.constrain(q, (ctx.batch_spec, None, ctx.model_axis, None))
     if max(s, k.shape[1]) > 1024:  # blocked path: no (Sq x Sk) tensor
         from repro_torch.models.flash_attention import flash_attention
 
-        out = flash_attention(q, k, v, causal and x_kv is None, window, 0)
+        out = attend(lambda q, k, v: flash_attention(q, k, v, causal and x_kv is None, window, 0),
+                     q, k, v)
     else:
-        out = sdpa(q, k, v, causal=causal and x_kv is None, window=window)
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd)
-    return out @ p["wo"]
+        out = attend(lambda q, k, v: sdpa(q, k, v, causal=causal and x_kv is None,
+                                          window=window), q, k, v)
+    return merge_heads(out) @ p["wo"]
+
+
+def attend(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` for (B, S, H, D) operands.  On DTensors it runs on
+    each rank's batch rows and heads (``local_map``): q's placements
+    (batch over the data axes, heads over the model axis, as ``ctx``
+    constrained it) are given to k and v and to the output.  Where the
+    model axis does not divide the KV heads, k and v are expanded to q's
+    heads first, so each rank's query heads find their KV heads."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements)
+    head_shards = math.prod(q.device_mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+    if k.shape[2] % head_shards:
+        b, sk, hkv, d = k.shape
+        g = q.shape[2] // hkv
+        k, v = (t[:, :, :, None].expand(b, sk, hkv, g, d).reshape(b, sk, hkv * g, d)
+                for t in (k, v))
+    return local_map(fn, out_placements=list(pl), in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)
 
 
 def attention_decode(
@@ -229,9 +378,13 @@ def attention_decode(
     k = apply_rope(k, cos, sin)
     rows = cache_k.shape[1]
     row = (pos % rows if ring else pos).long()
+    kv_len = torch.clamp(pos + 1, max=rows) if ring else pos + 1
+    if isinstance(cache_k, DTensor):
+        out = split_decode_attend(q, cache_k, cache_v, kv_len, q_pos=pos, window=window,
+                                  new_kv=(k, v, row))
+        return out.reshape(b, 1, cfg.n_heads * hd) @ p["wo"], cache_k, cache_v
     cache_k.index_copy_(1, row, k.to(cache_k.dtype))
     cache_v.index_copy_(1, row, v.to(cache_v.dtype))
-    kv_len = torch.clamp(pos + 1, max=rows) if ring else pos + 1
     if use_kernel:
         from repro_torch.kernels.decode_attn import decode_attn_op
 
@@ -242,6 +395,133 @@ def attention_decode(
                    window=window)
     out = out.reshape(b, 1, cfg.n_heads * hd)
     return out @ p["wo"], cache_k, cache_v
+
+
+def stack_rows(rows: list, max_len: int) -> torch.Tensor:
+    """(L, B, max_len, ...) from per-layer (B, s, ...) prompt rows, zeros
+    after row s: the cache of a sharded prefill, whose DTensors take no
+    slice write."""
+    t = torch.stack(rows)
+    if max_len > t.shape[2]:
+        pad = torch.zeros(*t.shape[:2], max_len - t.shape[2], *t.shape[3:], dtype=t.dtype)
+        t = torch.cat([t, pad], dim=2)
+    return t
+
+
+def embed_lookup(table: torch.Tensor, tokens) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding table (V, d).
+
+    On DTensors each rank looks up its own rows (``local_map``): tokens
+    keep their batch sharding; where the table's rows are sharded, a rank
+    answers only the tokens in its vocabulary slice (zeros elsewhere) and
+    the output is a partial sum over that axis; where its columns are, so
+    is the output's last dim.  Indexing a DTensor table would gather the
+    batch instead."""
+    ids = torch.as_tensor(tokens, device=table.device).long()
+    if not isinstance(table, DTensor):
+        return table[ids]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, tpl = table.device_mesh, tuple(table.placements)
+    ipl = tuple(p if p == Shard(0) and tp == Replicate() else Replicate()
+                for p, tp in zip(ids.placements, tpl))
+    opl = tuple(Partial() if tp == Shard(0) else Shard(2) if tp == Shard(1) else ip
+                for tp, ip in zip(tpl, ipl))
+    row_dims = [i for i, p in enumerate(tpl) if p == Shard(0)]
+    n_rows, lo = table.shape[0], 0
+    for i in row_dims:  # mesh order: the first sharding dim outermost
+        n_rows //= mesh.size(i)
+    for i in row_dims:
+        lo = lo * mesh.size(i) + mesh.get_coordinate()[i]
+    lo *= n_rows
+
+    def local(t, ids):
+        if not row_dims:
+            return t[ids]
+        here = (ids >= lo) & (ids < lo + t.shape[0])
+        return t[(ids - lo).clamp(0, t.shape[0] - 1)] * here[..., None].to(t.dtype)
+
+    # a rank's table gradient covers only its own tokens: a partial sum
+    # over the axes that shard them
+    tgrad = tuple(Partial() if ip == Shard(0) else tp for tp, ip in zip(tpl, ipl))
+    return local_map(local, out_placements=list(opl), in_placements=(tpl, ipl),
+                     in_grad_placements=(tgrad, ipl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
+
+
+def _plain(t):
+    """The value of a replicated DTensor (its local tensor), or ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def split_decode_attend(q: torch.Tensor, cache_k: DTensor, cache_v: DTensor, kv_len=None, *,
+                        q_pos=None, window: int | None = None, new_kv=None) -> torch.Tensor:
+    """One-token attention over a sequence-sharded cache (flash-decoding):
+    the sharded decode path of ``attention_decode`` and of encdec's
+    cross-attention.
+
+    q (B, 1, Hq, D); cache_k/v (B, S, Hkv, D) DTensors whose S is sharded
+    (``cache_shardings``).  ``new_kv = (k, v, row)`` first writes the
+    token's K/V at global row ``row`` into the shard that holds it (in
+    place; the other shards keep their rows).  Each rank then attends over
+    its own rows with ``sdpa``'s masks at their global positions (``j <
+    kv_len``, and ``j > q_pos - window``) and keeps (max, sum, weighted V)
+    in fp32; the shards' partial results are combined with the usual
+    rescaling, as DTensor reductions over a leading shard axis.
+    Returns (B, 1, Hq, D) in q's dtype.
+    """
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache_k.device_mesh
+    cpl = tuple(cache_k.placements)
+    seq_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    n_shards = math.prod(mesh.size(i) for i in seq_dims)
+    s_local = cache_k.shape[1] // n_shards
+    shard, coord = 0, mesh.get_coordinate()
+    for i in seq_dims:  # mesh order: the first seq dim outermost
+        shard = shard * mesh.size(i) + coord[i]
+    off = shard * s_local
+    b, _, hq, d = q.shape
+    hkv = cache_k.shape[2]
+    kv_len = None if kv_len is None else _plain(kv_len)
+    q_pos = None if q_pos is None else _plain(q_pos)
+    qpl = tuple(p if p == Shard(0) else Replicate() for p in cpl)  # batch as the cache's
+    args = [q, cache_k, cache_v]
+    if new_kv is not None:
+        k_new, v_new, row = new_kv
+        args += [k_new.to(cache_k.dtype), v_new.to(cache_v.dtype)]
+        row = _plain(row)
+
+    def local(q, ck, cv, *kv):
+        j = off + torch.arange(s_local, device=q.device)
+        if kv:  # the new row, written where this shard holds it
+            idx = (row - off).clamp(0, s_local - 1)
+            here = ((row >= off) & (row < off + s_local)).reshape(1, 1, 1, 1)
+            for c, t in zip((ck, cv), kv):
+                c.index_copy_(1, idx, torch.where(here, t, c.index_select(1, idx)))
+        qf = q.reshape(q.shape[0], 1, hkv, hq // hkv, d).float()
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, ck.float()) / d**0.5
+        mask = torch.ones(s_local, dtype=torch.bool, device=q.device)
+        if kv_len is not None:
+            mask &= j < kv_len
+        if window is not None:
+            mask &= j > q_pos - window
+        scores = torch.where(mask, scores, -1e30)
+        m = scores.amax(-1, keepdim=True)
+        e = torch.exp(scores - m)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", e, cv.float())
+        return o[None], m[None], e.sum(-1, keepdim=True)[None]
+
+    # the partial results stack on a new leading axis, sharded like the rows
+    spl = tuple(Shard(0) if i in seq_dims else Shard(1) if p == Shard(0) else Replicate()
+                for i, p in enumerate(cpl))
+    o, m, l = local_map(local, out_placements=(spl, spl, spl),
+                        in_placements=(qpl, cpl, cpl) + ((qpl, qpl) if new_kv else ()),
+                        device_mesh=mesh, redistribute_inputs=True)(*args)
+    w = torch.exp(m - m.amax(0, keepdim=True))
+    out = (w * o).sum(0) / (w * l).sum(0)           # (B, Hkv, G, 1, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -257,8 +537,10 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype,
     }
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    x = replicate_features(x, ctx)
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = ctx.constrain(h, (ctx.batch_spec, None, ctx.model_axis))
     return h @ p["w_down"]
 
 
@@ -266,16 +548,62 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 # training: the loss and per-layer rematerialisation
 # ---------------------------------------------------------------------------
 
+def head_logits(x: torch.Tensor, head: torch.Tensor, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """``x @ head``, x replicated over the model axis first, so a
+    vocabulary-sharded head gives vocabulary-sharded logits (a partial
+    x would make every rank compute every column)."""
+    return ctx.constrain(x, (ctx.batch_spec, None, None)) @ head
+
+
+def _sharded_xent(logits: DTensor, labels: DTensor, valid_vocab: int | None) -> torch.Tensor:
+    """``softmax_xent`` on DTensor logits, vocabulary-parallel: each rank
+    takes the logsumexp of its own columns and the gold logit where its
+    columns hold the label; the per-shard logsumexps are combined over a
+    leading shard axis and the gold logits summed."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in logits.placements)
+    vdims = [i for i, p in enumerate(pl) if p == Shard(2)]
+    n_cols, lo = logits.shape[-1], 0
+    for i in vdims:  # mesh order: the first sharding dim outermost
+        n_cols //= mesh.size(i)
+        lo = lo * mesh.size(i) + mesh.get_coordinate()[i]
+    lo *= n_cols
+    lab_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+
+    def local(lg, lab):
+        lf = lg.float()
+        if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+            col = lo + torch.arange(lf.shape[-1], device=lf.device)
+            lf = torch.where(col < valid_vocab, lf, -1e30)
+        here = ((lab >= lo) & (lab < lo + lf.shape[-1]))[..., None]
+        gold = torch.gather(lf, -1, (lab - lo).clamp(0, lf.shape[-1] - 1)[..., None]) * here
+        return torch.logsumexp(lf, dim=-1, keepdim=True)[None], gold
+
+    stack = tuple(Shard(0) if i in vdims else Shard(1) if p == Shard(0) else Replicate()
+                  for i, p in enumerate(pl))
+    gold_pl = tuple(Partial() if i in vdims else p for i, p in enumerate(lab_pl))
+    lse, gold = local_map(local, out_placements=(stack, gold_pl), in_placements=(pl, lab_pl),
+                          device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return (torch.logsumexp(lse, dim=0) - gold).mean()
+
+
 def softmax_xent(logits: torch.Tensor, labels, valid_vocab: int | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy in fp32: logits (B, S, V_padded),
     labels (B, S) integers.  ``valid_vocab`` masks the padded vocabulary
     columns with -1e30, so the pad takes no probability mass."""
     labels = torch.as_tensor(labels, device=logits.device).long()
+    if isinstance(logits, DTensor):
+        return _sharded_xent(logits, labels, valid_vocab)
     lf = logits.float()
     if valid_vocab is not None and valid_vocab < lf.shape[-1]:
         lf = torch.where(torch.arange(lf.shape[-1], device=lf.device) < valid_vocab, lf, -1e30)
-    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
-    return (torch.logsumexp(lf, dim=-1) - gold).mean()
+    # (B, S, 1) throughout: on vocab-sharded DTensor logits the gather's
+    # masked partial result must keep the shape its mask was made for
+    gold = torch.gather(lf, -1, labels[..., None])
+    return (torch.logsumexp(lf, dim=-1, keepdim=True) - gold).mean()
 
 
 def remat(fn, *args):

@@ -181,29 +181,32 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: str | torch.device = "cu
 
 
 def _embed(params: dict, tokens) -> torch.Tensor:
-    embed = params["embed"]
-    return embed[torch.as_tensor(tokens, device=embed.device).long()]
+    return L.embed_lookup(params["embed"], tokens)
 
 
-def _layer_out(x, lp, cfg: ArchConfig, use_kernel: bool):
+def _layer_out(x, lp, cfg: ArchConfig, use_kernel: bool, ctx: L.ShardCtx):
+    lp = ctx.gather(lp)
     h, _ = ssm_block(lp["ssm"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
                      use_kernel=use_kernel)
-    return x + h
+    return L.constrain_residual(x + h, ctx)
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig, *, use_kernel: bool = True):
+def forward(params: dict, batch: dict, cfg: ArchConfig, ctx: L.ShardCtx = L.NO_SHARD, *,
+            use_kernel: bool = True):
     """Full-sequence forward -> logits (B, S, V_padded); each layer
     rematerialised under grad."""
+    params = L.gather_top(params, ctx)
     x = _embed(params, batch["tokens"])
     for i in range(cfg.n_layers):
-        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, use_kernel)
+        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, use_kernel, ctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return L.head_logits(x, params["lm_head"], ctx)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """Mean next-token cross-entropy; the scan on ``ssd_chunked``."""
-    return L.softmax_xent(forward(params, batch, cfg, use_kernel=False), batch["labels"],
+    return L.softmax_xent(forward(params, batch, cfg, ctx, use_kernel=False), batch["labels"],
                           cfg.vocab)
 
 
@@ -218,15 +221,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = None,
-            *, use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+            ctx: L.ShardCtx = L.NO_SHARD, *, use_kernel: bool = True
+            ) -> tuple[torch.Tensor, dict]:
     """Process the prompt (the scan through K4 unless ``use_kernel`` is
     False); returns (last-token logits (B, 1, V_padded), the per-layer
     state)."""
+    params = L.gather_top(params, ctx)
     x = _embed(params, batch["tokens"])
     s = x.shape[1]
     states = []
     for i in range(cfg.n_layers):
-        lp = L.layer(params["layers"], i)
+        lp = ctx.gather(L.layer(params["layers"], i))
         h, st = ssm_block(lp["ssm"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
                           use_kernel=use_kernel)
         x = x + h
@@ -234,11 +239,11 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = No
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     state = {k: torch.stack([st[k] for st in states]) for k in ("conv", "ssd")}
     pos = torch.full((), s, dtype=torch.int32, device=x.device)
-    return x @ params["lm_head"], {"state": state, "pos": pos}
+    return L.head_logits(x, params["lm_head"], ctx), {"state": state, "pos": pos}
 
 
-def decode_step(params: dict, cache: dict, batch: dict,
-                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
+                ctx: L.ShardCtx = L.NO_SHARD) -> tuple[torch.Tensor, dict]:
     """One new token; batch["tokens"]: (B, 1).  Updates the per-layer state
     in ``cache`` and advances its ``pos`` (a 0-d int32 tensor, as in the
     transformer's cache) in place.  Decode runs no kernel of this package."""
@@ -253,4 +258,4 @@ def decode_step(params: dict, cache: dict, batch: dict,
         state["ssd"][i] = st["ssd"]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     cache["pos"].add_(1)
-    return x @ params["lm_head"], cache
+    return L.head_logits(x, params["lm_head"], ctx), cache

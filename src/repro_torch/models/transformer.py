@@ -27,6 +27,7 @@ through ``layers.remat`` under grad (the reference's ``jax.checkpoint``).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -78,56 +79,64 @@ def _attn_core(q, k, v, cfg: ArchConfig):
     return L.sdpa(q, k, v, causal=True, window=cfg.sliding_window)
 
 
-def _attn_full(p, x, cfg: ArchConfig, rope):
+def _attn_full(p, x, cfg: ArchConfig, rope, ctx: L.ShardCtx = L.NO_SHARD):
     """Causal self-attention over the sequence; returns (out, k, v)."""
     b, s, _ = x.shape
+    x = L.replicate_features(x, ctx)
     q, k, v = L._proj_qkv(p, x, x, cfg)
     cos, sin = rope
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    out = _attn_core(q, k, v, cfg)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"], k, v
+    q = ctx.constrain(q, (ctx.batch_spec, None, ctx.model_axis, None))
+    out = L.attend(lambda q, k, v: _attn_core(q, k, v, cfg), q, k, v)
+    return L.merge_heads(out) @ p["wo"], k, v
 
 
-def _layer_fwd(x, lp, cfg: ArchConfig, rope):
+def _layer_fwd(x, lp, cfg: ArchConfig, rope, ctx: L.ShardCtx = L.NO_SHARD):
     """One block; returns (x, k, v) with this layer's K and V."""
-    out, k, v = _attn_full(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope)
+    lp = ctx.gather(lp)
+    out, k, v = _attn_full(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, rope, ctx)
     x = x + out
-    x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
-    return x, k, v
+    x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
+    # the carried residual stream sharded over "model" (ShardCtx.residual):
+    # the remat stack (L, B, S, d) must not be replicated over the model axis
+    return L.constrain_residual(x, ctx), k, v
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Token embeddings, with frontend embeddings spliced in front (VLM)."""
     embed = params["embed"]
-    x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]
+    x = L.embed_lookup(embed, batch["tokens"])
     if cfg.frontend is not None and "frontend_embeds" in batch:
         fe = torch.as_tensor(batch["frontend_embeds"], device=embed.device).to(x.dtype)
         x = torch.cat([fe, x], dim=1)
     return x
 
 
-def _layer_out(x, lp, cfg: ArchConfig, rope):
-    return _layer_fwd(x, lp, cfg, rope)[0]
+def _layer_out(x, lp, cfg: ArchConfig, rope, ctx: L.ShardCtx):
+    return _layer_fwd(x, lp, cfg, rope, ctx)[0]
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: ArchConfig,
+            ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """Full-sequence causal LM forward -> logits (B, S, V_padded); each
     layer rematerialised under grad."""
+    params = L.gather_top(params, ctx)
     x = embed_inputs(params, batch, cfg)
     s = x.shape[1]
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope)
+        x = L.remat(_layer_out, x, L.layer(params["layers"], i), cfg, rope, ctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ _head(params, cfg)
+    return L.head_logits(x, _head(params, cfg), ctx)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            ctx: L.ShardCtx = L.NO_SHARD) -> torch.Tensor:
     """Mean next-token cross-entropy of ``forward`` against
     ``batch["labels"]``; with frontend embeddings (a VLM's patches) only
     the text tail is scored."""
-    logits = forward(params, batch, cfg)
+    logits = forward(params, batch, cfg, ctx)
     labels = batch["labels"]
     if cfg.frontend is not None and "frontend_embeds" in batch:
         logits = logits[:, -labels.shape[1]:]
@@ -148,27 +157,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | N
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def prefill(params: dict, batch: dict, cfg: ArchConfig,
-            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+def prefill(params: dict, batch: dict, cfg: ArchConfig, max_len: int | None = None,
+            ctx: L.ShardCtx = L.NO_SHARD) -> tuple[torch.Tensor, dict]:
     """Process the whole prompt; returns (last-token logits (B, 1, V_padded),
     the cache filled up to the prompt length).  Prefill runs no kernel of
     this package."""
+    params = L.gather_top(params, ctx)
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     max_len = max(max_len or s, s)
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    sharded = isinstance(x, DTensor)
+    cache = None if sharded else init_cache(cfg, b, max_len, device=x.device)
+    ks, vs = [], []
     rope = L.rope_tables(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, k, v = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope)
-        cache["k"][i, :, :s] = k.to(cfg.dtype)
-        cache["v"][i, :, :s] = v.to(cfg.dtype)
+        x, k, v = _layer_fwd(x, L.layer(params["layers"], i), cfg, rope, ctx)
+        if sharded:
+            ks.append(k.to(cfg.dtype))
+            vs.append(v.to(cfg.dtype))
+        else:
+            cache["k"][i, :, :s] = k.to(cfg.dtype)
+            cache["v"][i, :, :s] = v.to(cfg.dtype)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    if sharded:
+        cache = {"k": L.stack_rows(ks, max_len), "v": L.stack_rows(vs, max_len),
+                 "pos": torch.zeros((), dtype=torch.int32)}
     cache["pos"].fill_(s)
-    return x @ _head(params, cfg), cache
+    return L.head_logits(x, _head(params, cfg), ctx), cache
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
-                *, use_kernel: bool = True) -> tuple[torch.Tensor, dict]:
+                ctx: L.ShardCtx = L.NO_SHARD, *, use_kernel: bool = True
+                ) -> tuple[torch.Tensor, dict]:
     """One new token against the cache; batch["tokens"]: (B, 1).  Writes the
     token's K/V rows into ``cache`` and advances its ``pos`` in place (the
     caller keeps ``pos`` inside the cache: ``LmEngine`` checks it on the
@@ -184,7 +204,7 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig,
         out, _, _ = L.attention_decode(lp["attn"], xn, cache["k"][i], cache["v"][i], pos,
                                        cfg, window=cfg.sliding_window, use_kernel=kernel)
         x = x + out
-        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + L.mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), ctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     pos.add_(1)
-    return x @ _head(params, cfg), cache
+    return L.head_logits(x, _head(params, cfg), ctx), cache

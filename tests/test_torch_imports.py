@@ -53,7 +53,9 @@ def test_import_loads_no_jax_and_no_reference():
                  "repro_torch.kernels.ssd_scan.ref", "repro_torch.tree",
                  "repro_torch.train.optimizer", "repro_torch.train.step",
                  "repro_torch.train.checkpoint", "repro_torch.train.trainer",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.subproc", "repro_torch.analysis.costs"):
         assert name in report["modules"]
 
 
