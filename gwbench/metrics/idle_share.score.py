@@ -1,0 +1,9 @@
+"""Share of the traced window in which nothing ran on the card, in %: one
+less the device's busy time over the window's length, both from the
+trace."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
