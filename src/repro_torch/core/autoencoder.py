@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.trace import span
 
 from .lstm import LstmConfig, init_lstm
 from .quant import EXACT, ActivationSet
@@ -147,7 +148,8 @@ def encode(params: Params, x: torch.Tensor, cfg: AutoencoderConfig,
     """Run the encoder segment. x: (B, T, input_dim) -> (B, T, h_enc_last)."""
     if executor is None:
         executor = _segment_executor(params, cfg, "enc")
-    return executor(x, initial_state, return_state=return_state)
+    with span("encode"):
+        return executor(x, initial_state, return_state=return_state)
 
 
 def decode(params: Params, latent: torch.Tensor, cfg: AutoencoderConfig,
@@ -157,10 +159,11 @@ def decode(params: Params, latent: torch.Tensor, cfg: AutoencoderConfig,
     t = cfg.timesteps if t is None else t
     if executor is None:
         executor = _segment_executor(params, cfg, "dec")
-    h_seq = latent[:, None, :].expand(latent.shape[0], t, latent.shape[1])
-    out = executor(h_seq, initial_state, return_state=return_state)
-    h_seq, finals = out if return_state else (out, None)
-    rec = _dense_head(params["dense"], h_seq, cfg)
+    with span("decode"):
+        h_seq = latent[:, None, :].expand(latent.shape[0], t, latent.shape[1])
+        out = executor(h_seq, initial_state, return_state=return_state)
+        h_seq, finals = out if return_state else (out, None)
+        rec = _dense_head(params["dense"], h_seq, cfg)
     return (rec, finals) if return_state else rec
 
 
@@ -172,8 +175,9 @@ def _dense_head(dense: Params, h_seq: torch.Tensor, cfg: AutoencoderConfig) -> t
 
     batch, t_len, hidden = h_seq.shape
     w = dense["w"]
-    rec = rowwise_matmul(h_seq.reshape(batch * t_len, hidden).to(cfg.dtype), w.float())
-    return (rec.to(cfg.dtype) + dense["b"]).reshape(batch, t_len, w.shape[1])
+    with span("head"):
+        rec = rowwise_matmul(h_seq.reshape(batch * t_len, hidden).to(cfg.dtype), w.float())
+        return (rec.to(cfg.dtype) + dense["b"]).reshape(batch, t_len, w.shape[1])
 
 
 def reconstruction_error_from_latent(params: Params, latent: torch.Tensor,
@@ -188,11 +192,12 @@ def reconstruction_error_from_latent(params: Params, latent: torch.Tensor,
     not depend on the batch."""
     from repro_torch.kernels.rowwise import rowwise_matmul
 
-    rec = decode(params, latent, cfg, t=x.shape[1], executor=exec_dec).to(x.dtype)
-    err = (rec.to(torch.float32) - x.to(torch.float32)) ** 2
-    n = err.shape[1] * err.shape[2]
-    ones = torch.ones(n, 1, dtype=torch.float32, device=err.device)
-    return rowwise_matmul(err.reshape(err.shape[0], n), ones)[:, 0] / n
+    rec = decode(params, latent, cfg, t=x.shape[1], executor=exec_dec)
+    with span("error"):
+        err = (rec.to(x.dtype).to(torch.float32) - x.to(torch.float32)) ** 2
+        n = err.shape[1] * err.shape[2]
+        ones = torch.ones(n, 1, dtype=torch.float32, device=err.device)
+        return rowwise_matmul(err.reshape(err.shape[0], n), ones)[:, 0] / n
 
 
 def reconstruction_error(params: Params, x: torch.Tensor, cfg: AutoencoderConfig,

@@ -37,6 +37,7 @@ from repro_torch.core.quant import (
     kernel_safe,
     native_weight_dtype,
 )
+from repro_torch.trace import span
 
 from .lstm_stack import lstm_stack
 from .ref import apply_gate_scales, normalize_scales  # noqa: F401  (public here)
@@ -137,13 +138,16 @@ def lstm_stack_op(
             f"input width {width} != pack width {stacked['w_h'].shape[1]}"
         )
     check_packed_weight_dtype(stacked, weight_dtype, h0.dtype)
-    hs, h_f, c_f = lstm_stack(
-        project_layer0(xs, stacked, weight_dtype), stacked["w_x"], stacked["w_h"],
-        stacked["b"].to(torch.float32), h0, c0.to(torch.float32),
-        scales=stacked["scales"] if weight_dtype == "int8" else None,
-        acts=kernel_safe(acts), act_bits=act_bits, block_b=block_b,
-    )
-    return hs.transpose(0, 1), h_f, c_f
+    with span("stack.gates"):
+        xw0 = project_layer0(xs, stacked, weight_dtype)
+    with span("stack.k1"):
+        hs, h_f, c_f = lstm_stack(
+            xw0, stacked["w_x"], stacked["w_h"],
+            stacked["b"].to(torch.float32), h0, c0.to(torch.float32),
+            scales=stacked["scales"] if weight_dtype == "int8" else None,
+            acts=kernel_safe(acts), act_bits=act_bits, block_b=block_b,
+        )
+        return hs.transpose(0, 1), h_f, c_f
 
 
 # ---------------------------------------------------------------------------
@@ -366,12 +370,14 @@ def lstm_stack_forward_fused(
         packed = pack_stack_cached(params_list, cfgs)
     else:
         check_packed_matches_cfgs(packed, cfgs)
-    if initial_state is None:
-        h0, c0 = packed.zero_state(xs.shape[0])
-    else:
-        h0, c0 = packed.pack_state(initial_state)
+    with span("stack.pad"):
+        if initial_state is None:
+            h0, c0 = packed.zero_state(xs.shape[0])
+        else:
+            h0, c0 = packed.pack_state(initial_state)
+        xs = packed.pad_input(xs)
     hs, h_f, c_f = lstm_stack_op(
-        packed.pad_input(xs), packed.stacked, h0, c0, acts=packed.acts,
+        xs, packed.stacked, h0, c0, acts=packed.acts,
         weight_dtype=packed.weight_dtype, block_b=block_b, act_bits=act_bits,
     )
     return hs[..., : packed.hidden[-1]], packed.unpack_state(h_f, c_f)

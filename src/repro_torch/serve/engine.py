@@ -68,6 +68,7 @@ from repro_torch.core.executor import state_leaves, state_like
 from repro_torch.core.graphs import CapturedCall
 from repro_torch.convert import dtype_name, to_numpy, to_tensor
 from repro_torch.device import resolve_device
+from repro_torch.trace import span
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.serve.health import (
     SNAPSHOT_VERSION,
@@ -157,6 +158,8 @@ class AnomalyStreamEngine:
     effective_impl: str = field(init=False, default="")
     #: non-None iff the requested impl was declined (the logged reason)
     fallback_reason: str | None = field(init=False, default=None)
+    #: ``score`` calls made; the ``score`` span carries it as ``call``
+    calls: int = field(init=False, default=0)
 
     def __post_init__(self):
         self._device = resolve_device(self.device)
@@ -183,13 +186,17 @@ class AnomalyStreamEngine:
         return self.threshold
 
     def score(self, windows: np.ndarray) -> np.ndarray:
-        exec_enc, exec_dec = self._execs()
-        with torch.no_grad():
-            scores = reconstruction_error(
-                self.params, _windows(windows, self._device), self.cfg,
-                exec_enc=exec_enc, exec_dec=exec_dec,
-            )
-        return scores.cpu().numpy()
+        self.calls += 1
+        with span("score", {"call": self.calls, "windows": len(windows)}):
+            with span("score.plan"):
+                exec_enc, exec_dec = self._execs()
+            with span("score.stage_in"):
+                x = _windows(windows, self._device)
+            with torch.no_grad():
+                scores = reconstruction_error(self.params, x, self.cfg,
+                                              exec_enc=exec_enc, exec_dec=exec_dec)
+            with span("score.fetch"):
+                return scores.cpu().numpy()
 
     def flag(self, windows: np.ndarray) -> np.ndarray:
         return self.score(windows) > self.threshold
