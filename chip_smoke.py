@@ -3563,11 +3563,21 @@ def main() -> int:
               for bits in (None, 16)]
 
     # -- phase 3: K1 against its plain version -----------------------------
+    # B 1 and 64 run one row a CTA; SMs + 1 (the least batch the wrapper
+    # row-blocks, fewer than two CTAs an SM) and 2 * SMs * R + 3 (more than
+    # a wave of row blocks) run the row-blocked instantiation, each with a
+    # partial last CTA
+    sms = k1_mod.sm_count(dev.index or 0)
+    k1_batches = (1, 64, sms + 1, 2 * sms * k1_mod.BLOCKED_ROWS + 3)
+    k1_blocked = {b: k1_mod.rows_per_thread(b, 2, 32, sms) > 1 for b in k1_batches}
+    if list(k1_blocked.values()) != [False, False, True, True]:
+        raise AssertionError(f"phase 3: row blocking by batch {k1_blocked}")
     t0, k1_err, n = time.perf_counter(), 0.0, 0
+    lstm_stack.blocked_launches = 0
     for key, acts, bits in matrix:
         for seg, pk in all_packs[key].items():
             s = pk.stacked
-            for batch in (1, 64):
+            for batch in k1_batches:
                 xw0 = project_layer0(segment_input(seg, pk, batch, T), s, key[0])
                 h0, c0 = state(pk, batch)
                 got = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
@@ -3578,7 +3588,12 @@ def main() -> int:
                 k1_err = max(k1_err, compare(got, want, f"K1 {key} {acts.name} {bits} {seg} "
                                                         f"B={batch}"))
                 n += 1
-    log(f"phase 3 K1 ok: {n} cases (fp32 and bf16 compute), bit-equal to the plain version "
+    n_blocked = n // len(k1_batches) * sum(k1_blocked.values())
+    if lstm_stack.blocked_launches != n_blocked:
+        raise AssertionError(f"phase 3: {lstm_stack.blocked_launches} row-blocked K1 launches, "
+                             f"want {n_blocked}")
+    log(f"phase 3 K1 ok: {n} cases (fp32 and bf16 compute; B {k1_batches}, {n_blocked} of them "
+        f"row-blocked, {k1_mod.BLOCKED_ROWS} rows a thread), bit-equal to the plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: K2 against its plain version -----------------------------
@@ -3672,6 +3687,26 @@ def main() -> int:
     eng.score(windows)
     per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches,
                                                  rowwise_matmul.launches)
+    # a batch score at the benchmark's gw_nominal batch: both segments' K1
+    # launches row-blocked, and the windows' scores those of a batch of 64,
+    # where K1 runs one row a CTA
+    big = np.resize(windows, (73_728,) + windows.shape[1:])
+    big = big + np.random.RandomState(3).randn(*big.shape).astype(np.float32) * 0.01
+    batch_eng = AnomalyStreamEngine(params, cfg, impl="fused_stack")
+    with block_plain():
+        lstm_stack.launches = lstm_stack.blocked_launches = 0
+        whole = batch_eng.score(big)
+        blocked_score = {"B": len(big), "launches": lstm_stack.launches,
+                         "blocked_launches": lstm_stack.blocked_launches}
+        for part in (slice(0, 64), slice(len(big) - 64, len(big))):
+            np.testing.assert_array_equal(whole[part], batch_eng.score(big[part]),
+                                          err_msg=f"score at B={len(big)} vs B=64, {part}")
+    del big, whole, batch_eng
+    torch.cuda.empty_cache()
+    if (blocked_score["launches"], blocked_score["blocked_launches"]) != (2, 2):
+        raise AssertionError(f"phase 5: a batch score's K1 launches {blocked_score}")
+    log(f"phase 5 batch score at B={blocked_score['B']} ok: K1 launches {blocked_score} "
+        f"(both row-blocked), the first and last 64 windows bit-equal to a score of 64")
 
     # -- phase 6: K3 against its plain version -----------------------------
     # every warp-cell instantiation (H=8 and H=32 with x chains of 1, 8 and
@@ -3836,7 +3871,10 @@ def main() -> int:
             getattr(lib_lstm, f"bias_ih_l{l}").copy_(s["b"][l])
             getattr(lib_lstm, f"bias_hh_l{l}").zero_()
     rows = {"lstm_stack_wavefront": [], "lstm_stack_step": []}
+    # K1 at B 1 and 64 (one row a CTA) and at the benchmark's gw_nominal
+    # batch, 73,728 (row-blocked)
     for name, t_len, batch in (("lstm_stack_wavefront", T, 1), ("lstm_stack_wavefront", T, 64),
+                               ("lstm_stack_wavefront", T, 73_728),
                                ("lstm_stack_step", 1, 1), ("lstm_stack_step", 25, 1),
                                ("lstm_stack_step", 1, 64), ("lstm_stack_step", 25, 64)):
         xs = segment_input("enc", enc, batch, t_len)
@@ -3864,6 +3902,10 @@ def main() -> int:
             "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
         })
+    # the last K1 row's operands (B=73,728: a 3.8 GB stream) go before the
+    # LM phases, whose largest model fills the card
+    del xs, xw0, x_tb, h0, c0, ours, kernel, plain, lib_call
+    torch.cuda.empty_cache()
     # K3 at gw_nominal's four layer shapes on the kernel path (H=32 IN=1,
     # H=8 IN=32, H=8 IN=8, H=32 IN=8), over a T=100 window and at T=1 (a
     # pushed sample), B=1, through lstm_scan_layer, the kernel backend's
@@ -4009,6 +4051,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/lstm_stack/csrc/lstm_stack.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
+            **({"blocked_launches_per_score": blocked_score}
+               if name == "lstm_stack_wavefront" else {}),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

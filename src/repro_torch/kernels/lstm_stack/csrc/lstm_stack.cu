@@ -55,6 +55,32 @@
 //     waited for before the step's last barrier: off the critical path.
 //   * One CTA per block of `rows` batch rows (default 1); the weights, b,
 //     the scales and every layer's h and c stay on chip for the whole call.
+//     An explicit `rows` > 1 runs the CTA's rows one after another inside
+//     a step: each row's chain, shuffles and cell finish before the next
+//     row's start, so the step takes `rows` times as long.
+//   * Row blocking (wavefront kernel, register path; kRows = kBlockedRows = 8).
+//     At a large
+//     batch the one-row CTAs are bound by occupancy times latency: with 64
+//     weights and two whole h rows per thread in registers (137 registers by
+//     ptxas) an SM holds one of them (8 warps), and each step waits on its own
+//     W-long add chain, transcendentals, shuffles and barrier while most issue
+//     slots stay empty.  The blocked instantiation runs kRows rows per CTA
+//     with every thread carrying all of them through each step: the thread's
+//     W_x and W_h columns in registers serve every row, the k loop is
+//     outermost with the rows inside it (kRows independent x and h chains,
+//     each row's h and x read four floats at a time by broadcast), so the
+//     chains' latencies overlap.  Each chain keeps its own order, so every
+//     row's bits are those of the one-row launch.  The pre-activations meet in
+//     shared memory, where the lanes of gate g take the four gates of rows g,
+//     g + 4, ... and run their activations and cells (no shuffles, and no lane
+//     runs sigma while its neighbour runs tanh); one barrier a step serves all
+//     rows.  Layer 0's stream rows of the next step, contiguous in (T, B, 4W),
+//     arrive as one copy of kRows * 4W floats by 16-byte cp.async.cg.
+//     __launch_bounds__ asks for two CTAs (16 warps) per SM (122-128
+//     registers, no spills).  The last CTA's rows past B are computed on zeros
+//     and never stored.  The wrapper launches it above one wave of one-row
+//     CTAs (`rows_per_thread` in lstm_stack.py); the step kernel, whose
+//     batches are small, has no blocked instantiation.
 //   * Every operation is a single IEEE fp32 operation (__fmul_rn and
 //     __fadd_rn never contract into FMAs) in the order of the plain
 //     PyTorch versions (ref.py, step.py), so kernel and plain version agree
@@ -89,6 +115,7 @@ struct Args {
   float* c_f;           // (L, B, W)
   int T, B, L, W, rows, act, act_bits;
   int fuse;             // step only: each gate's sum one 2W-long chain over [x; h]
+  int blocked;          // wavefront only: the row-blocked instantiation, kRows = rows
 };
 
 constexpr int kMaxThreads = 1024;  // per CTA, weights in shared memory
@@ -96,6 +123,9 @@ constexpr int kRegThreads = 256;   // per CTA, weights and h in registers (<= 25
 constexpr int kPrefetch = 2;       // bf16 layer-0 inputs of the next step a thread loads ahead
 
 constexpr int kRegW = 32;          // the width whose weights live in registers
+// rows every thread of the row-blocked wavefront kernel carries through a
+// step (BLOCKED_ROWS in lstm_stack.py)
+constexpr int kBlockedRows = 8;
 
 // Whether a thread's columns of W_x and W_h live in registers (the width the
 // GW configs pack to, all layers at once) or in shared memory.
@@ -191,6 +221,54 @@ __device__ __forceinline__ float dotcat_regs(const float* x, const float (&wx)[k
   return acc;
 }
 
+// The sums of kRows rows with one thread's column, interleaved: k
+// outermost, the rows inside, each row's chain in dot_regs's order (from
+// 0, one rounded multiply and one rounded add per term, k ascending), so
+// each row's bits are dot_regs's.  Row r starts at v + r * kW; each row is
+// read four floats at a time by broadcast.  dot2_rows runs x . w_x and
+// h . w_h the same way, 2 * kRows independent chains.
+template <int kW, int kRows>
+__device__ __forceinline__ void dot_rows(const float* v, const float (&w)[kW],
+                                         float (&acc)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kW; k += 4) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 q = *reinterpret_cast<const float4*>(v + r * kW + k);
+      acc[r] = add(acc[r], mul(q.x, w[k]));
+      acc[r] = add(acc[r], mul(q.y, w[k + 1]));
+      acc[r] = add(acc[r], mul(q.z, w[k + 2]));
+      acc[r] = add(acc[r], mul(q.w, w[k + 3]));
+    }
+  }
+}
+
+template <int kW, int kRows>
+__device__ __forceinline__ void dot2_rows(const float* x, const float (&wx)[kW], const float* h,
+                                          const float (&wh)[kW], float (&gx)[kRows],
+                                          float (&hh)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) gx[r] = hh[r] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kW; k += 4) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 p = *reinterpret_cast<const float4*>(x + r * kW + k);
+      const float4 q = *reinterpret_cast<const float4*>(h + r * kW + k);
+      gx[r] = add(gx[r], mul(p.x, wx[k]));
+      hh[r] = add(hh[r], mul(q.x, wh[k]));
+      gx[r] = add(gx[r], mul(p.y, wx[k + 1]));
+      hh[r] = add(hh[r], mul(q.y, wh[k + 1]));
+      gx[r] = add(gx[r], mul(p.z, wx[k + 2]));
+      hh[r] = add(hh[r], mul(q.z, wh[k + 2]));
+      gx[r] = add(gx[r], mul(p.w, wx[k + 3]));
+      hh[r] = add(hh[r], mul(q.w, wh[k + 3]));
+    }
+  }
+}
+
 // continues the chain `acc` (0 starts one)
 template <typename WT>
 __device__ __forceinline__ float dot_flat(const float* h, const WT* col, int W, int W4,
@@ -202,6 +280,10 @@ __device__ __forceinline__ float dot_flat(const float* h, const WT* col, int W, 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -234,11 +316,16 @@ __device__ __forceinline__ void col_dots(const float* x, const float (&wxr)[kR],
 // kStep: false = wavefront kernel (xw0 input), true = step kernel (raw chunk).
 // kW: kRegW (weights in registers, W at compile time) or 0 (weights in
 // shared memory, W at run time).
-template <typename CT, typename WT, bool kStep, int kW>
-__global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads)
+// kRows: 1 (a.rows rows per CTA, one after another), or kBlockedRows, the
+// rows every thread carries through each step (wavefront kernel, register
+// path).
+template <typename CT, typename WT, bool kStep, int kW, int kRows>
+__global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads, kRows > 1 ? 2 : 1)
 lstm_stack_kernel(const Args a) {
+  static_assert(kRows == 1 || (kW > 0 && !kStep), "row blocking: wavefront, register path");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = a.L, W = kW > 0 ? kW : a.W, W4 = 4 * W, R = a.rows, T = a.T, B = a.B;
+  const int L = a.L, W = kW > 0 ? kW : a.W, W4 = 4 * W, T = a.T, B = a.B;
+  const int R = kRows > 1 ? kRows : a.rows;
   const int IN = kStep ? W : W4;  // layer 0's input per row and step
   // fp32 input rows are copied by cp.async, 4 bytes per element
   constexpr bool kAsyncIn = !kStep || sizeof(CT) == 4;
@@ -291,12 +378,13 @@ lstm_stack_kernel(const Args a) {
   }
   const size_t hbuf = size_t(L) * R * W;  // floats of one h buffer
   const CT* h0 = static_cast<const CT*>(a.h0);
-  for (int i = tid; i < L * nrows * W; i += nthreads) {
-    const int l = i / (nrows * W), r = (i / W) % nrows, k = i % W;
+  for (int i = tid; i < L * R * W; i += nthreads) {
+    const int l = i / (R * W), r = (i / W) % R, k = i % W;
     const size_t g = (size_t(l) * B + row0 + r) * W + k;
     const size_t o = (size_t(l) * R + r) * W + k;
-    h_s[o] = h_s[hbuf + o] = to_f(h0[g]);  // a layer reads h0 until its first step
-    c_s[o] = a.c0[g];
+    // a layer reads h0 until its first step; rows past B hold zeros
+    h_s[o] = h_s[hbuf + o] = r < nrows ? to_f(h0[g]) : 0.0f;
+    c_s[o] = r < nrows ? a.c0[g] : 0.0f;
   }
   // layer 0's input of timestep t, element i of the CTA's rows: at
   // in_off(i) + t * in_step
@@ -313,7 +401,9 @@ lstm_stack_kernel(const Args a) {
     }
   };
   auto load_in = [&](int t, int i) { return load_at(in_off(i) + t * in_step); };
-  for (int i = tid; i < nrows * IN; i += nthreads) in_s[i] = load_in(0, i);
+  for (int i = tid; i < 2 * R * IN; i += nthreads) {
+    in_s[i] = i < nrows * IN ? load_in(0, i) : 0.0f;
+  }
   __syncthreads();
   // with weights in registers a thread has one layer: its scales and bias
   // stay in registers too
@@ -332,7 +422,13 @@ lstm_stack_kernel(const Args a) {
     const bool more = s + 1 < T;
     float* in_wr = in_s + ((s + 1) & 1) * R * IN;
     float pf[kPrefetch];
-    if constexpr (kAsyncIn) {
+    if constexpr (kRows > 1) {  // the rows of one timestep are contiguous
+      if (more) {
+        const float* src = static_cast<const float*>(a.x) + (size_t(s + 1) * B + row0) * W4;
+        for (int i = 4 * tid; i < nrows * W4; i += 4 * nthreads) cp_async16(in_wr + i, src + i);
+      }
+      cp_async_commit();
+    } else if constexpr (kAsyncIn) {
       if (more) {
         for (int i = tid; i < nrows * IN; i += nthreads) {
           cp_async4(in_wr + i, static_cast<const float*>(a.x) + in_off(i) + (s + 1) * in_step);
@@ -381,7 +477,7 @@ lstm_stack_kernel(const Args a) {
       const float h = cell_update<CT>(ig, fg, gg, og, &c, a.act, a.act_bits);
       c_s[o] = c;
       h_wr[o] = h;
-      if (l == L - 1) {
+      if (l == L - 1 && r < nrows) {
         const int t = s - l;
         const size_t out = kStep ? (size_t(row0 + r) * T + t) * W + k
                                  : (size_t(t) * B + row0 + r) * W + k;
@@ -389,7 +485,42 @@ lstm_stack_kernel(const Args a) {
       }
     };
 
-    if constexpr (kWarpCell) {
+    if constexpr (kRows > 1) {
+      // every row's pre-activation first: 2 * kRows independent chains
+      // (kRows on layer 0, whose x product is streamed in)
+      const int t = s - lt;
+      if (t >= 0 && t < T) {  // uniform across the warp
+        const float* h_own = h_rd + size_t(lt) * kRows * kW;
+        float pre[kRows], hh[kRows];
+        if (lt == 0) {
+          dot_rows<kW, kRows>(h_own, whr, hh);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) pre[r] = add(in_rd[r * W4 + j], mul(hh[r], s_h0));
+        } else {
+          float gx[kRows];
+          dot2_rows<kW, kRows>(h_own - kRows * kW, wxr, h_own, whr, gx, hh);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            pre[r] = add(add(mul(gx[r], s_x0), bias0), mul(hh[r], s_h0));
+          }
+        }
+        // the warp's four gates of its 8 elements, every row, meet in
+        // shared memory; then the lanes of gate g run the cells of rows g,
+        // g + 4, ...: each lane applies the four activations of one row
+        // and element, so no lane waits on another gate's activation
+        float* g_own = g_s + size_t(lt) * kRows * W4;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) g_own[r * W4 + j] = pre[r];
+        __syncwarp();
+#pragma unroll
+        for (int r = gate; r < kRows; r += 4) {
+          const float* g = g_own + r * W4;
+          float c = c_s[(size_t(lt) * kRows + r) * kW + kq];
+          cell(lt, r, kq, sigma(g[kq], a.act), sigma(g[kW + kq], a.act),
+               tanh_act(g[2 * kW + kq], a.act), sigma(g[3 * kW + kq], a.act), c);
+        }
+      }
+    } else if constexpr (kWarpCell) {
       // one phase, all layers at once (one layer per thread): a warp's
       // lanes own the four gates of 8 elements; each applies its gate's
       // activation, shuffles bring f, g and o to the lane of gate i, which
@@ -451,38 +582,57 @@ lstm_stack_kernel(const Args a) {
   }
 }
 
-template <typename CT, typename WT, bool kStep, int kW>
+template <typename CT, typename WT, bool kStep, int kW, int kRows>
 struct Instance {};  // one shared-memory table each
 
-template <typename CT, typename WT, bool kStep, int kW>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+// Launches the instantiation, or, where ctas_per_sm is given, writes the
+// CTAs of it one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and launches nothing.
+template <typename CT, typename WT, bool kStep, int kW, int kRows>
+cudaError_t launch(const Args& a, cudaStream_t stream, int* ctas_per_sm) {
   const size_t smem = smem_layout(a.L, a.W, a.rows, sizeof(WT), kStep).total;
-  auto kernel = lstm_stack_kernel<CT, WT, kStep, kW>;
-  cudaError_t err = set_smem_once<Instance<CT, WT, kStep, kW>>(kernel, smem);
+  auto kernel = lstm_stack_kernel<CT, WT, kStep, kW, kRows>;
+  cudaError_t err = set_smem_once<Instance<CT, WT, kStep, kW, kRows>>(kernel, smem);
   if (err != cudaSuccess) return err;
+  const int threads = layers_at_once(a.L, a.W) * 4 * a.W;
+  if (ctas_per_sm != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, threads, smem);
+  }
   const dim3 grid((a.B + a.rows - 1) / a.rows);
-  kernel<<<grid, layers_at_once(a.L, a.W) * 4 * a.W, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename CT, typename WT, bool kStep>
-cudaError_t by_width(const Args& a, cudaStream_t s) {
-  if (in_regs(a.L, a.W)) return launch<CT, WT, kStep, kRegW>(a, s);
-  return launch<CT, WT, kStep, 0>(a, s);
+cudaError_t by_width(const Args& a, cudaStream_t s, int* ctas_per_sm) {
+  const bool regs = in_regs(a.L, a.W);
+  if (a.blocked) {
+    if constexpr (!kStep) {
+      if (regs && a.rows == kBlockedRows) {
+        return launch<CT, WT, kStep, kRegW, kBlockedRows>(a, s, ctas_per_sm);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (regs) return launch<CT, WT, kStep, kRegW, 1>(a, s, ctas_per_sm);
+  return launch<CT, WT, kStep, 0, 1>(a, s, ctas_per_sm);
 }
 
 template <bool kStep>
-int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream) {
+int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream,
+             int* ctas_per_sm = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.W < 1 || 4 * a.W > kMaxThreads || a.L < 1 || a.rows < 1) return cudaErrorInvalidValue;
   if (compute_dtype == kF32) {
-    if (weight_dtype == kF32) return by_width<float, float, kStep>(a, s);
-    if (weight_dtype == kBF16) return by_width<float, __nv_bfloat16, kStep>(a, s);
-    if (weight_dtype == kI8) return by_width<float, int8_t, kStep>(a, s);
+    if (weight_dtype == kF32) return by_width<float, float, kStep>(a, s, ctas_per_sm);
+    if (weight_dtype == kBF16) return by_width<float, __nv_bfloat16, kStep>(a, s, ctas_per_sm);
+    if (weight_dtype == kI8) return by_width<float, int8_t, kStep>(a, s, ctas_per_sm);
   } else if (compute_dtype == kBF16) {
     // fp32 storage under bf16 compute is refused before the launch
-    if (weight_dtype == kBF16) return by_width<__nv_bfloat16, __nv_bfloat16, kStep>(a, s);
-    if (weight_dtype == kI8) return by_width<__nv_bfloat16, int8_t, kStep>(a, s);
+    if (weight_dtype == kBF16) {
+      return by_width<__nv_bfloat16, __nv_bfloat16, kStep>(a, s, ctas_per_sm);
+    }
+    if (weight_dtype == kI8) return by_width<__nv_bfloat16, int8_t, kStep>(a, s, ctas_per_sm);
   }
   return cudaErrorInvalidValue;
 }
@@ -490,7 +640,7 @@ int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream) {
 Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
                const void* scales, const void* h0, const void* c0, void* hs,
                void* h_f, void* c_f, int T, int B, int L, int W, int rows,
-               int act, int act_bits, int fuse) {
+               int act, int act_bits, int fuse, int blocked) {
   Args a;
   a.x = x;
   a.w_x = w_x;
@@ -510,19 +660,23 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
   a.act = act;
   a.act_bits = act_bits;
   a.fuse = fuse;
+  a.blocked = blocked;
   return a;
 }
 
 }  // namespace
 
 // Each entry returns cudaGetLastError() of its launch (0 on success).
+// blocked (wavefront only, 0 or 1): the row-blocked instantiation, every
+// thread carrying `rows` rows (a compiled value, register path only)
+// through each step.
 extern "C" int lstm_stack_wavefront(
     const void* xw0, const void* w_x, const void* w_h, const void* b,
     const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
     void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
-    int weight_dtype, int act, int act_bits, void* stream) {
+    int weight_dtype, int act, int act_bits, int blocked, void* stream) {
   const Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits, 0);
+                           L, W, rows, act, act_bits, 0, blocked);
   return dispatch<false>(a, compute_dtype, weight_dtype, stream);
 }
 
@@ -535,7 +689,7 @@ extern "C" int lstm_stack_step(
     int weight_dtype, int act, int act_bits, int fuse_gates, void* stream) {
   if (fuse_gates && scales != nullptr) return cudaErrorInvalidValue;
   const Args a = make_args(xs, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits, fuse_gates);
+                           L, W, rows, act, act_bits, fuse_gates, 0);
   return dispatch<true>(a, compute_dtype, weight_dtype, stream);
 }
 
@@ -551,3 +705,13 @@ extern "C" long long lstm_stack_smem_bytes(int L, int W, int rows, int weight_dt
 // shared memory at run-time width (0).
 extern "C" int lstm_stack_threads(int L, int W) { return layers_at_once(L, W) * 4 * W; }
 extern "C" int lstm_stack_weights_in_registers(int L, int W) { return in_regs(L, W); }
+
+// CTAs of the wavefront kernel's instantiation for (L, W, rows, blocked) and
+// the dtypes that one SM holds at once (-1 where it has none).
+extern "C" int lstm_stack_ctas_per_sm(int L, int W, int rows, int blocked, int compute_dtype,
+                                      int weight_dtype) {
+  Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, 1, rows, L, W, rows, 0, 0, 0, blocked);
+  int n = -1;
+  return dispatch<false>(a, compute_dtype, weight_dtype, nullptr, &n) == cudaSuccess ? n : -1;
+}

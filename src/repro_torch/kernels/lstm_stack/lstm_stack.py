@@ -11,7 +11,10 @@ in ``csrc/lstm_stack.cu``; the plain PyTorch version of the same function
 is ``ref.lstm_stack_ref``.
 
 ``lstm_stack`` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
+kernel for CUDA tensors; it never falls back from one to the other.  At a
+large batch on the register path every thread carries several batch rows
+through each wavefront step (``rows_per_thread``), with each row's bits
+unchanged.
 """
 
 from __future__ import annotations
@@ -42,6 +45,33 @@ MAX_SMEM_BYTES = 232_448
 #: CTA with the weights in registers, and the width whose weights live there
 K_REG_THREADS, K_REG_W = 256, 32
 
+#: rows every thread of the row-blocked wavefront kernel carries through
+#: each step (``kBlockedRows`` in ``csrc/lstm_stack.cu``, register path only)
+BLOCKED_ROWS = 8
+
+
+def weights_in_registers(n_layers: int, width: int) -> bool:
+    """Whether the kernels keep the weights in registers at this shape
+    (``in_regs`` in ``csrc/lstm_stack.cu``)."""
+    return width == K_REG_W and n_layers * 4 * width <= K_REG_THREADS
+
+
+def rows_per_thread(batch: int, n_layers: int, width: int, sm_count: int,
+                    block_b: int | None = None) -> int:
+    """Rows every thread of the wavefront kernel carries through each step:
+    1 (one row a CTA, or an explicit ``block_b``'s rows one after another)
+    or ``BLOCKED_ROWS``, on the register path above one wave of one-row CTAs.
+
+    From a sweep on the H100 (``tools/k1_rows.py``; L=2, W=32, T=100): a
+    one-row CTA takes 137 registers a thread, so an SM holds one, and up
+    to one wave (B <= the SMs) each runs at the lone CTA's latency, which
+    the row block does not beat (B=64: 0.082 ms, against 0.258).  Past it,
+    8 rows a thread (two CTAs an SM) run faster (B=512: 0.299 ms against
+    0.319; B=4,096: 0.775 against 2.517; B=73,728: 13.07 against 43.95)."""
+    if block_b is not None or not weights_in_registers(n_layers, width):
+        return 1
+    return BLOCKED_ROWS if batch > max(64, sm_count) else 1
+
 
 def smem_bytes(n_layers: int, width: int, rows: int, w_bytes: int, step: bool) -> int:
     """Dynamic shared memory one CTA of either kernel takes: the Python
@@ -53,8 +83,8 @@ def smem_bytes(n_layers: int, width: int, rows: int, w_bytes: int, step: bool) -
         return (n + 15) & ~15
 
     w4 = 4 * width
-    in_regs = width == K_REG_W and n_layers * w4 <= K_REG_THREADS
-    weights = 0 if in_regs else align16(n_layers * width * w4 * w_bytes)
+    weights = (0 if weights_in_registers(n_layers, width)
+               else align16(n_layers * width * w4 * w_bytes))
     return (2 * weights + align16(n_layers * w4 * 4) + align16(n_layers * 8 * 4)
             + align16(2 * n_layers * rows * width * 4) + align16(n_layers * rows * width * 4)
             + align16(n_layers * rows * w4 * 4) + align16(2 * rows * (width if step else w4) * 4))
@@ -72,7 +102,7 @@ def library():
 
     built = build(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, n_int in (("lstm_stack_wavefront", 9), ("lstm_stack_step", 10)):
+    for name, n_int in (("lstm_stack_wavefront", 10), ("lstm_stack_step", 10)):
         fn = getattr(built.lib, name)
         fn.argtypes = [ptr] * 10 + [i32] * n_int + [ptr]
         fn.restype = i32
@@ -81,7 +111,15 @@ def library():
     for name in ("lstm_stack_threads", "lstm_stack_weights_in_registers"):
         getattr(built.lib, name).argtypes = [i32] * 2
         getattr(built.lib, name).restype = i32
+    built.lib.lstm_stack_ctas_per_sm.argtypes = [i32] * 6
+    built.lib.lstm_stack_ctas_per_sm.restype = i32
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_operands(name: str, w_x, w_h, b, h0, c0, scales, width: int,
@@ -129,15 +167,27 @@ def kernel_act_id(acts: ActivationSet) -> int:
 
 def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            t_len: int, acts: ActivationSet, act_bits: int | None,
-           block_b: int | None, fuse_gates: bool = False) -> None:
+           block_b: int | None, fuse_gates: bool = False,
+           rows_per_thread: int = 1) -> None:
     """Launch one of the two kernels on the current stream; raise if the
-    launch is refused (``cudaGetLastError`` of the launch is non-zero)."""
+    launch is refused (``cudaGetLastError`` of the launch is non-zero).
+    ``rows_per_thread`` > 1 (wavefront only, ``BLOCKED_ROWS``, no
+    ``block_b``) launches the row-blocked instantiation."""
     n_layers, width, batch = w_h.shape[0], w_h.shape[1], h0.shape[1]
     if 4 * width > 1024:
         raise ValueError(f"width {width} needs {4 * width} threads per block (> 1024)")
     rows = 1 if block_b is None else int(block_b)
     if rows < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
+    blocked = rows_per_thread > 1
+    if blocked:
+        if (entry != "lstm_stack_wavefront" or block_b is not None
+                or rows_per_thread != BLOCKED_ROWS
+                or not weights_in_registers(n_layers, width)):
+            raise ValueError(
+                f"{entry}: no row-blocked kernel for rows_per_thread={rows_per_thread} "
+                f"(block_b={block_b}, L={n_layers}, W={width})")
+        rows = rows_per_thread
     built = library()
     smem = built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype],
                                            int(entry == "lstm_stack_step"))
@@ -155,14 +205,14 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
     # and 16-byte aligned (a fresh allocation is; an offset view is copied)
     ops = [t if t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0)
            else t.clone(memory_format=torch.contiguous_format) for t in ops]
-    step_args = (int(fuse_gates),) if entry == "lstm_stack_step" else ()
+    last = int(fuse_gates) if entry == "lstm_stack_step" else int(blocked)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         err = getattr(built.lib, entry)(
             *[None if t is None else t.data_ptr() for t in ops],
             hs.data_ptr(), h_f.data_ptr(), c_f.data_ptr(),
             t_len, batch, n_layers, width, rows, _COMPUTE[h0.dtype],
-            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, *step_args, stream,
+            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, last, stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
@@ -185,7 +235,9 @@ def lstm_stack(
 
     Returns (hs of the last layer (T, B, W), h_final (L, B, W), c_final
     fp32 (L, B, W)), freshly allocated; the initial state is not written.
-    ``block_b`` is the number of batch rows one CTA runs (default 1).
+    ``block_b`` is the number of batch rows one CTA runs one after another;
+    without it the kernel runs one row a CTA, or ``rows_per_thread`` rows
+    through every thread at once, by the batch.
     Weight storage may be narrower than the compute dtype; int8 codes need
     ``scales``, applied per gate to the fp32 accumulators.
     """
@@ -209,12 +261,16 @@ def lstm_stack(
     hs = torch.empty(t_len, batch, width, dtype=h0.dtype, device=h0.device)
     h_f = torch.empty_like(h0)
     c_f = torch.empty_like(c0)
+    rows = rows_per_thread(batch, w_h.shape[0], width, sm_count(h0.device.index), block_b)
     launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, hs, h_f,
-           c_f, t_len=t_len, acts=acts, act_bits=act_bits, block_b=block_b)
+           c_f, t_len=t_len, acts=acts, act_bits=act_bits, block_b=block_b,
+           rows_per_thread=rows)
     lstm_stack.launches += 1
+    lstm_stack.blocked_launches += rows > 1
     return hs, h_f, c_f
 
 
 #: kernel launches since the count was last set to 0 (plain-version calls
-#: on CPU tensors do not count)
+#: on CPU tensors do not count), and those of them that ran row-blocked
 lstm_stack.launches = 0
+lstm_stack.blocked_launches = 0

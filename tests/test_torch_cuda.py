@@ -13,7 +13,10 @@ weights in registers, every other shape at run-time width), layer counts
 whose threads take turns inside a step, and every storage dtype.  K3 is
 held bit for bit too, on its warp-cell kernel (H=8 and H=32 at compile time,
 IN up to 32) and its run-time-width kernel, with a row's bits independent of
-B and ``block_b``.  The server tests hold the
+B and ``block_b``.  K1's row-blocked instantiations (every thread carrying
+several batch rows through each step, the launch at a large batch) are
+held bit for bit against the one-row launch and the plain version, with a
+partial last CTA.  The server tests hold the
 StreamServer on both engines of the card (``fused_step`` and ``kernel``)
 bit-equal to sequential pushes.
 
@@ -212,6 +215,101 @@ def test_rows_are_independent_of_batch_grouping(cuda):
                               h0[:, i : i + 1].contiguous(), c0[:, i : i + 1].contiguous())
         assert torch.equal(row[0], whole[0][i : i + 1])
         assert torch.equal(row[2], whole[2][:, i : i + 1])
+
+
+BLOCKED_CASES = [("fp32", torch.float32, EXACT, None),
+                 ("fp32", torch.float32, PAPER_HW_KERNEL, 16),
+                 ("bf16", torch.float32, PAPER_HW_KERNEL, None),
+                 ("int8", torch.float32, EXACT, 16),
+                 ("bf16", torch.bfloat16, EXACT, None),
+                 ("int8", torch.bfloat16, PAPER_HW_KERNEL, 16)]
+
+
+def _k1_module():
+    return sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
+
+
+def _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, rows_per_thread):
+    """One wavefront launch through the wrapper's ``launch``, with the rows
+    every thread carries forced (1: one row a CTA)."""
+    t_len, batch, width = xw0.shape[0], h0.shape[1], h0.shape[2]
+    out = (torch.empty(t_len, batch, width, dtype=h0.dtype, device=h0.device),
+           torch.empty_like(h0), torch.empty_like(c0))
+    _k1_module().launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, *out,
+                        t_len=t_len, acts=acts, act_bits=act_bits, block_b=None,
+                        rows_per_thread=rows_per_thread)
+    return out
+
+
+@pytest.mark.parametrize("n_layers", [1, 2])
+@pytest.mark.parametrize("wd,compute,acts,act_bits", BLOCKED_CASES)
+def test_blocked_wavefront_is_bitwise(cuda, n_layers, wd, compute, acts, act_bits):
+    """The row-blocked launch gives the one-row launch's and the plain
+    version's hs, h_f and c_f bit for bit, from a non-zero state, at B = R
+    + 1, SMs + 1 (the least batch the wrapper row-blocks) and 2 * SMs * R
+    + 3 (a partial last CTA each time)."""
+    k1 = _k1_module()
+    sms = k1.sm_count(cuda.index or 0)
+    rows = k1.BLOCKED_ROWS
+    assert k1.rows_per_thread(sms + 1, n_layers, 32, sms) == rows
+    for batch in (rows + 1, sms + 1, 2 * sms * rows + 3):
+        seed = 100 * rows + batch + n_layers
+        w_x, w_h, b, h0, c0, scales = (
+            None if t is None else t.to(cuda)
+            for t in _random_stack(n_layers, 32, batch, wd, compute, seed))
+        g = torch.Generator().manual_seed(seed)
+        xw0 = torch.randn(100, batch, 128, generator=g).to(cuda)
+        blocked = _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, rows)
+        one = _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, 1)
+        plain = lstm_stack_ref(xw0, w_x, w_h, b, h0, c0, scales=scales, sigma=acts.sigma,
+                               tanh=acts.tanh,
+                               act_quant=make_act_quant(act_bits) if act_bits else None)
+        torch.cuda.synchronize()
+        for got, a, p in zip(blocked, one, plain):
+            assert torch.equal(got, a), (rows, batch)
+            assert torch.equal(got, p), (rows, batch)
+
+
+def test_blocked_rows_are_independent_of_batch_grouping(cuda):
+    """At a batch the wrapper row-blocks, rows run one by one (B=1, one row
+    a CTA) equal the same rows of the whole batch."""
+    k1 = _k1_module()
+    enc, _ = _packs(cuda, "fp32")
+    s = enc.stacked
+    batch = 2 * k1.sm_count(cuda.index or 0) * k1.BLOCKED_ROWS + 3
+    assert k1.rows_per_thread(batch, enc.n_layers, enc.width_p, k1.sm_count(cuda.index or 0)) > 1
+    g = torch.Generator().manual_seed(5)
+    xw0 = torch.randn(100, batch, 4 * enc.width_p, generator=g).to(cuda)
+    h0, c0 = _state(enc, batch, cuda, 2)
+    before = lstm_stack.blocked_launches
+    whole = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0)
+    assert lstm_stack.blocked_launches == before + 1
+    for i in (0, 1, batch // 2, batch - 1):
+        row = lstm_stack(xw0[:, i : i + 1].contiguous(), s["w_x"], s["w_h"], s["b"],
+                         h0[:, i : i + 1].contiguous(), c0[:, i : i + 1].contiguous())
+        assert torch.equal(row[0], whole[0][:, i : i + 1]), i
+        assert torch.equal(row[1], whole[1][:, i : i + 1]), i
+        assert torch.equal(row[2], whole[2][:, i : i + 1]), i
+    assert lstm_stack.blocked_launches == before + 1
+
+
+def test_batch_score_blocks_rows_and_keeps_their_bits(cuda):
+    """A batch score over the row-blocking threshold launches K1 row-blocked
+    twice (encoder and decoder) and gives each window the score it gets in
+    a batch of 64, where K1 runs one row a CTA."""
+    from repro_torch.serve.engine import AnomalyStreamEngine
+
+    k1 = _k1_module()
+    cfg = GW_MODELS["gw_nominal"]
+    eng = AnomalyStreamEngine(init_autoencoder(cfg, seed=4, device=cuda), cfg)
+    batch = 2 * k1.sm_count(cuda.index or 0) * k1.BLOCKED_ROWS + 3
+    x = np.random.RandomState(1).randn(batch, cfg.timesteps, 1).astype(np.float32)
+    lstm_stack.launches = lstm_stack.blocked_launches = 0
+    whole = eng.score(x)
+    assert (lstm_stack.launches, lstm_stack.blocked_launches) == (2, 2)
+    parts = np.concatenate([eng.score(x[i : i + 64]) for i in range(0, batch, 64)])
+    assert lstm_stack.blocked_launches == 2
+    np.testing.assert_array_equal(whole, parts)
 
 
 def test_engine_runs_both_kernels_and_push_many_is_bit_equal(cuda):

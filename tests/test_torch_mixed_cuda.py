@@ -57,11 +57,22 @@ def test_smem_twin_equals_the_library(cuda):
     lib = k1.library().lib
     for n_layers in (1, 2, 3, 4, 9):
         for width in (8, 9, 32, 48, 128):
-            for rows in (1, 2, 3, 8):
+            for rows in sorted({1, 2, 3, 8, k1.BLOCKED_ROWS}):
                 for code, w_bytes in ((0, 4), (1, 2), (2, 1)):
                     for step in (0, 1):
                         assert k1.smem_bytes(n_layers, width, rows, w_bytes, bool(step)) == \
                             lib.lstm_stack_smem_bytes(n_layers, width, rows, code, step)
+    # the row-blocked instantiation (the same layout at rows = R) exists for
+    # every storage and compute dtype on the register path, and holds the
+    # two CTAs an SM its launch bounds ask for; other shapes and other row
+    # counts have none
+    rows = k1.BLOCKED_ROWS
+    for compute, code in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2)):
+        for n_layers in (1, 2):
+            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows, 1, compute, code) >= 2
+            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows // 2, 1, compute, code) == -1
+        assert lib.lstm_stack_ctas_per_sm(2, 9, rows, 1, compute, code) == -1
+        assert lib.lstm_stack_ctas_per_sm(3, 32, rows, 1, compute, code) == -1
 
 
 @pytest.mark.parametrize("split", [1, 2])

@@ -1,0 +1,130 @@
+"""K1's wavefront kernel by rows a CTA, on the card: the R sweep.
+
+Times ``lstm_stack``'s wavefront launch on ``gw_nominal``'s encoder pack
+(L=2, W=32, fp32, T=100, random weights and state from a seed) at several
+batch sizes, in three modes:
+
+* ``one``: one row a CTA (the launch below the row-blocking threshold);
+* ``blocked 8``: the row-blocked instantiation, every thread carrying
+  ``BLOCKED_ROWS`` = 8 rows through each step;
+* ``seq R``: an explicit ``block_b`` = R (2, 4, 8), the R rows of a CTA
+  one after another inside each step (the control: a mere change of the
+  default).
+
+Each mode's output is held bit for bit against ``one``'s at every batch.
+Prints one JSON line: the card and its power limit, each K1 instantiation's
+registers and spills from the build's ptxas log, the CTAs an SM holds of
+each mode (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), what
+``rows_per_thread`` picks at each batch, and per (batch, mode) the median
+CUDA-event ms of one launch over rounds that take the modes in turn:
+
+    PYTHONPATH=src:. python3 tools/k1_rows.py --batches 64,256,512,4096,73728
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from chip_smoke import ptxas_report
+from repro_torch.core.quant import EXACT
+from repro_torch.kernels.lstm_stack import lstm_stack  # noqa: F401  (binds the module)
+
+k1 = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
+
+T, L, W = 100, 2, 32
+SEQ_ROWS = (2, 4, 8)
+
+
+def modes() -> list:
+    return [("one", 1), ("blocked", k1.BLOCKED_ROWS)] + [("seq", r) for r in SEQ_ROWS]
+
+
+def operands(batch: int, seed: int, dev) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {
+        "xw0": torch.randn(T, batch, 4 * W, generator=g).to(dev),
+        "w_x": (torch.randn(L, W, 4 * W, generator=g) * W**-0.5).to(dev),
+        "w_h": (torch.randn(L, W, 4 * W, generator=g) * W**-0.5).to(dev),
+        "b": (torch.randn(L, 4 * W, generator=g) * 0.1).to(dev),
+        "h0": (torch.randn(L, batch, W, generator=g) * 0.3).to(dev),
+        "c0": (torch.randn(L, batch, W, generator=g) * 0.3).to(dev),
+    }
+
+
+def run(mode, o) -> tuple:
+    kind, r = mode
+    batch = o["h0"].shape[1]
+    out = (torch.empty(T, batch, W, device=o["h0"].device), torch.empty_like(o["h0"]),
+           torch.empty_like(o["c0"]))
+    k1.launch("lstm_stack_wavefront", o["xw0"], o["w_x"], o["w_h"], o["b"], o["h0"], o["c0"],
+              None, *out, t_len=T, acts=EXACT, act_bits=None,
+              block_b=r if kind == "seq" else None,
+              rows_per_thread=r if kind == "blocked" else 1)
+    return out
+
+
+def event_ms(fn, reps: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batches", default="64,256,512,4096,73728")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_rows: needs a CUDA device")
+    dev = torch.device("cuda")
+    built = k1.library()
+    ptxas = [k for k in ptxas_report(built.log) if "lstm_stack_kernel" in k["kernel"]]
+    lib = built.lib
+    occupancy = {f"{kind} {r}": lib.lstm_stack_ctas_per_sm(L, W, r, int(kind == "blocked"), 0, 0)
+                 for kind, r in modes()}
+    sms = k1.sm_count(0)
+    rows = []
+    for batch in (int(b) for b in args.batches.split(",")):
+        o = operands(batch, args.seed + batch, dev)
+        want = run(("one", 1), o)
+        equal = {}
+        for mode in modes():
+            got = run(mode, o)
+            equal[f"{mode[0]} {mode[1]}"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        # about 200 ms of launches a measurement
+        reps = max(1, min(50, int(200 / max(event_ms(lambda: run(("one", 1), o), 1), 1e-3))))
+        times = {f"{kind} {r}": [] for kind, r in modes()}
+        for i in range(args.rounds):
+            order = modes() if i % 2 == 0 else modes()[::-1]
+            for mode in order:
+                times[f"{mode[0]} {mode[1]}"].append(event_ms(lambda: run(mode, o), reps))
+        rows.append({"B": batch, "reps": reps,
+                     "rows_per_thread": k1.rows_per_thread(batch, L, W, sms),
+                     "bit_equal_to_one": equal,
+                     "ms": {k: statistics.median(v) for k, v in times.items()},
+                     "ms_min_max": {k: [min(v), max(v)] for k, v in times.items()}})
+        del o, want
+        torch.cuda.empty_cache()
+        print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "sms": sms,
+                      "build_s": built.seconds, "ptxas": ptxas, "ctas_per_sm": occupancy,
+                      "batches": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
