@@ -3688,25 +3688,30 @@ def main() -> int:
     per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches,
                                                  rowwise_matmul.launches)
     # a batch score at the benchmark's gw_nominal batch: both segments' K1
-    # launches row-blocked, and the windows' scores those of a batch of 64,
+    # launches row-blocked, the decoder's reading its repeated stream in
+    # place (time stride 0), and the windows' scores those of a batch of 64,
     # where K1 runs one row a CTA
     big = np.resize(windows, (73_728,) + windows.shape[1:])
     big = big + np.random.RandomState(3).randn(*big.shape).astype(np.float32) * 0.01
     batch_eng = AnomalyStreamEngine(params, cfg, impl="fused_stack")
     with block_plain():
         lstm_stack.launches = lstm_stack.blocked_launches = 0
+        lstm_stack.repeated_input_launches = 0
         whole = batch_eng.score(big)
         blocked_score = {"B": len(big), "launches": lstm_stack.launches,
-                         "blocked_launches": lstm_stack.blocked_launches}
+                         "blocked_launches": lstm_stack.blocked_launches,
+                         "repeated_input_launches": lstm_stack.repeated_input_launches}
         for part in (slice(0, 64), slice(len(big) - 64, len(big))):
             np.testing.assert_array_equal(whole[part], batch_eng.score(big[part]),
                                           err_msg=f"score at B={len(big)} vs B=64, {part}")
     del big, whole, batch_eng
     torch.cuda.empty_cache()
-    if (blocked_score["launches"], blocked_score["blocked_launches"]) != (2, 2):
+    if (blocked_score["launches"], blocked_score["blocked_launches"],
+            blocked_score["repeated_input_launches"]) != (2, 2, 1):
         raise AssertionError(f"phase 5: a batch score's K1 launches {blocked_score}")
     log(f"phase 5 batch score at B={blocked_score['B']} ok: K1 launches {blocked_score} "
-        f"(both row-blocked), the first and last 64 windows bit-equal to a score of 64")
+        f"(both row-blocked, the decoder's on its repeated stream), the first and last 64 "
+        f"windows bit-equal to a score of 64")
 
     # -- phase 6: K3 against its plain version -----------------------------
     # every warp-cell instantiation (H=8 and H=32 with x chains of 1, 8 and

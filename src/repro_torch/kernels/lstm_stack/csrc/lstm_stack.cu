@@ -4,7 +4,9 @@
 //   * lstm_stack_wavefront  <- repro/kernels/lstm_stack/lstm_stack.py
 //     `lstm_stack` (body `_lstm_stack_kernel`): the window-scale kernel.
 //     Layer 0's gate stream xw0 = x @ W_x[0] (+ scales, + bias) arrives
-//     precomputed, time-major (T, B, 4W).
+//     precomputed, time-major (T, B, 4W), with a time stride of B * 4W, or
+//     of 0 where one (B, 4W) block repeats over the window (the decoder's
+//     RepeatVector input: every step reads the same rows).
 //   * lstm_stack_step       <- repro/kernels/lstm_stack/step.py
 //     `lstm_stack_step` (body `_lstm_stack_step_kernel`): the chunk-scale
 //     kernel.  It takes the raw chunk (B, T, W) and computes layer 0's
@@ -116,6 +118,7 @@ struct Args {
   int T, B, L, W, rows, act, act_bits;
   int fuse;             // step only: each gate's sum one 2W-long chain over [x; h]
   int blocked;          // wavefront only: the row-blocked instantiation, kRows = rows
+  long long x_tstride;  // wavefront only: floats between timesteps of xw0, B * 4W or 0
 };
 
 constexpr int kMaxThreads = 1024;  // per CTA, weights in shared memory
@@ -388,7 +391,7 @@ lstm_stack_kernel(const Args a) {
   }
   // layer 0's input of timestep t, element i of the CTA's rows: at
   // in_off(i) + t * in_step
-  const size_t in_step = kStep ? size_t(W) : size_t(B) * W4;
+  const size_t in_step = kStep ? size_t(W) : size_t(a.x_tstride);
   auto in_off = [&](int i) -> size_t {
     const int r = i / IN, e = i - r * IN;
     return kStep ? size_t(row0 + r) * T * W + e : size_t(row0 + r) * W4 + e;
@@ -424,7 +427,8 @@ lstm_stack_kernel(const Args a) {
     float pf[kPrefetch];
     if constexpr (kRows > 1) {  // the rows of one timestep are contiguous
       if (more) {
-        const float* src = static_cast<const float*>(a.x) + (size_t(s + 1) * B + row0) * W4;
+        const float* src =
+            static_cast<const float*>(a.x) + (s + 1) * in_step + size_t(row0) * W4;
         for (int i = 4 * tid; i < nrows * W4; i += 4 * nthreads) cp_async16(in_wr + i, src + i);
       }
       cp_async_commit();
@@ -640,7 +644,7 @@ int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream,
 Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
                const void* scales, const void* h0, const void* c0, void* hs,
                void* h_f, void* c_f, int T, int B, int L, int W, int rows,
-               int act, int act_bits, int fuse, int blocked) {
+               int act, int act_bits, int fuse, int blocked, long long x_tstride) {
   Args a;
   a.x = x;
   a.w_x = w_x;
@@ -661,6 +665,7 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
   a.act_bits = act_bits;
   a.fuse = fuse;
   a.blocked = blocked;
+  a.x_tstride = x_tstride;
   return a;
 }
 
@@ -669,14 +674,18 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
 // Each entry returns cudaGetLastError() of its launch (0 on success).
 // blocked (wavefront only, 0 or 1): the row-blocked instantiation, every
 // thread carrying `rows` rows (a compiled value, register path only)
-// through each step.
+// through each step.  x_tstride: floats between timesteps of xw0, B * 4W
+// for a dense stream or 0 for one (B, 4W) block repeated over the window;
+// the (B, 4W) rows of a timestep are contiguous and 16-byte aligned.
 extern "C" int lstm_stack_wavefront(
     const void* xw0, const void* w_x, const void* w_h, const void* b,
     const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
     void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
-    int weight_dtype, int act, int act_bits, int blocked, void* stream) {
+    int weight_dtype, int act, int act_bits, int blocked, long long x_tstride,
+    void* stream) {
+  if (x_tstride != 0 && x_tstride != 4LL * B * W) return cudaErrorInvalidValue;
   const Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits, 0, blocked);
+                           L, W, rows, act, act_bits, 0, blocked, x_tstride);
   return dispatch<false>(a, compute_dtype, weight_dtype, stream);
 }
 
@@ -689,7 +698,7 @@ extern "C" int lstm_stack_step(
     int weight_dtype, int act, int act_bits, int fuse_gates, void* stream) {
   if (fuse_gates && scales != nullptr) return cudaErrorInvalidValue;
   const Args a = make_args(xs, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits, fuse_gates, 0);
+                           L, W, rows, act, act_bits, fuse_gates, 0, 0);
   return dispatch<true>(a, compute_dtype, weight_dtype, stream);
 }
 
@@ -711,7 +720,7 @@ extern "C" int lstm_stack_weights_in_registers(int L, int W) { return in_regs(L,
 extern "C" int lstm_stack_ctas_per_sm(int L, int W, int rows, int blocked, int compute_dtype,
                                       int weight_dtype) {
   Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, 1, rows, L, W, rows, 0, 0, 0, blocked);
+                     nullptr, nullptr, 1, rows, L, W, rows, 0, 0, 0, blocked, 0);
   int n = -1;
   return dispatch<false>(a, compute_dtype, weight_dtype, nullptr, &n) == cudaSuccess ? n : -1;
 }

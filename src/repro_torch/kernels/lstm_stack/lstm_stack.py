@@ -14,7 +14,9 @@ is ``ref.lstm_stack_ref``.
 kernel for CUDA tensors; it never falls back from one to the other.  At a
 large batch on the register path every thread carries several batch rows
 through each wavefront step (``rows_per_thread``), with each row's bits
-unchanged.
+unchanged.  A gate stream that repeats one (B, 4W) block over the window
+(time stride 0: the decoder's RepeatVector input, ``ops.project_layer0``)
+is read in place, every step from the same rows.
 """
 
 from __future__ import annotations
@@ -101,10 +103,11 @@ def library():
     from repro_torch.kernels._build import build
 
     built = build(SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, n_int in (("lstm_stack_wavefront", 10), ("lstm_stack_step", 10)):
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, ints in (("lstm_stack_wavefront", [i32] * 10 + [i64]),
+                       ("lstm_stack_step", [i32] * 10)):
         fn = getattr(built.lib, name)
-        fn.argtypes = [ptr] * 10 + [i32] * n_int + [ptr]
+        fn.argtypes = [ptr] * 10 + ints + [ptr]
         fn.restype = i32
     built.lib.lstm_stack_smem_bytes.argtypes = [i32] * 5
     built.lib.lstm_stack_smem_bytes.restype = ctypes.c_longlong
@@ -165,6 +168,14 @@ def kernel_act_id(acts: ActivationSet) -> int:
     return _ACT_IDS[acts.name]
 
 
+def repeated_stream(x: torch.Tensor) -> bool:
+    """Whether a (T, B, 4W) gate stream is one (B, 4W) block repeated over
+    T > 1 steps that the wavefront kernel reads in place: time stride 0,
+    each step's rows contiguous and 16-byte aligned."""
+    return (x.shape[0] > 1 and x.stride(0) == 0 and x[0].is_contiguous()
+            and x.data_ptr() % 16 == 0)
+
+
 def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            t_len: int, acts: ActivationSet, act_bits: int | None,
            block_b: int | None, fuse_gates: bool = False,
@@ -202,17 +213,24 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
         if t is not None and t.device != h0.device:
             raise ValueError(f"{entry}: operands on {t.device} and {h0.device}")
     # the kernel reads whole 4-byte words, so every operand is contiguous
-    # and 16-byte aligned (a fresh allocation is; an offset view is copied)
-    ops = [t if t is None or (t.is_contiguous() and t.data_ptr() % 16 == 0)
+    # and 16-byte aligned (a fresh allocation is; an offset view is copied),
+    # but for the wavefront kernel's stream repeated over time, read in place
+    wavefront = entry == "lstm_stack_wavefront"
+    repeated = wavefront and repeated_stream(x)
+    ops = [t if t is None or (t is x and repeated)
+           or (t.is_contiguous() and t.data_ptr() % 16 == 0)
            else t.clone(memory_format=torch.contiguous_format) for t in ops]
-    last = int(fuse_gates) if entry == "lstm_stack_step" else int(blocked)
+    # floats between timesteps of the stream (wavefront only)
+    x_tstride = [0 if repeated else batch * 4 * width] if wavefront else []
+    last = int(blocked) if wavefront else int(fuse_gates)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         err = getattr(built.lib, entry)(
             *[None if t is None else t.data_ptr() for t in ops],
             hs.data_ptr(), h_f.data_ptr(), c_f.data_ptr(),
             t_len, batch, n_layers, width, rows, _COMPUTE[h0.dtype],
-            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, last, stream,
+            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, last, *x_tstride,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
@@ -220,6 +238,7 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
 
 def lstm_stack(
     xw0: torch.Tensor,    # (T, B, 4W) fp32: layer 0 mvm_x output + bias, time-major
+                          # (time stride 0 where one (B, 4W) block repeats)
     w_x: torch.Tensor,    # (L, W, 4W) packed input projections
     w_h: torch.Tensor,    # (L, W, 4W) packed recurrent weights
     b: torch.Tensor,      # (L, 4W) fp32 packed biases
@@ -267,10 +286,13 @@ def lstm_stack(
            rows_per_thread=rows)
     lstm_stack.launches += 1
     lstm_stack.blocked_launches += rows > 1
+    lstm_stack.repeated_input_launches += repeated_stream(xw0)
     return hs, h_f, c_f
 
 
 #: kernel launches since the count was last set to 0 (plain-version calls
-#: on CPU tensors do not count), and those of them that ran row-blocked
+#: on CPU tensors do not count), those of them that ran row-blocked, and
+#: those whose layer-0 stream repeated one block over time (time stride 0)
 lstm_stack.launches = 0
 lstm_stack.blocked_launches = 0
+lstm_stack.repeated_input_launches = 0

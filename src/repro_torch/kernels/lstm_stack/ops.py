@@ -6,6 +6,9 @@ Public entry points:
   stack.  It runs layer 0's ``mvm_x`` outside the kernel through the
   row-wise product kernel (compute dtype, then fp32, then per-gate scales,
   then the bias, time-major) and launches the wavefront kernel on the rest.
+  An input repeated over time (the decoder's RepeatVector, time stride 0)
+  stays a view: its one (B, W) block is projected once and the kernel reads
+  the (B, 4W) result at every step.
 * ``pack_stack(params_list, cfgs)``: one-time packing of a (possibly
   heterogeneous) stack to one common width, with a ``weight_dtype`` axis
   (fp32 | bf16 | int8); int8 packs quantize each gate of each matrix onto a
@@ -98,6 +101,12 @@ def check_packed_weight_dtype(stacked: dict, weight_dtype: str,
     _check_not_wider(weight_dtype, compute_dtype)
 
 
+def repeats_over_time(xs: torch.Tensor) -> bool:
+    """Whether a (B, T, W) input is one (B, W) block repeated over T > 1
+    steps as a view (time stride 0), as the decoder's RepeatVector is."""
+    return xs.shape[1] > 1 and xs.stride(1) == 0
+
+
 def project_layer0(xs: torch.Tensor, stacked: dict, weight_dtype: str) -> torch.Tensor:
     """Layer 0's gate stream for the wavefront kernel (paper mvm_x): the
     product at the compute dtype, widened to fp32, per-gate int8 scales,
@@ -106,18 +115,25 @@ def project_layer0(xs: torch.Tensor, stacked: dict, weight_dtype: str) -> torch.
     The product runs through ``rowwise_matmul``: each sum in the step
     kernel's order (``seq_dot``), rounded once to the compute dtype, so a
     row's stream does not depend on the batch (cuBLAS picks its reduction
-    by shape) and equals the step kernel's in-kernel product."""
+    by shape) and equals the step kernel's in-kernel product.  An input
+    repeated over time (``repeats_over_time``) is projected once, over its
+    B rows, and comes back as the same (B, 4W) block at every step (time
+    stride 0): the same operations on the same values, so the same bits."""
     from repro_torch.kernels.rowwise import rowwise_matmul
 
     batch, t_len, width = xs.shape
     w0 = stacked["w_x"][0].to(xs.dtype).to(torch.float32)
-    x_tb = xs.transpose(0, 1).reshape(t_len * batch, width)
+    if repeats_over_time(xs):
+        x_tb, steps = xs[:, 0], 1
+    else:
+        x_tb, steps = xs.transpose(0, 1).reshape(t_len * batch, width), t_len
     xw0 = rowwise_matmul(x_tb, w0).to(xs.dtype).to(torch.float32)
-    xw0 = xw0.reshape(t_len, batch, w0.shape[1])
+    xw0 = xw0.reshape(steps, batch, w0.shape[1])
     if weight_dtype == "int8":
         scales = normalize_scales(stacked["scales"], stacked["w_h"].shape[0])
         xw0 = apply_gate_scales(xw0, scales[0, 0])
-    return xw0 + stacked["b"][0]
+    xw0 = xw0 + stacked["b"][0]
+    return xw0 if steps == t_len else xw0.expand(t_len, batch, w0.shape[1])
 
 
 def lstm_stack_op(
@@ -197,7 +213,11 @@ class PackedStack:
                 torch.zeros(shape, dtype=torch.float32, device=self.device))
 
     def pad_input(self, xs: torch.Tensor) -> torch.Tensor:
-        """Pad (B, T, in_dims[0]) features up to the pack width."""
+        """Pad (B, T, in_dims[0]) features up to the pack width.  An input
+        repeated over time (``repeats_over_time``) is padded once and
+        comes back as the same repeat, a view."""
+        if repeats_over_time(xs):
+            return self.pad_input(xs[:, :1]).expand(-1, xs.shape[1], -1)
         return torch.nn.functional.pad(
             xs.to(self.dtype), (0, self.width_p - xs.shape[-1])
         )

@@ -20,9 +20,12 @@ The batch score (``AnomalyStreamEngine.score``) opens, in its order:
       score.stage_in    the batch copied to the device
       encode, decode    one segment each; ``decode`` holds the
                         RepeatVector expand and the dense head
-        stack.pad       zero or packed initial state, input padded to the pack width
+        stack.pad       zero or packed initial state, input padded to the
+                        pack width (the decoder's repeat: one (B, 1, W) slice)
         stack.gates     layer 0's gate stream: the time-major copy, the
                         row-wise projection, casts, int8 scales, the bias
+                        (the decoder's: over its B rows once, a view of
+                        time stride 0 over the window)
         stack.k1        the wavefront kernel, its operand casts and outputs
         head            the dense head: reshape, row-wise product, bias
       error             squared error and each window's row-wise sum
@@ -31,6 +34,13 @@ The batch score (``AnomalyStreamEngine.score``) opens, in its order:
 The ``stack.*`` spans are in shared code, so the other paths that run the
 wavefront kernel (``fused_step``, ``mixed``, sharded, streaming) open them
 too.  Opened while a CUDA graph is captured, a span is on the host alone.
+
+Beside the spans, the kernel wrappers count their launches on the card:
+``lstm_stack.launches`` (the wavefront kernel, 2 a batch score), of them
+``lstm_stack.blocked_launches`` (row-blocked) and
+``lstm_stack.repeated_input_launches`` (layer 0's stream of time stride 0:
+the decoder's, 1 a batch score), ``lstm_stack_step.launches`` and
+``rowwise_matmul.launches`` (4 a batch score).
 """
 
 from __future__ import annotations
