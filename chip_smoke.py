@@ -3443,7 +3443,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.gw import GW_MODELS
     from repro_torch.convert import params_from_numpy
-    from repro_torch.core.autoencoder import decoder_layers, encoder_layers
+    from repro_torch.core.autoencoder import decoder_layers, encoder_layers, init_autoencoder
     from repro_torch.core.quant import EXACT, HARD, PAPER_HW_KERNEL, make_act_quant
     from repro_torch.device import resolve_device
     from repro_torch.kernels.lstm_scan import (
@@ -3595,6 +3595,58 @@ def main() -> int:
     log(f"phase 3 K1 ok: {n} cases (fp32 and bf16 compute; B {k1_batches}, {n_blocked} of them "
         f"row-blocked, {k1_mod.BLOCKED_ROWS} rows a thread), bit-equal to the plain version "
         f"({time.perf_counter() - t0:.1f} s)")
+    # gw_small's packs over the same matrix: the encoder's and the decoder's
+    # (L=1, W=9; the decoder's stream of time stride 0) and both layers as one
+    # pack (L=2, W=9), at the row-thread threshold (one row a CTA), one above
+    # it and the benchmark's 294,912 rows (one row a thread)
+    small = GW_MODELS["gw_small"]
+    small_params = init_autoencoder(small, seed=7, device=dev)
+
+    def small_packs(wd, dtype=torch.float32):
+        c = dataclasses.replace(small, weight_dtype=wd, dtype=dtype)
+        enc_l, dec_l = encoder_layers(small_params, c), decoder_layers(small_params, c)
+        return {"enc": pack_stack(*enc_l), "dec": pack_stack(*dec_l),
+                "enc+dec": pack_stack(enc_l[0] + dec_l[0], enc_l[1] + dec_l[1])}
+
+    cut = k1_mod.row_thread_threshold(sms)
+    small_batches = (cut, cut + 1, 294_912)
+    k1_row_thread = [(k1_mod.row_thread(b, 1, 9, sms), k1_mod.row_thread(b, 2, 9, sms))
+                     for b in small_batches]
+    if k1_row_thread != [(False, False), (True, True), (True, True)]:
+        raise AssertionError(f"phase 3: one row a thread at W=9 by batch {small_batches}, "
+                             f"L=1 and 2: {k1_row_thread}")
+    t0, n_small, n_row = time.perf_counter(), 0, 0
+    lstm_stack.row_thread_launches = 0
+    for wd, compute in all_packs:
+        sp = small_packs(wd, torch.float32 if compute == "fp32" else torch.bfloat16)
+        for acts in (EXACT, HARD, PAPER_HW_KERNEL):
+            for bits in (None, 16):
+                for seg, pk in sp.items():
+                    s = pk.stacked
+                    for batch in small_batches:
+                        xs = segment_input("dec" if seg == "dec" else "enc", pk, batch, T)
+                        xw0 = project_layer0(xs, s, wd)
+                        h0, c0 = state(pk, batch)
+                        got = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
+                                         scales=s.get("scales"), acts=acts, act_bits=bits)
+                        want = lstm_stack_ref(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
+                                              **plain_kw(pk, acts, bits))
+                        torch.cuda.synchronize()
+                        k1_err = max(k1_err, compare(got, want, f"K1 gw_small {wd}/{compute} "
+                                                                f"{acts.name} {bits} {seg} "
+                                                                f"B={batch}"))
+                        n_small += 1
+                        n_row += batch > cut
+                        del xs, xw0, h0, c0, got, want
+    torch.cuda.empty_cache()
+    if (lstm_stack.row_thread_launches, lstm_stack.blocked_launches) != (n_row, n_blocked):
+        raise AssertionError(f"phase 3: {lstm_stack.row_thread_launches} row-thread and "
+                             f"{lstm_stack.blocked_launches} row-blocked K1 launches, want "
+                             f"{n_row} and {n_blocked}")
+    log(f"phase 3 K1 gw_small ok: {n_small} cases (L=1 and 2, W=9, five dtype pairs, three "
+        f"activation sets, act_bits None and 16, dense and repeated streams; B {small_batches}, "
+        f"{n_row} of them one row a thread, {k1_mod.ROW_THREAD_ROWS} rows a CTA), bit-equal to "
+        f"the plain version ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: K2 against its plain version -----------------------------
     t0, k2_err, n = time.perf_counter(), 0.0, 0
@@ -3694,24 +3746,48 @@ def main() -> int:
     big = np.resize(windows, (73_728,) + windows.shape[1:])
     big = big + np.random.RandomState(3).randn(*big.shape).astype(np.float32) * 0.01
     batch_eng = AnomalyStreamEngine(params, cfg, impl="fused_stack")
-    with block_plain():
-        lstm_stack.launches = lstm_stack.blocked_launches = 0
-        lstm_stack.repeated_input_launches = 0
-        whole = batch_eng.score(big)
-        blocked_score = {"B": len(big), "launches": lstm_stack.launches,
-                         "blocked_launches": lstm_stack.blocked_launches,
-                         "repeated_input_launches": lstm_stack.repeated_input_launches}
-        for part in (slice(0, 64), slice(len(big) - 64, len(big))):
-            np.testing.assert_array_equal(whole[part], batch_eng.score(big[part]),
-                                          err_msg=f"score at B={len(big)} vs B=64, {part}")
-    del big, whole, batch_eng
+    def k1_counts_of_score(eng, big):
+        """K1's launch counts in one batch score of ``big``, whose first
+        and last 64 windows must score as in a batch of 64."""
+        with block_plain():
+            lstm_stack.launches = lstm_stack.blocked_launches = 0
+            lstm_stack.row_thread_launches = lstm_stack.repeated_input_launches = 0
+            whole = eng.score(big)
+            counts = {"B": len(big), "launches": lstm_stack.launches,
+                      "blocked_launches": lstm_stack.blocked_launches,
+                      "row_thread_launches": lstm_stack.row_thread_launches,
+                      "repeated_input_launches": lstm_stack.repeated_input_launches}
+            for part in (slice(0, 64), slice(len(big) - 64, len(big))):
+                np.testing.assert_array_equal(whole[part], eng.score(big[part]),
+                                              err_msg=f"score at B={len(big)} vs B=64, {part}")
+        return counts
+
+    blocked_score = k1_counts_of_score(batch_eng, big)
+    del big, batch_eng
     torch.cuda.empty_cache()
     if (blocked_score["launches"], blocked_score["blocked_launches"],
-            blocked_score["repeated_input_launches"]) != (2, 2, 1):
+            blocked_score["row_thread_launches"],
+            blocked_score["repeated_input_launches"]) != (2, 2, 0, 1):
         raise AssertionError(f"phase 5: a batch score's K1 launches {blocked_score}")
     log(f"phase 5 batch score at B={blocked_score['B']} ok: K1 launches {blocked_score} "
         f"(both row-blocked, the decoder's on its repeated stream), the first and last 64 "
         f"windows bit-equal to a score of 64")
+    # gw_small at its benchmark batch: both K1 launches one row a thread (W=9)
+    small = GW_MODELS["gw_small"]
+    big = np.resize(windows, (294_912,) + windows.shape[1:])
+    big = big + np.random.RandomState(4).randn(*big.shape).astype(np.float32) * 0.01
+    small_eng = AnomalyStreamEngine(init_autoencoder(small, seed=5, device=dev), small,
+                                    impl="fused_stack")
+    row_thread_score = k1_counts_of_score(small_eng, big)
+    del big, small_eng
+    torch.cuda.empty_cache()
+    if (row_thread_score["launches"], row_thread_score["blocked_launches"],
+            row_thread_score["row_thread_launches"],
+            row_thread_score["repeated_input_launches"]) != (2, 0, 2, 1):
+        raise AssertionError(f"phase 5: a gw_small batch score's K1 launches {row_thread_score}")
+    log(f"phase 5 gw_small batch score at B={row_thread_score['B']} ok: K1 launches "
+        f"{row_thread_score} (both one row a thread), the first and last 64 windows bit-equal "
+        f"to a score of 64")
 
     # -- phase 6: K3 against its plain version -----------------------------
     # every warp-cell instantiation (H=8 and H=32 with x chains of 1, 8 and
@@ -3901,15 +3977,55 @@ def main() -> int:
             lib_dev = graph_ms(lib_call)
         b_ms, b_by = bound(name == "lstm_stack_step", L, W, t_len, B=batch)
         rows[name].append({
-            "T": t_len, "B": batch, "ms": graph_ms(kernel),
+            "L": L, "W": W, "T": t_len, "B": batch, "ms": graph_ms(kernel),
             "call_ms": median_ms(kernel, reps=50), "plain_ms": median_ms(plain, reps=3, warmup=1),
             "library_ms": lib_dev,
             "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
         })
-    # the last K1 row's operands (B=73,728: a 3.8 GB stream) go before the
-    # LM phases, whose largest model fills the card
+    # K1 at the gw_small benchmark cell's shape (T=100, B=294,912, L=1, W=9,
+    # fp32: one row a thread) against its plain version and cuDNN's LSTM on
+    # the same weights
     del xs, xw0, x_tb, h0, c0, ours, kernel, plain, lib_call
+    torch.cuda.empty_cache()
+    sm_enc = small_packs("fp32")["enc"]
+    ss = sm_enc.stacked
+    sL, sW, batch = sm_enc.n_layers, sm_enc.width_p, 294_912
+    small_lstm = torch.nn.LSTM(sW, sW, num_layers=sL).to(dev)
+    with torch.no_grad():
+        for l in range(sL):
+            getattr(small_lstm, f"weight_ih_l{l}").copy_(ss["w_x"][l].T)
+            getattr(small_lstm, f"weight_hh_l{l}").copy_(ss["w_h"][l].T)
+            getattr(small_lstm, f"bias_ih_l{l}").copy_(ss["b"][l])
+            getattr(small_lstm, f"bias_hh_l{l}").zero_()
+    xs = segment_input("enc", sm_enc, batch, T)
+    h0, c0 = state(sm_enc, batch)
+    xw0 = project_layer0(xs, ss, "fp32")
+    kernel = lambda: lstm_stack(xw0, ss["w_x"], ss["w_h"], ss["b"], h0, c0)  # noqa: E731
+    plain = lambda: lstm_stack_ref(xw0, ss["w_x"], ss["w_h"], ss["b"], h0, c0)  # noqa: E731
+    x_tb = xs.transpose(0, 1).contiguous()
+    lib_call = lambda: small_lstm(x_tb, (h0, c0))  # noqa: E731
+    lstm_stack.row_thread_launches = 0
+    with torch.no_grad():
+        ours = kernel()
+        if lstm_stack.row_thread_launches != 1:
+            raise AssertionError(f"phase 9: K1 at B={batch}, W={sW} did not run one row a thread")
+        compare(ours, plain(), f"phase 9: K1 at B={batch}, W={sW}")
+        lib_err = (lib_call()[1][1] - ours[2]).abs().max().item()
+        lib_ms = median_ms(lib_call, reps=10)
+        lib_dev = graph_ms(lib_call, n_calls=5)
+    b_ms, b_by = bound(False, sL, sW, T, B=batch)
+    small_row = {
+        "L": sL, "W": sW, "T": T, "B": batch, "ms": graph_ms(kernel, n_calls=5),
+        "call_ms": median_ms(kernel, reps=20), "plain_ms": median_ms(plain, reps=3, warmup=1),
+        "library_ms": lib_dev, "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
+        "bound_ms": b_ms, "bound_by": b_by, "path": "row_thread",
+        "rows_a_cta": k1_mod.ROW_THREAD_ROWS,
+    }
+    rows["lstm_stack_wavefront"].append(small_row)
+    # the last K1 rows' operands (B=73,728: a 3.8 GB stream; B=294,912: 4.2
+    # GB) go before the LM phases, whose largest model fills the card
+    del xs, xw0, x_tb, h0, c0, ours, kernel, plain, lib_call, small_lstm
     torch.cuda.empty_cache()
     # K3 at gw_nominal's four layer shapes on the kernel path (H=32 IN=1,
     # H=8 IN=32, H=8 IN=8, H=32 IN=8), over a T=100 window and at T=1 (a
@@ -3983,7 +4099,12 @@ def main() -> int:
             + ", ".join(f"T={r['T']} B={r['B']} {r['ms']:.4g} ms = "
                         f"{r['ms'] / (r['T'] + L - 1) * 1e3:.3g} us x {r['T'] + L - 1} steps "
                         f"(cuDNN {r['library_ms']:.4g} ms)"
-                        for r in rows[name]))
+                        for r in rows[name] if r["W"] == W))
+    r = small_row
+    log(f"phase 9 lstm_stack_wavefront (L={r['L']}, W={r['W']}, one row a thread, "
+        f"{r['rows_a_cta']} a CTA): T={r['T']} B={r['B']} {r['ms']:.4g} ms (call "
+        f"{r['call_ms']:.4g} ms, plain {r['plain_ms']:.4g} ms, cuDNN {r['library_ms']:.4g} ms, "
+        f"bound {r['bound_ms']:.4g} ms by {r['bound_by']})")
     for r in rows["lstm_scan"]:
         log(f"phase 9 lstm_scan {r['entry']} H={r['H']} IN={r['IN']} T={r['T']} B={r['B']} "
             f"({r['kernel_path']}): {r['ms']:.4g} ms = {r['ms'] * 1e3 / r['T']:.3g} us x {r['T']} "
@@ -4056,7 +4177,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/lstm_stack/csrc/lstm_stack.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
-            **({"blocked_launches_per_score": blocked_score}
+            **({"blocked_launches_per_score": blocked_score,
+                "row_thread_launches_per_score": row_thread_score}
                if name == "lstm_stack_wavefront" else {}),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -59,26 +59,33 @@ def _nvcc() -> str:
     )
 
 
-def _flags(defines: tuple) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+def _flags(defines: tuple, split: bool = False) -> tuple:
+    return (NVCC_FLAGS + (("--split-compile=0",) if split else ())
+            + tuple(f"-D{d}" for d in defines))
 
 
-def source_digest(source: Path, defines: tuple = ()) -> str:
+def source_digest(source: Path, defines: tuple = (), split: bool = False) -> str:
     """Hash of what a build depends on: the source, every shared header and
     the flags (an edit to the shared cell body must not load a stale
     library)."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(INCLUDE_DIR.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(_flags(defines)).encode())
+    h.update(" ".join(_flags(defines, split)).encode())
     return h.hexdigest()[:16]
 
 
-def build(source: Path, defines: tuple = ()) -> Built:
+def build(source: Path, defines: tuple = (), split: bool = False) -> Built:
     """Compile ``source`` (if its keyed library is missing) and load it.
     ``defines`` are macros passed as ``-D`` (the wrappers pass none;
-    ``KERNEL_PROBE`` turns on the clock stamps of ``csrc/probe.cuh``)."""
-    digest = source_digest(source, defines)
+    ``KERNEL_PROBE`` turns on the clock stamps of ``csrc/probe.cuh``).
+    ``split`` compiles the source's kernels on every CPU at once (nvcc's
+    ``--split-compile=0``), for a source of many large kernels: only K1's,
+    whose row-thread kernels unroll whole rows (24 s of nvcc against 57 s on
+    the H100's host).  The other sources build unsplit: their build takes
+    seconds, and their kernels' times and their bit-equality tests were
+    taken from unsplit builds, which the split may change."""
+    digest = source_digest(source, defines, split)
     out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     log_path = out.with_suffix(".log")
     seconds, log = 0.0, log_path.read_text() if log_path.exists() else ""
@@ -88,7 +95,7 @@ def build(source: Path, defines: tuple = ()) -> Built:
         # load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *_flags(defines), "-I", str(INCLUDE_DIR), "-o", tmp, str(source)]
+        cmd = [_nvcc(), *_flags(defines, split), "-I", str(INCLUDE_DIR), "-o", tmp, str(source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -40,9 +40,10 @@
 //     loops unroll, and each thread keeps the W_x and W_h columns of its
 //     gate column in registers as fp32 (2W values), loaded once, and loads
 //     the h rows it needs into registers before each dot product.  Every
-//     other shape (gw_small's W = 9, more layers) runs at run-time width
-//     with the packed weights in shared memory: the same operations in the
-//     same order.  h is read by broadcast from shared memory.
+//     other shape (gw_small's W = 9 at a small batch, more layers) runs at
+//     run-time width with the packed weights in shared memory: the same
+//     operations in the same order.  h is read by broadcast from shared
+//     memory.  (A third, the row-thread path, is below.)
 //   * The thread that owns a gate column applies that gate's activation
 //     right after its dot product (sigma for i, f, o; tanh for g).  On the
 //     register path a warp holds all four gates of 8 elements (lane =
@@ -96,6 +97,34 @@
 //     Refused with int8 scales.  Off by default: one 2W chain is longer
 //     than two W chains run side by side, and only separate chains keep a
 //     T=1 step bit-equal to the wavefront kernel.
+//   * The row-thread path (wavefront kernel, `lstm_stack_kernel_row_thread`,
+//     gw_small's W = 9 at a large batch).  One row a CTA at that width is 4W
+//     = 36 threads (two warps, the second with 4 live lanes), an SM holds at
+//     most 32 CTAs, and each step reads every weight through a run-time W
+//     loop, divides by run-time values and crosses two barriers: 30.0 ms a
+//     launch at 294,912 rows, 18.8x its byte bound.  Here one thread owns
+//     one batch row and runs, for each t and inside it each layer l, the
+//     layer's gate sums element by element (the four gates' chains over k
+//     side by side, each in dot_flat's order), the tail and cell_update, so
+//     a row's bits are the one-row launch's.  No thread reads another's h,
+//     so the time loop has no barrier.  W and the activation set are
+//     compile-time constants: the row's h, c, the layer below's h and the
+//     gates stay in registers (each layer's h and c between steps in shared
+//     memory, [l][k][thread], conflict-free), and every sigma and tanh is
+//     straight-line code that the scheduler interleaves across elements (a
+//     run-time set branches around each one: 3.58 against 2.77 ms).  The
+//     weights, widened to fp32 once per CTA, sit in shared memory
+//     element-major, so the four gates of (k, e) are one broadcast float4.
+//     Each warp stages its 32 rows of step t + 1 of layer 0's stream (one
+//     contiguous run) by 16-byte cp.async while step t computes, rows padded
+//     to an odd number of 16-byte groups so that each lane's float4 reads of
+//     its own row hit distinct banks (a stream of time stride 0 is staged
+//     once), and writes hs through a [32][W] tile, 32 consecutive elements a
+//     store.  What bounds it now is latency: a lone warp takes ~3.5 us a
+//     step, and an SM holds 16 warps (128 registers, 26 KB of shared memory
+//     a 64-row CTA); at 294,912 rows it takes 2.8 ms against 1.6 ms of bytes.
+//     The wrapper takes the path by shape and batch (`row_thread` in
+//     lstm_stack.py); `blockDim` is its rows a CTA.
 // wgmma and TMA are left out: the products are (rows x W) . (W x 4W) per
 // step, a few hundred multiply-adds per thread on the critical path.
 
@@ -117,7 +146,7 @@ struct Args {
   float* c_f;           // (L, B, W)
   int T, B, L, W, rows, act, act_bits;
   int fuse;             // step only: each gate's sum one 2W-long chain over [x; h]
-  int blocked;          // wavefront only: the row-blocked instantiation, kRows = rows
+  int path;             // wavefront only: kOneRow, kBlocked (kRows = rows) or kRowThread
   long long x_tstride;  // wavefront only: floats between timesteps of xw0, B * 4W or 0
 };
 
@@ -126,6 +155,11 @@ constexpr int kRegThreads = 256;   // per CTA, weights and h in registers (<= 25
 constexpr int kPrefetch = 2;       // bf16 layer-0 inputs of the next step a thread loads ahead
 
 constexpr int kRegW = 32;          // the width whose weights live in registers
+// the wavefront kernel's paths (Args::path): one row a CTA (or an explicit
+// block of rows one after another), the row-blocked instantiation, one row a
+// thread
+enum Path { kOneRow = 0, kBlocked = 1, kRowThread = 2 };
+constexpr int kRowThreadMax = 128;  // rows (threads) of one row-thread CTA, at most
 // rows every thread of the row-blocked wavefront kernel carries through a
 // step (BLOCKED_ROWS in lstm_stack.py)
 constexpr int kBlockedRows = 8;
@@ -607,13 +641,256 @@ cudaError_t launch(const Args& a, cudaStream_t stream, int* ctas_per_sm) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The row-thread path: one batch row a thread (see the note at the top).
+
+// Floats between two rows of a warp's staged stream: 4W, or 4W + 4 where W
+// is even, so that a row spans an odd number of 16-byte groups and the eight
+// lanes of a quarter warp read their own rows' groups from distinct banks.
+__host__ __device__ constexpr int row_pitch(int W) { return W % 2 ? 4 * W : 4 * W + 4; }
+
+struct RowLayout {
+  size_t w, b, scales, h, c, in, total;
+};
+
+__host__ __device__ inline RowLayout row_layout(int L, int W, int rows) {
+  RowLayout s;
+  const size_t W4 = 4 * size_t(W);
+  const size_t state = align16(size_t(L) * W * rows * sizeof(float));
+  s.w = 0;                                                   // [2][L][k][e] float4 (w_x, w_h)
+  s.b = align16(2 * size_t(L) * W * W4 * sizeof(float));     // [L][e] float4
+  s.scales = s.b + align16(size_t(L) * W4 * sizeof(float));  // [L][8]
+  s.h = s.scales + align16(size_t(L) * 8 * sizeof(float));   // [L][k][rows]
+  s.c = s.h + state;                                         // [L][k][rows]
+  s.in = s.c + state;                                        // [2][rows][row_pitch]
+  s.total = s.in + align16(2 * size_t(rows) * row_pitch(W) * sizeof(float));
+  return s;
+}
+
+// The four gates' sums of element e, v . w[:, e], k ascending: four chains
+// side by side, each in dot_flat's order (from 0, one rounded multiply and
+// one rounded add per term).  w is one layer's [k][e] float4s (gates i, f,
+// g, o), read by broadcast.
+template <int kW>
+__device__ __forceinline__ float4 gate_sums(const float (&v)[kW], const float4* w, int e) {
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    const float4 q = w[k * kW + e];
+    acc.x = add(acc.x, mul(v[k], q.x));
+    acc.y = add(acc.y, mul(v[k], q.y));
+    acc.z = add(acc.z, mul(v[k], q.z));
+    acc.w = add(acc.w, mul(v[k], q.w));
+  }
+  return acc;
+}
+
+// kAct: the activation set (Act), a compile-time constant so that each
+// sigma and tanh is straight-line code that the scheduler can interleave
+// across elements (a run-time set branches around every one of them).
+template <typename CT, typename WT, int kW, int kAct>
+__global__ void __launch_bounds__(kRowThreadMax) lstm_stack_kernel_row_thread(const Args a) {
+  constexpr int W4 = 4 * kW, kPitch = row_pitch(kW);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = a.L, T = a.T, B = a.B, R = blockDim.x, tid = threadIdx.x;
+  const RowLayout lay = row_layout(L, kW, R);
+  const float4* w_s = reinterpret_cast<const float4*>(smem + lay.w);
+  const float4* b_s = reinterpret_cast<const float4*>(smem + lay.b);
+  float* sc_s = reinterpret_cast<float*>(smem + lay.scales);
+  float* h_s = reinterpret_cast<float*>(smem + lay.h);
+  float* c_s = reinterpret_cast<float*>(smem + lay.c);
+  float* in_s = reinterpret_cast<float*>(smem + lay.in);
+
+  // the weights widened to fp32 (exact, as the plain version's
+  // .to(compute).to(float32)), element-major: (l, k, gate g, element e) of
+  // the (L, W, 4W) pack goes to float (l * W + k) * 4W + 4e + g
+  float* wf = reinterpret_cast<float*>(smem + lay.w);
+  float* bf = reinterpret_cast<float*>(smem + lay.b);
+  const int nw = L * kW * W4;
+  for (int i = tid; i < nw; i += R) {
+    const int j = i % W4, g = j / kW;
+    const int o = i - j + 4 * (j - g * kW) + g;
+    wf[o] = to_f(static_cast<const WT*>(a.w_x)[i]);
+    wf[nw + o] = to_f(static_cast<const WT*>(a.w_h)[i]);
+  }
+  for (int i = tid; i < L * W4; i += R) {
+    const int j = i % W4, g = j / kW;
+    bf[i - j + 4 * (j - g * kW) + g] = a.b[i];
+  }
+  for (int i = tid; i < L * 8; i += R) {  // unquantized packs: x * 1.0f is exact
+    sc_s[i] = a.scales != nullptr ? a.scales[i] : 1.0f;
+  }
+  // each row's h and c between steps, [l][k][thread]; rows past B hold zeros
+  const int row = blockIdx.x * R + tid;
+  const bool live = row < B;
+  const CT* h0 = static_cast<const CT*>(a.h0);
+  for (int l = 0; l < L; ++l) {
+    for (int k = 0; k < kW; ++k) {
+      const size_t g = (size_t(l) * B + row) * kW + k;
+      h_s[(l * kW + k) * R + tid] = live ? to_f(h0[g]) : 0.0f;
+      c_s[(l * kW + k) * R + tid] = live ? a.c0[g] : 0.0f;
+    }
+  }
+  __syncthreads();  // the last barrier: from here on a thread reads only its warp's rows
+
+  // layer 0's stream: a warp's 32 rows of one step are one contiguous run of
+  // 32 * 4W floats, staged by the warp into its rows of a double buffer
+  const int lane = tid & 31, wrow = tid - lane;
+  const int first = blockIdx.x * R + wrow, nrows = min(32, B - first);
+  if (nrows <= 0) return;  // the whole warp is past the batch
+  float* buf0 = in_s + size_t(wrow) * kPitch;
+  float* buf1 = buf0 + size_t(R) * kPitch;
+  const float* src0 = static_cast<const float*>(a.x) + size_t(first) * W4;
+  const long long tstride = a.x_tstride;
+  auto stage = [&](int t, float* buf) {
+    const float* src = src0 + t * tstride;
+    for (int q = lane; q < nrows * kW; q += 32) {  // 16-byte group q of the run
+      const int r = q / kW;
+      cp_async16(buf + r * kPitch + 4 * (q - r * kW), src + 4 * q);
+    }
+    cp_async_commit();
+  };
+  stage(0, buf0);  // a stream of time stride 0 is read from here at every step
+  cp_async_wait_all();
+  __syncwarp();
+
+  CT* hs = static_cast<CT*>(a.hs);
+  constexpr int act = kAct;
+  const int act_bits = a.act_bits;
+  float x[kW];  // the layer below's h at this step (rounded to CT), for layers > 0
+  for (int t = 0; t < T; ++t) {
+    // step t + 1's rows into the other buffer, whose last reads (step t - 1,
+    // and its hs tile) came before the __syncwarp that ended step t - 1
+    const bool more = tstride != 0 && t + 1 < T;
+    if (more) stage(t + 1, (t & 1) ? buf0 : buf1);
+    const float4* in = reinterpret_cast<const float4*>(((t & 1) && tstride != 0 ? buf1 : buf0) +
+                                                       lane * kPitch);
+    for (int l = 0; l < L; ++l) {
+      float* h_l = h_s + l * kW * R + tid;
+      float* c_l = c_s + l * kW * R + tid;
+      float h[kW], c[kW], hn[kW];
+#pragma unroll
+      for (int k = 0; k < kW; ++k) {
+        h[k] = h_l[k * R];
+        c[k] = c_l[k * R];
+      }
+      const float4* wx = w_s + l * kW * kW;
+      const float4* wh = w_s + (L + l) * kW * kW;
+      const float s_x[4] = {sc_s[l * 8], sc_s[l * 8 + 1], sc_s[l * 8 + 2], sc_s[l * 8 + 3]};
+      const float s_h[4] = {sc_s[l * 8 + 4], sc_s[l * 8 + 5], sc_s[l * 8 + 6], sc_s[l * 8 + 7]};
+      if (l == 0) {
+        float v[W4];  // this row's xw0 at step t, [i | f | g | o]
+#pragma unroll
+        for (int q = 0; q < kW; ++q) {
+          const float4 p = in[q];
+          v[4 * q] = p.x;
+          v[4 * q + 1] = p.y;
+          v[4 * q + 2] = p.z;
+          v[4 * q + 3] = p.w;
+        }
+#pragma unroll
+        for (int e = 0; e < kW; ++e) {
+          const float4 hh = gate_sums<kW>(h, wh, e);
+          // mvm_x applied outside, with scales and bias: xw0 + hh * s_h
+          float ce = c[e];
+          hn[e] = cell_update<CT>(sigma(add(v[e], mul(hh.x, s_h[0])), act),
+                                  sigma(add(v[kW + e], mul(hh.y, s_h[1])), act),
+                                  tanh_act(add(v[2 * kW + e], mul(hh.z, s_h[2])), act),
+                                  sigma(add(v[3 * kW + e], mul(hh.w, s_h[3])), act), &ce, act,
+                                  act_bits);
+          c[e] = ce;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kW; ++e) {
+          const float4 gx = gate_sums<kW>(x, wx, e), hh = gate_sums<kW>(h, wh, e);
+          const float4 b = b_s[l * kW + e];
+          // per-gate tail order of both reference kernels: (gx*s_x + b) + hh*s_h
+          float ce = c[e];
+          hn[e] = cell_update<CT>(sigma(add(add(mul(gx.x, s_x[0]), b.x), mul(hh.x, s_h[0])), act),
+                                  sigma(add(add(mul(gx.y, s_x[1]), b.y), mul(hh.y, s_h[1])), act),
+                                  tanh_act(add(add(mul(gx.z, s_x[2]), b.z), mul(hh.z, s_h[2])),
+                                           act),
+                                  sigma(add(add(mul(gx.w, s_x[3]), b.w), mul(hh.w, s_h[3])), act),
+                                  &ce, act, act_bits);
+          c[e] = ce;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kW; ++k) {
+        h_l[k * R] = hn[k];
+        c_l[k * R] = c[k];
+        x[k] = hn[k];
+      }
+    }
+    // the last layer's h of the warp's rows, one contiguous run of hs: each
+    // lane puts its row into a [32][W] tile (this step's stream buffer, whose
+    // reads are done, or buf1 where the stream is staged once), then the warp
+    // stores the run 32 consecutive elements at a time
+    float* tile = tstride == 0 || (t & 1) ? buf1 : buf0;
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kW; ++k) tile[lane * kW + k] = x[k];
+    __syncwarp();
+    CT* out = hs + (size_t(t) * B + first) * kW;
+    for (int f = lane; f < nrows * kW; f += 32) out[f] = from_f<CT>(tile[f]);
+    if (more) {
+      cp_async_wait_all();
+      __syncwarp();
+    }
+  }
+  if (!live) return;
+  CT* h_f = static_cast<CT*>(a.h_f);
+  for (int l = 0; l < L; ++l) {
+    for (int k = 0; k < kW; ++k) {
+      const size_t g = (size_t(l) * B + row) * kW + k;
+      h_f[g] = from_f<CT>(h_s[(l * kW + k) * R + tid]);
+      a.c_f[g] = c_s[(l * kW + k) * R + tid];
+    }
+  }
+}
+
+template <typename CT, typename WT, int kW, int kAct>
+struct RowThreadInstance {};
+
+template <typename CT, typename WT, int kW, int kAct>
+cudaError_t launch_row_thread(const Args& a, cudaStream_t stream, int* ctas_per_sm) {
+  const size_t smem = row_layout(a.L, kW, a.rows).total;
+  auto kernel = lstm_stack_kernel_row_thread<CT, WT, kW, kAct>;
+  cudaError_t err = set_smem_once<RowThreadInstance<CT, WT, kW, kAct>>(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (ctas_per_sm != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, a.rows, smem);
+  }
+  kernel<<<(a.B + a.rows - 1) / a.rows, a.rows, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename CT, typename WT, int kW>
+cudaError_t row_thread_by_act(const Args& a, cudaStream_t s, int* ctas_per_sm) {
+  switch (a.act) {
+    case kExact: return launch_row_thread<CT, WT, kW, kExact>(a, s, ctas_per_sm);
+    case kHard: return launch_row_thread<CT, WT, kW, kHard>(a, s, ctas_per_sm);
+    case kPaperHwKernel: return launch_row_thread<CT, WT, kW, kPaperHwKernel>(a, s, ctas_per_sm);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename CT, typename WT, bool kStep>
 cudaError_t by_width(const Args& a, cudaStream_t s, int* ctas_per_sm) {
   const bool regs = in_regs(a.L, a.W);
-  if (a.blocked) {
+  if (a.path == kBlocked) {
     if constexpr (!kStep) {
       if (regs && a.rows == kBlockedRows) {
         return launch<CT, WT, kStep, kRegW, kBlockedRows>(a, s, ctas_per_sm);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (a.path == kRowThread) {
+    if constexpr (!kStep) {
+      if (a.rows % 32 == 0 && a.rows <= kRowThreadMax) {
+        if (a.W == 9) return row_thread_by_act<CT, WT, 9>(a, s, ctas_per_sm);  // ROW_THREAD_WIDTHS
       }
     }
     return cudaErrorInvalidValue;
@@ -644,7 +921,7 @@ int dispatch(const Args& a, int compute_dtype, int weight_dtype, void* stream,
 Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
                const void* scales, const void* h0, const void* c0, void* hs,
                void* h_f, void* c_f, int T, int B, int L, int W, int rows,
-               int act, int act_bits, int fuse, int blocked, long long x_tstride) {
+               int act, int act_bits, int fuse, int path, long long x_tstride) {
   Args a;
   a.x = x;
   a.w_x = w_x;
@@ -664,7 +941,7 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
   a.act = act;
   a.act_bits = act_bits;
   a.fuse = fuse;
-  a.blocked = blocked;
+  a.path = path;
   a.x_tstride = x_tstride;
   return a;
 }
@@ -672,20 +949,22 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
 }  // namespace
 
 // Each entry returns cudaGetLastError() of its launch (0 on success).
-// blocked (wavefront only, 0 or 1): the row-blocked instantiation, every
-// thread carrying `rows` rows (a compiled value, register path only)
-// through each step.  x_tstride: floats between timesteps of xw0, B * 4W
-// for a dense stream or 0 for one (B, 4W) block repeated over the window;
-// the (B, 4W) rows of a timestep are contiguous and 16-byte aligned.
+// path (wavefront only): 0 one row a CTA, or `rows` rows one after another;
+// 1 the row-blocked instantiation, every thread carrying `rows` rows (a
+// compiled value, register path only) through each step; 2 the row-thread
+// instantiation, one row a thread and `rows` (a multiple of 32, at most 128)
+// rows a CTA, W = 9.  x_tstride: floats between timesteps of xw0,
+// B * 4W for a dense stream or 0 for one (B, 4W) block repeated over the
+// window; the (B, 4W) rows of a timestep are contiguous and 16-byte aligned.
 extern "C" int lstm_stack_wavefront(
     const void* xw0, const void* w_x, const void* w_h, const void* b,
     const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
     void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
-    int weight_dtype, int act, int act_bits, int blocked, long long x_tstride,
+    int weight_dtype, int act, int act_bits, int path, long long x_tstride,
     void* stream) {
   if (x_tstride != 0 && x_tstride != 4LL * B * W) return cudaErrorInvalidValue;
   const Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits, 0, blocked, x_tstride);
+                           L, W, rows, act, act_bits, 0, path, x_tstride);
   return dispatch<false>(a, compute_dtype, weight_dtype, stream);
 }
 
@@ -715,12 +994,19 @@ extern "C" long long lstm_stack_smem_bytes(int L, int W, int rows, int weight_dt
 extern "C" int lstm_stack_threads(int L, int W) { return layers_at_once(L, W) * 4 * W; }
 extern "C" int lstm_stack_weights_in_registers(int L, int W) { return in_regs(L, W); }
 
-// CTAs of the wavefront kernel's instantiation for (L, W, rows, blocked) and
-// the dtypes that one SM holds at once (-1 where it has none).
-extern "C" int lstm_stack_ctas_per_sm(int L, int W, int rows, int blocked, int compute_dtype,
+// Dynamic shared memory one row-thread CTA of `rows` rows needs (any
+// storage dtype: the weights are widened to fp32).
+extern "C" long long lstm_stack_row_thread_smem_bytes(int L, int W, int rows) {
+  return static_cast<long long>(row_layout(L, W, rows).total);
+}
+
+// CTAs of the wavefront kernel's instantiation for (L, W, rows, path) and
+// the dtypes that one SM holds at once (-1 where it has none; on the
+// row-thread path, the exact activation set's instantiation).
+extern "C" int lstm_stack_ctas_per_sm(int L, int W, int rows, int path, int compute_dtype,
                                       int weight_dtype) {
   Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, 1, rows, L, W, rows, 0, 0, 0, blocked, 0);
+                     nullptr, nullptr, 1, rows, L, W, rows, 0, 0, 0, path, 0);
   int n = -1;
   return dispatch<false>(a, compute_dtype, weight_dtype, nullptr, &n) == cudaSuccess ? n : -1;
 }

@@ -13,8 +13,9 @@ is ``ref.lstm_stack_ref``.
 ``lstm_stack`` runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.  At a
 large batch on the register path every thread carries several batch rows
-through each wavefront step (``rows_per_thread``), with each row's bits
-unchanged.  A gate stream that repeats one (B, 4W) block over the window
+through each wavefront step (``rows_per_thread``), and at a narrow run-time
+width one thread runs a whole batch row (``row_thread``), each row's bits
+unchanged either way.  A gate stream that repeats one (B, 4W) block over the window
 (time stride 0: the decoder's RepeatVector input, ``ops.project_layer0``)
 is read in place, every step from the same rows.
 """
@@ -51,6 +52,22 @@ K_REG_THREADS, K_REG_W = 256, 32
 #: each step (``kBlockedRows`` in ``csrc/lstm_stack.cu``, register path only)
 BLOCKED_ROWS = 8
 
+#: the widths with a row-thread instantiation (``by_width`` in
+#: ``csrc/lstm_stack.cu``): gw_small's.  A width is 15 instantiations (five
+#: dtype pairs, three activation sets); built for the H100, ptxas spilled
+#: those of W = 8 with the hard sigmoid, and the source took 57 s of nvcc at
+#: W = 9 alone against 171 s with W = 8 and 16 too (without --split-compile)
+ROW_THREAD_WIDTHS = (9,)
+
+#: batch rows (threads) of the wrapper's row-thread CTAs (``tools/k1_rows.py``:
+#: 32, 64 and 128 within 5% of one another at every batch, 64 never the
+#: slowest); ``launch`` takes any multiple of 32 up to ``ROW_THREAD_MAX_ROWS``
+ROW_THREAD_ROWS = 64
+ROW_THREAD_MAX_ROWS = 128  # kRowThreadMax in csrc/lstm_stack.cu
+
+#: the wavefront kernel's paths (``Path`` in ``csrc/lstm_stack.cu``)
+_ONE_ROW, _BLOCKED, _ROW_THREAD = 0, 1, 2
+
 
 def weights_in_registers(n_layers: int, width: int) -> bool:
     """Whether the kernels keep the weights in registers at this shape
@@ -73,6 +90,47 @@ def rows_per_thread(batch: int, n_layers: int, width: int, sm_count: int,
     if block_b is not None or not weights_in_registers(n_layers, width):
         return 1
     return BLOCKED_ROWS if batch > max(64, sm_count) else 1
+
+
+def row_thread_smem_bytes(n_layers: int, width: int, rows: int = ROW_THREAD_ROWS) -> int:
+    """Dynamic shared memory one row-thread CTA of ``rows`` rows takes at
+    any storage dtype (the weights are widened to fp32): the Python twin of
+    ``row_layout`` in ``csrc/lstm_stack.cu``, which a ``gpu`` test holds
+    equal to the library's ``lstm_stack_row_thread_smem_bytes``."""
+    def align16(n: int) -> int:
+        return (n + 15) & ~15
+
+    w4 = 4 * width
+    pitch = w4 if width % 2 else w4 + 4
+    state = align16(n_layers * width * rows * 4)
+    return (align16(2 * n_layers * width * w4 * 4) + align16(n_layers * w4 * 4)
+            + align16(n_layers * 8 * 4) + 2 * state + align16(2 * rows * pitch * 4))
+
+
+def row_thread_threshold(sm_count: int) -> int:
+    """The largest batch that keeps one row a CTA on a card of ``sm_count``
+    SMs: 24 rows an SM, never fewer than 64.
+
+    From a sweep on the H100 (``tools/k1_rows.py --pack gw_small``; L=1,
+    W=9, T=100): a row-thread launch takes at least ~0.35 ms, one warp's
+    100 dependent steps, while one row a CTA grows by ~0.22 ms a wave of
+    2,112 rows, 16 CTAs an SM (B=2,048: 0.260 ms against 0.368; 3,072: 0.366 against
+    0.367; 3,584: 0.420 against 0.368; 32,768: 3.40 against 0.44;
+    294,912: 30.17 against 2.78)."""
+    return max(64, 24 * sm_count)
+
+
+def row_thread(batch: int, n_layers: int, width: int, sm_count: int,
+               block_b: int | None = None) -> bool:
+    """Whether the wavefront kernel runs one batch row a thread (the
+    row-thread path) rather than one row a CTA: at a width with a row-thread
+    instantiation (``ROW_THREAD_WIDTHS``; the register path's W = 32 is
+    none), whose weights, state and staged stream fit a CTA's shared memory,
+    without an explicit ``block_b`` (which keeps its meaning), above
+    ``row_thread_threshold`` rows."""
+    return (block_b is None and width in ROW_THREAD_WIDTHS
+            and row_thread_smem_bytes(n_layers, width) <= MAX_SMEM_BYTES
+            and batch > row_thread_threshold(sm_count))
 
 
 def smem_bytes(n_layers: int, width: int, rows: int, w_bytes: int, step: bool) -> int:
@@ -102,7 +160,7 @@ def library():
     """Build (at first use) and load the kernel library; returns ``Built``."""
     from repro_torch.kernels._build import build
 
-    built = build(SOURCE)
+    built = build(SOURCE, split=True)  # the row-thread kernels unroll whole rows
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, ints in (("lstm_stack_wavefront", [i32] * 10 + [i64]),
                        ("lstm_stack_step", [i32] * 10)):
@@ -111,6 +169,8 @@ def library():
         fn.restype = i32
     built.lib.lstm_stack_smem_bytes.argtypes = [i32] * 5
     built.lib.lstm_stack_smem_bytes.restype = ctypes.c_longlong
+    built.lib.lstm_stack_row_thread_smem_bytes.argtypes = [i32] * 3
+    built.lib.lstm_stack_row_thread_smem_bytes.restype = ctypes.c_longlong
     for name in ("lstm_stack_threads", "lstm_stack_weights_in_registers"):
         getattr(built.lib, name).argtypes = [i32] * 2
         getattr(built.lib, name).restype = i32
@@ -179,29 +239,44 @@ def repeated_stream(x: torch.Tensor) -> bool:
 def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            t_len: int, acts: ActivationSet, act_bits: int | None,
            block_b: int | None, fuse_gates: bool = False,
-           rows_per_thread: int = 1) -> None:
+           rows_per_thread: int = 1, row_thread_rows: int | None = None) -> None:
     """Launch one of the two kernels on the current stream; raise if the
     launch is refused (``cudaGetLastError`` of the launch is non-zero).
     ``rows_per_thread`` > 1 (wavefront only, ``BLOCKED_ROWS``, no
-    ``block_b``) launches the row-blocked instantiation."""
+    ``block_b``) launches the row-blocked instantiation; ``row_thread_rows``
+    (wavefront only, a width in ``ROW_THREAD_WIDTHS``, no ``block_b``) the
+    row-thread one in CTAs of that many rows (a multiple of 32, at most
+    ``ROW_THREAD_MAX_ROWS``; the wrapper's ``ROW_THREAD_ROWS``)."""
     n_layers, width, batch = w_h.shape[0], w_h.shape[1], h0.shape[1]
     if 4 * width > 1024:
         raise ValueError(f"width {width} needs {4 * width} threads per block (> 1024)")
     rows = 1 if block_b is None else int(block_b)
     if rows < 1:
         raise ValueError(f"block_b must be >= 1, got {block_b}")
-    blocked = rows_per_thread > 1
-    if blocked:
+    path = _ONE_ROW
+    if rows_per_thread > 1:
         if (entry != "lstm_stack_wavefront" or block_b is not None
+                or row_thread_rows is not None
                 or rows_per_thread != BLOCKED_ROWS
                 or not weights_in_registers(n_layers, width)):
             raise ValueError(
                 f"{entry}: no row-blocked kernel for rows_per_thread={rows_per_thread} "
                 f"(block_b={block_b}, L={n_layers}, W={width})")
-        rows = rows_per_thread
+        path, rows = _BLOCKED, rows_per_thread
+    elif row_thread_rows is not None:
+        if (entry != "lstm_stack_wavefront" or block_b is not None
+                or width not in ROW_THREAD_WIDTHS or row_thread_rows % 32
+                or not 0 < row_thread_rows <= ROW_THREAD_MAX_ROWS):
+            raise ValueError(
+                f"{entry}: no row-thread kernel for block_b={block_b}, L={n_layers}, "
+                f"W={width}, {row_thread_rows} rows a CTA (widths {ROW_THREAD_WIDTHS}, "
+                f"32-{ROW_THREAD_MAX_ROWS} rows in steps of 32, wavefront only)")
+        path, rows = _ROW_THREAD, row_thread_rows
     built = library()
-    smem = built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype],
-                                           int(entry == "lstm_stack_step"))
+    smem = (built.lib.lstm_stack_row_thread_smem_bytes(n_layers, width, rows)
+            if path == _ROW_THREAD
+            else built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype],
+                                                 int(entry == "lstm_stack_step")))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{entry}: L={n_layers}, W={width} at {w_h.dtype} storage needs "
@@ -222,7 +297,7 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            else t.clone(memory_format=torch.contiguous_format) for t in ops]
     # floats between timesteps of the stream (wavefront only)
     x_tstride = [0 if repeated else batch * 4 * width] if wavefront else []
-    last = int(blocked) if wavefront else int(fuse_gates)
+    last = path if wavefront else int(fuse_gates)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         err = getattr(built.lib, entry)(
@@ -280,19 +355,24 @@ def lstm_stack(
     hs = torch.empty(t_len, batch, width, dtype=h0.dtype, device=h0.device)
     h_f = torch.empty_like(h0)
     c_f = torch.empty_like(c0)
-    rows = rows_per_thread(batch, w_h.shape[0], width, sm_count(h0.device.index), block_b)
+    sms = sm_count(h0.device.index)
+    rows = rows_per_thread(batch, w_h.shape[0], width, sms, block_b)
+    by_thread = row_thread(batch, w_h.shape[0], width, sms, block_b)
     launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, hs, h_f,
            c_f, t_len=t_len, acts=acts, act_bits=act_bits, block_b=block_b,
-           rows_per_thread=rows)
+           rows_per_thread=rows, row_thread_rows=ROW_THREAD_ROWS if by_thread else None)
     lstm_stack.launches += 1
     lstm_stack.blocked_launches += rows > 1
+    lstm_stack.row_thread_launches += by_thread
     lstm_stack.repeated_input_launches += repeated_stream(xw0)
     return hs, h_f, c_f
 
 
 #: kernel launches since the count was last set to 0 (plain-version calls
-#: on CPU tensors do not count), those of them that ran row-blocked, and
-#: those whose layer-0 stream repeated one block over time (time stride 0)
+#: on CPU tensors do not count), those of them that ran row-blocked, those
+#: that ran one row a thread, and those whose layer-0 stream repeated one
+#: block over time (time stride 0)
 lstm_stack.launches = 0
 lstm_stack.blocked_launches = 0
+lstm_stack.row_thread_launches = 0
 lstm_stack.repeated_input_launches = 0

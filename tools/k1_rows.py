@@ -1,8 +1,10 @@
-"""K1's wavefront kernel by rows a CTA, on the card: the R sweep.
+"""K1's wavefront kernel by rows a CTA and rows a thread, on the card.
 
-Times ``lstm_stack``'s wavefront launch on ``gw_nominal``'s encoder pack
-(L=2, W=32, fp32, T=100, random weights and state from a seed) at several
-batch sizes, in three modes:
+Times ``lstm_stack``'s wavefront launch (fp32, T=100, random weights and
+state from a seed) at several batch sizes on one of two packs.
+
+``--pack gw_nominal``: its encoder pack (L=2, W=32, the register path), in
+three modes:
 
 * ``one``: one row a CTA (the launch below the row-blocking threshold);
 * ``blocked 8``: the row-blocked instantiation, every thread carrying
@@ -11,14 +13,28 @@ batch sizes, in three modes:
   one after another inside each step (the control: a mere change of the
   default).
 
+``--pack gw_small``: its pack (L=1, W=9, the run-time-width path), in two:
+
+* ``one``: one row a CTA of 4W threads (the launch below the row-thread
+  threshold);
+* ``row_thread R``: the row-thread instantiation, one row a thread and R
+  rows (32, 64, 128) a CTA (``ROW_THREAD_ROWS`` is the one the wrapper
+  launches).
+
 Each mode's output is held bit for bit against ``one``'s at every batch.
 Prints one JSON line: the card and its power limit, each K1 instantiation's
 registers and spills from the build's ptxas log, the CTAs an SM holds of
 each mode (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), what
-``rows_per_thread`` picks at each batch, and per (batch, mode) the median
-CUDA-event ms of one launch over rounds that take the modes in turn:
+``rows_per_thread`` and ``row_thread`` pick at each batch, and per (batch,
+mode) the median CUDA-event ms of one launch over rounds that take the
+modes in turn:
 
-    PYTHONPATH=src:. python3 tools/k1_rows.py --batches 64,256,512,4096,73728
+    PYTHONPATH=src:. python3 tools/k1_rows.py
+    PYTHONPATH=src:. python3 tools/k1_rows.py --pack gw_small
+
+(``--batches`` 64,256,512,4096,73728 and 64,512,4096,32768,294912 by
+default; ``row_thread_threshold`` cites a run at more batches around the
+crossover.)
 """
 
 from __future__ import annotations
@@ -37,35 +53,46 @@ from repro_torch.kernels.lstm_stack import lstm_stack  # noqa: F401  (binds the 
 
 k1 = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
 
-T, L, W = 100, 2, 32
+T = 100
+#: (L, W) of each pack, and the batches it is timed at by default
+PACKS = {"gw_nominal": (2, 32), "gw_small": (1, 9)}
+BATCHES = {"gw_nominal": "64,256,512,4096,73728", "gw_small": "64,512,4096,32768,294912"}
 SEQ_ROWS = (2, 4, 8)
+ROW_THREAD_CTAS = (32, 64, 128)
 
 
-def modes() -> list:
+def modes(pack: str) -> list:
+    if pack == "gw_small":
+        return [("one", 1)] + [("row_thread", r) for r in ROW_THREAD_CTAS]
     return [("one", 1), ("blocked", k1.BLOCKED_ROWS)] + [("seq", r) for r in SEQ_ROWS]
 
 
-def operands(batch: int, seed: int, dev) -> dict:
+def path_code(kind: str) -> int:
+    return {"one": 0, "seq": 0, "blocked": 1, "row_thread": 2}[kind]
+
+
+def operands(batch: int, seed: int, dev, n_layers: int, width: int) -> dict:
     g = torch.Generator().manual_seed(seed)
+    w4 = 4 * width
     return {
-        "xw0": torch.randn(T, batch, 4 * W, generator=g).to(dev),
-        "w_x": (torch.randn(L, W, 4 * W, generator=g) * W**-0.5).to(dev),
-        "w_h": (torch.randn(L, W, 4 * W, generator=g) * W**-0.5).to(dev),
-        "b": (torch.randn(L, 4 * W, generator=g) * 0.1).to(dev),
-        "h0": (torch.randn(L, batch, W, generator=g) * 0.3).to(dev),
-        "c0": (torch.randn(L, batch, W, generator=g) * 0.3).to(dev),
+        "xw0": torch.randn(T, batch, w4, generator=g).to(dev),
+        "w_x": (torch.randn(n_layers, width, w4, generator=g) * width**-0.5).to(dev),
+        "w_h": (torch.randn(n_layers, width, w4, generator=g) * width**-0.5).to(dev),
+        "b": (torch.randn(n_layers, w4, generator=g) * 0.1).to(dev),
+        "h0": (torch.randn(n_layers, batch, width, generator=g) * 0.3).to(dev),
+        "c0": (torch.randn(n_layers, batch, width, generator=g) * 0.3).to(dev),
     }
 
 
 def run(mode, o) -> tuple:
     kind, r = mode
-    batch = o["h0"].shape[1]
-    out = (torch.empty(T, batch, W, device=o["h0"].device), torch.empty_like(o["h0"]),
-           torch.empty_like(o["c0"]))
+    out = (torch.empty(T, *o["h0"].shape[1:], device=o["h0"].device),
+           torch.empty_like(o["h0"]), torch.empty_like(o["c0"]))
     k1.launch("lstm_stack_wavefront", o["xw0"], o["w_x"], o["w_h"], o["b"], o["h0"], o["c0"],
               None, *out, t_len=T, acts=EXACT, act_bits=None,
               block_b=r if kind == "seq" else None,
-              rows_per_thread=r if kind == "blocked" else 1)
+              rows_per_thread=r if kind == "blocked" else 1,
+              row_thread_rows=r if kind == "row_thread" else None)
     return out
 
 
@@ -81,36 +108,39 @@ def event_ms(fn, reps: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batches", default="64,256,512,4096,73728")
+    ap.add_argument("--pack", choices=sorted(PACKS), default="gw_nominal")
+    ap.add_argument("--batches", help="comma-separated; default: the pack's BATCHES")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_rows: needs a CUDA device")
+    L, W = PACKS[args.pack]
     dev = torch.device("cuda")
     built = k1.library()
     ptxas = [k for k in ptxas_report(built.log) if "lstm_stack_kernel" in k["kernel"]]
     lib = built.lib
-    occupancy = {f"{kind} {r}": lib.lstm_stack_ctas_per_sm(L, W, r, int(kind == "blocked"), 0, 0)
-                 for kind, r in modes()}
+    occupancy = {f"{kind} {r}": lib.lstm_stack_ctas_per_sm(L, W, r, path_code(kind), 0, 0)
+                 for kind, r in modes(args.pack)}
     sms = k1.sm_count(0)
     rows = []
-    for batch in (int(b) for b in args.batches.split(",")):
-        o = operands(batch, args.seed + batch, dev)
+    for batch in (int(b) for b in (args.batches or BATCHES[args.pack]).split(",")):
+        o = operands(batch, args.seed + batch, dev, L, W)
         want = run(("one", 1), o)
         equal = {}
-        for mode in modes():
+        for mode in modes(args.pack):
             got = run(mode, o)
             equal[f"{mode[0]} {mode[1]}"] = all(torch.equal(a, b) for a, b in zip(got, want))
         # about 200 ms of launches a measurement
         reps = max(1, min(50, int(200 / max(event_ms(lambda: run(("one", 1), o), 1), 1e-3))))
-        times = {f"{kind} {r}": [] for kind, r in modes()}
+        times = {f"{kind} {r}": [] for kind, r in modes(args.pack)}
         for i in range(args.rounds):
-            order = modes() if i % 2 == 0 else modes()[::-1]
+            order = modes(args.pack) if i % 2 == 0 else modes(args.pack)[::-1]
             for mode in order:
                 times[f"{mode[0]} {mode[1]}"].append(event_ms(lambda: run(mode, o), reps))
         rows.append({"B": batch, "reps": reps,
                      "rows_per_thread": k1.rows_per_thread(batch, L, W, sms),
+                     "row_thread": k1.row_thread(batch, L, W, sms),
                      "bit_equal_to_one": equal,
                      "ms": {k: statistics.median(v) for k, v in times.items()},
                      "ms_min_max": {k: [min(v), max(v)] for k, v in times.items()}})
@@ -119,7 +149,8 @@ def main() -> int:
         print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
+    print(json.dumps({"pack": args.pack, "L": L, "W": W,
+                      "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "sms": sms,
                       "build_s": built.seconds, "ptxas": ptxas, "ctas_per_sm": occupancy,
                       "batches": rows}), flush=True)
