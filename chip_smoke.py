@@ -2005,33 +2005,6 @@ def ssd_bound(batch: int, t_len: int, heads: int, groups: int, p: int, n: int, c
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ptxas_report(log: str) -> list:
-    """Registers, stack frame and spills of each kernel in an ``nvcc -Xptxas
-    -v`` log: [{"kernel", "registers", "stack_frame", "spill_stores",
-    "spill_loads"}] (bytes), names
-    demangled where ``c++filt`` is installed."""
-    out, cur = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            cur = {"kernel": line.split("'")[1], "registers": None, "stack_frame": None,
-                   "spill_stores": None, "spill_loads": None}
-            out.append(cur)
-        elif cur is not None and "bytes spill stores" in line:
-            words = line.replace(",", "").split()
-            cur["stack_frame"] = int(words[0])
-            cur["spill_stores"] = int(words[words.index("spill") - 2])
-            cur["spill_loads"] = int(words[-4])
-        elif cur is not None and "Used " in line:
-            cur["registers"] = int(line.split("Used ")[1].split()[0])
-    if out and shutil.which("c++filt"):
-        names = subprocess.run(["c++filt"], input="\n".join(k["kernel"] for k in out),
-                               capture_output=True, text=True, timeout=60).stdout.splitlines()
-        if len(names) == len(out):
-            for k, name in zip(out, names):
-                k["kernel"] = name.replace("(anonymous namespace)::", "")
-    return out
-
-
 def k5_phase(dev) -> float:
     """K5 against its plain version: the head geometries of K5_GEOMETRIES, S in
     {1, 511, 576, 2048}, B in {1, 8} with ragged lengths down to 1, and the
@@ -3452,6 +3425,7 @@ def main() -> int:
         lstm_scan_layer_ref,
         lstm_scan_ref,
     )
+    from repro_torch.kernels._build import ptxas_report
     from repro_torch.kernels.lstm_stack.lstm_stack import library, lstm_stack
     from repro_torch.kernels.lstm_stack.ops import pack_stack, project_layer0
     from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
@@ -3569,11 +3543,11 @@ def main() -> int:
     # partial last CTA
     sms = k1_mod.sm_count(dev.index or 0)
     k1_batches = (1, 64, sms + 1, 2 * sms * k1_mod.BLOCKED_ROWS + 3)
-    k1_blocked = {b: k1_mod.rows_per_thread(b, 2, 32, sms) > 1 for b in k1_batches}
+    k1_blocked = {b: k1_mod.kernel_path(b, 2, 32, sms).kind == "blocked" for b in k1_batches}
     if list(k1_blocked.values()) != [False, False, True, True]:
         raise AssertionError(f"phase 3: row blocking by batch {k1_blocked}")
     t0, k1_err, n = time.perf_counter(), 0.0, 0
-    lstm_stack.blocked_launches = 0
+    lstm_stack.launches_by_path.clear()
     for key, acts, bits in matrix:
         for seg, pk in all_packs[key].items():
             s = pk.stacked
@@ -3589,9 +3563,9 @@ def main() -> int:
                                                         f"B={batch}"))
                 n += 1
     n_blocked = n // len(k1_batches) * sum(k1_blocked.values())
-    if lstm_stack.blocked_launches != n_blocked:
-        raise AssertionError(f"phase 3: {lstm_stack.blocked_launches} row-blocked K1 launches, "
-                             f"want {n_blocked}")
+    if lstm_stack.launches_by_path["blocked"] != n_blocked:
+        raise AssertionError(f"phase 3: K1 launches by path {dict(lstm_stack.launches_by_path)}, "
+                             f"want {n_blocked} blocked")
     log(f"phase 3 K1 ok: {n} cases (fp32 and bf16 compute; B {k1_batches}, {n_blocked} of them "
         f"row-blocked, {k1_mod.BLOCKED_ROWS} rows a thread), bit-equal to the plain version "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -3610,13 +3584,12 @@ def main() -> int:
 
     cut = k1_mod.row_thread_threshold(sms)
     small_batches = (cut, cut + 1, 294_912)
-    k1_row_thread = [(k1_mod.row_thread(b, 1, 9, sms), k1_mod.row_thread(b, 2, 9, sms))
-                     for b in small_batches]
+    k1_row_thread = [tuple(k1_mod.kernel_path(b, n_layers, 9, sms).kind == "row_thread"
+                           for n_layers in (1, 2)) for b in small_batches]
     if k1_row_thread != [(False, False), (True, True), (True, True)]:
         raise AssertionError(f"phase 3: one row a thread at W=9 by batch {small_batches}, "
                              f"L=1 and 2: {k1_row_thread}")
     t0, n_small, n_row = time.perf_counter(), 0, 0
-    lstm_stack.row_thread_launches = 0
     for wd, compute in all_packs:
         sp = small_packs(wd, torch.float32 if compute == "fp32" else torch.bfloat16)
         for acts in (EXACT, HARD, PAPER_HW_KERNEL):
@@ -3639,10 +3612,10 @@ def main() -> int:
                         n_row += batch > cut
                         del xs, xw0, h0, c0, got, want
     torch.cuda.empty_cache()
-    if (lstm_stack.row_thread_launches, lstm_stack.blocked_launches) != (n_row, n_blocked):
-        raise AssertionError(f"phase 3: {lstm_stack.row_thread_launches} row-thread and "
-                             f"{lstm_stack.blocked_launches} row-blocked K1 launches, want "
-                             f"{n_row} and {n_blocked}")
+    by_path = lstm_stack.launches_by_path
+    if (by_path["row_thread"], by_path["blocked"]) != (n_row, n_blocked):
+        raise AssertionError(f"phase 3: K1 launches by path {dict(by_path)}, want {n_row} "
+                             f"row_thread and {n_blocked} blocked")
     log(f"phase 3 K1 gw_small ok: {n_small} cases (L=1 and 2, W=9, five dtype pairs, three "
         f"activation sets, act_bits None and 16, dense and repeated streams; B {small_batches}, "
         f"{n_row} of them one row a thread, {k1_mod.ROW_THREAD_ROWS} rows a CTA), bit-equal to "
@@ -3750,12 +3723,11 @@ def main() -> int:
         """K1's launch counts in one batch score of ``big``, whose first
         and last 64 windows must score as in a batch of 64."""
         with block_plain():
-            lstm_stack.launches = lstm_stack.blocked_launches = 0
-            lstm_stack.row_thread_launches = lstm_stack.repeated_input_launches = 0
+            lstm_stack.launches = lstm_stack.repeated_input_launches = 0
+            lstm_stack.launches_by_path.clear()
             whole = eng.score(big)
             counts = {"B": len(big), "launches": lstm_stack.launches,
-                      "blocked_launches": lstm_stack.blocked_launches,
-                      "row_thread_launches": lstm_stack.row_thread_launches,
+                      "launches_by_path": dict(lstm_stack.launches_by_path),
                       "repeated_input_launches": lstm_stack.repeated_input_launches}
             for part in (slice(0, 64), slice(len(big) - 64, len(big))):
                 np.testing.assert_array_equal(whole[part], eng.score(big[part]),
@@ -3765,9 +3737,8 @@ def main() -> int:
     blocked_score = k1_counts_of_score(batch_eng, big)
     del big, batch_eng
     torch.cuda.empty_cache()
-    if (blocked_score["launches"], blocked_score["blocked_launches"],
-            blocked_score["row_thread_launches"],
-            blocked_score["repeated_input_launches"]) != (2, 2, 0, 1):
+    if (blocked_score["launches"], blocked_score["launches_by_path"],
+            blocked_score["repeated_input_launches"]) != (2, {"blocked": 2}, 1):
         raise AssertionError(f"phase 5: a batch score's K1 launches {blocked_score}")
     log(f"phase 5 batch score at B={blocked_score['B']} ok: K1 launches {blocked_score} "
         f"(both row-blocked, the decoder's on its repeated stream), the first and last 64 "
@@ -3781,9 +3752,8 @@ def main() -> int:
     row_thread_score = k1_counts_of_score(small_eng, big)
     del big, small_eng
     torch.cuda.empty_cache()
-    if (row_thread_score["launches"], row_thread_score["blocked_launches"],
-            row_thread_score["row_thread_launches"],
-            row_thread_score["repeated_input_launches"]) != (2, 0, 2, 1):
+    if (row_thread_score["launches"], row_thread_score["launches_by_path"],
+            row_thread_score["repeated_input_launches"]) != (2, {"row_thread": 2}, 1):
         raise AssertionError(f"phase 5: a gw_small batch score's K1 launches {row_thread_score}")
     log(f"phase 5 gw_small batch score at B={row_thread_score['B']} ok: K1 launches "
         f"{row_thread_score} (both one row a thread), the first and last 64 windows bit-equal "
@@ -4005,10 +3975,10 @@ def main() -> int:
     plain = lambda: lstm_stack_ref(xw0, ss["w_x"], ss["w_h"], ss["b"], h0, c0)  # noqa: E731
     x_tb = xs.transpose(0, 1).contiguous()
     lib_call = lambda: small_lstm(x_tb, (h0, c0))  # noqa: E731
-    lstm_stack.row_thread_launches = 0
+    lstm_stack.launches_by_path.clear()
     with torch.no_grad():
         ours = kernel()
-        if lstm_stack.row_thread_launches != 1:
+        if lstm_stack.launches_by_path != {"row_thread": 1}:
             raise AssertionError(f"phase 9: K1 at B={batch}, W={sW} did not run one row a thread")
         compare(ours, plain(), f"phase 9: K1 at B={batch}, W={sW}")
         lib_err = (lib_call()[1][1] - ours[2]).abs().max().item()
@@ -4177,8 +4147,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/lstm_stack/csrc/lstm_stack.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
-            **({"blocked_launches_per_score": blocked_score,
-                "row_thread_launches_per_score": row_thread_score}
+            **({"launches_per_score": {"gw_nominal": blocked_score,
+                                       "gw_small": row_thread_score}}
                if name == "lstm_stack_wavefront" else {}),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -108,3 +108,30 @@ def build(source: Path, defines: tuple = (), split: bool = False) -> Built:
         log_path.write_text(log)
         os.replace(tmp, out)
     return Built(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, stack frame and spills of each kernel in an ``nvcc -Xptxas
+    -v`` log (a ``Built.log``): [{"kernel", "registers", "stack_frame",
+    "spill_stores", "spill_loads"}] (bytes), names demangled where
+    ``c++filt`` is installed."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"kernel": line.split("'")[1], "registers": None, "stack_frame": None,
+                   "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+        elif cur is not None and "bytes spill stores" in line:
+            words = line.replace(",", "").split()
+            cur["stack_frame"] = int(words[0])
+            cur["spill_stores"] = int(words[words.index("spill") - 2])
+            cur["spill_loads"] = int(words[-4])
+        elif cur is not None and "Used " in line:
+            cur["registers"] = int(line.split("Used ")[1].split()[0])
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(k["kernel"] for k in out),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for k, name in zip(out, names):
+                k["kernel"] = name.replace("(anonymous namespace)::", "")
+    return out

@@ -11,20 +11,23 @@ in ``csrc/lstm_stack.cu``; the plain PyTorch version of the same function
 is ``ref.lstm_stack_ref``.
 
 ``lstm_stack`` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.  At a
-large batch on the register path every thread carries several batch rows
-through each wavefront step (``rows_per_thread``), and at a narrow run-time
-width one thread runs a whole batch row (``row_thread``), each row's bits
-unchanged either way.  A gate stream that repeats one (B, 4W) block over the window
+kernel for CUDA tensors; it never falls back from one to the other.
+``kernel_path`` chooses the launch's path by shape and batch: one row a CTA,
+several batch rows carried through every thread of a wavefront step on the
+register path (``"blocked"``), or one batch row a thread at a narrow width
+(``"row_thread"``), each row's bits unchanged whichever it takes.  A gate
+stream that repeats one (B, 4W) block over the window
 (time stride 0: the decoder's RepeatVector input, ``ops.project_layer0``)
 is read in place, every step from the same rows.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -65,31 +68,11 @@ ROW_THREAD_WIDTHS = (9,)
 ROW_THREAD_ROWS = 64
 ROW_THREAD_MAX_ROWS = 128  # kRowThreadMax in csrc/lstm_stack.cu
 
-#: the wavefront kernel's paths (``Path`` in ``csrc/lstm_stack.cu``)
-_ONE_ROW, _BLOCKED, _ROW_THREAD = 0, 1, 2
-
 
 def weights_in_registers(n_layers: int, width: int) -> bool:
     """Whether the kernels keep the weights in registers at this shape
     (``in_regs`` in ``csrc/lstm_stack.cu``)."""
     return width == K_REG_W and n_layers * 4 * width <= K_REG_THREADS
-
-
-def rows_per_thread(batch: int, n_layers: int, width: int, sm_count: int,
-                    block_b: int | None = None) -> int:
-    """Rows every thread of the wavefront kernel carries through each step:
-    1 (one row a CTA, or an explicit ``block_b``'s rows one after another)
-    or ``BLOCKED_ROWS``, on the register path above one wave of one-row CTAs.
-
-    From a sweep on the H100 (``tools/k1_rows.py``; L=2, W=32, T=100): a
-    one-row CTA takes 137 registers a thread, so an SM holds one, and up
-    to one wave (B <= the SMs) each runs at the lone CTA's latency, which
-    the row block does not beat (B=64: 0.082 ms, against 0.258).  Past it,
-    8 rows a thread (two CTAs an SM) run faster (B=512: 0.299 ms against
-    0.319; B=4,096: 0.775 against 2.517; B=73,728: 13.07 against 43.95)."""
-    if block_b is not None or not weights_in_registers(n_layers, width):
-        return 1
-    return BLOCKED_ROWS if batch > max(64, sm_count) else 1
 
 
 def row_thread_smem_bytes(n_layers: int, width: int, rows: int = ROW_THREAD_ROWS) -> int:
@@ -108,29 +91,54 @@ def row_thread_smem_bytes(n_layers: int, width: int, rows: int = ROW_THREAD_ROWS
 
 
 def row_thread_threshold(sm_count: int) -> int:
-    """The largest batch that keeps one row a CTA on a card of ``sm_count``
-    SMs: 24 rows an SM, never fewer than 64.
-
-    From a sweep on the H100 (``tools/k1_rows.py --pack gw_small``; L=1,
-    W=9, T=100): a row-thread launch takes at least ~0.35 ms, one warp's
-    100 dependent steps, while one row a CTA grows by ~0.22 ms a wave of
-    2,112 rows, 16 CTAs an SM (B=2,048: 0.260 ms against 0.368; 3,072: 0.366 against
-    0.367; 3,584: 0.420 against 0.368; 32,768: 3.40 against 0.44;
-    294,912: 30.17 against 2.78)."""
+    """The largest batch that keeps one row a CTA at a row-thread width on a
+    card of ``sm_count`` SMs: 24 rows an SM, never fewer than 64
+    (``kernel_path`` gives the sweep)."""
     return max(64, 24 * sm_count)
 
 
-def row_thread(batch: int, n_layers: int, width: int, sm_count: int,
-               block_b: int | None = None) -> bool:
-    """Whether the wavefront kernel runs one batch row a thread (the
-    row-thread path) rather than one row a CTA: at a width with a row-thread
-    instantiation (``ROW_THREAD_WIDTHS``; the register path's W = 32 is
-    none), whose weights, state and staged stream fit a CTA's shared memory,
-    without an explicit ``block_b`` (which keeps its meaning), above
-    ``row_thread_threshold`` rows."""
-    return (block_b is None and width in ROW_THREAD_WIDTHS
+class KernelPath(NamedTuple):
+    """A launch's path, which ``kernel_path`` chooses: ``"one_row"`` (one row
+    a CTA, or ``rows`` rows one after another: an explicit ``block_b``; the
+    step kernel's only path), ``"blocked"`` (``BLOCKED_ROWS`` rows through
+    every thread) or ``"row_thread"`` (one row a thread, ``rows`` a CTA)."""
+
+    kind: str
+    rows: int
+
+
+def kernel_path(batch: int, n_layers: int, width: int, sm_count: int,
+                block_b: int | None = None) -> KernelPath:
+    """The path a wavefront launch of ``batch`` rows at (L, W) takes on a
+    card of ``sm_count`` SMs.  An explicit ``block_b`` keeps one row a CTA
+    with its rows one after another.  Otherwise a width in
+    ``ROW_THREAD_WIDTHS`` whose row-thread layout fits shared memory runs
+    one row a thread above ``row_thread_threshold``; the register path runs
+    row-blocked above one wave of one-row CTAs (``max(64, sm_count)``); all
+    else runs one row a CTA.
+
+    From sweeps on the H100 (``tools/k1_rows.py``, T=100):
+
+    * L=2, W=32: a one-row CTA takes 137 registers a thread, so an SM holds
+      one, and up to one wave (B <= the SMs) each runs at the lone CTA's
+      latency, which the row block does not beat (B=64: 0.082 ms, against
+      0.258).  Past it, 8 rows a thread (two CTAs an SM) run faster (B=512:
+      0.299 ms against 0.319; B=4,096: 0.775 against 2.517; B=73,728: 13.07
+      against 43.95).
+    * L=1, W=9 (``--pack gw_small``): a row-thread launch takes at least
+      ~0.35 ms, one warp's 100 dependent steps, while one row a CTA grows by
+      ~0.22 ms a wave of 2,112 rows, 16 CTAs an SM (B=2,048: 0.260 ms against
+      0.368; 3,072: 0.366 against 0.367; 3,584: 0.420 against 0.368; 32,768:
+      3.40 against 0.44; 294,912: 30.17 against 2.78)."""
+    if block_b is not None:
+        return KernelPath("one_row", int(block_b))
+    if (width in ROW_THREAD_WIDTHS
             and row_thread_smem_bytes(n_layers, width) <= MAX_SMEM_BYTES
-            and batch > row_thread_threshold(sm_count))
+            and batch > row_thread_threshold(sm_count)):
+        return KernelPath("row_thread", ROW_THREAD_ROWS)
+    if weights_in_registers(n_layers, width) and batch > max(64, sm_count):
+        return KernelPath("blocked", BLOCKED_ROWS)
+    return KernelPath("one_row", 1)
 
 
 def smem_bytes(n_layers: int, width: int, rows: int, w_bytes: int, step: bool) -> int:
@@ -236,47 +244,37 @@ def repeated_stream(x: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
+#: each path's code in ``csrc/lstm_stack.cu`` (``enum Path``)
+PATH_CODES = {"one_row": 0, "blocked": 1, "row_thread": 2}
+
+
 def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            t_len: int, acts: ActivationSet, act_bits: int | None,
-           block_b: int | None, fuse_gates: bool = False,
-           rows_per_thread: int = 1, row_thread_rows: int | None = None) -> None:
-    """Launch one of the two kernels on the current stream; raise if the
-    launch is refused (``cudaGetLastError`` of the launch is non-zero).
-    ``rows_per_thread`` > 1 (wavefront only, ``BLOCKED_ROWS``, no
-    ``block_b``) launches the row-blocked instantiation; ``row_thread_rows``
-    (wavefront only, a width in ``ROW_THREAD_WIDTHS``, no ``block_b``) the
-    row-thread one in CTAs of that many rows (a multiple of 32, at most
-    ``ROW_THREAD_MAX_ROWS``; the wrapper's ``ROW_THREAD_ROWS``)."""
+           path: KernelPath, fuse_gates: bool = False) -> None:
+    """Launch one of the two kernels on ``path`` (a ``KernelPath``; the step
+    kernel's is one row a CTA) on the current stream.  A path with no
+    instantiation for ``entry`` at (L, W) is refused before the library
+    loads; raise also if the launch is refused (``cudaGetLastError`` of the
+    launch is non-zero)."""
     n_layers, width, batch = w_h.shape[0], w_h.shape[1], h0.shape[1]
     if 4 * width > 1024:
         raise ValueError(f"width {width} needs {4 * width} threads per block (> 1024)")
-    rows = 1 if block_b is None else int(block_b)
-    if rows < 1:
-        raise ValueError(f"block_b must be >= 1, got {block_b}")
-    path = _ONE_ROW
-    if rows_per_thread > 1:
-        if (entry != "lstm_stack_wavefront" or block_b is not None
-                or row_thread_rows is not None
-                or rows_per_thread != BLOCKED_ROWS
-                or not weights_in_registers(n_layers, width)):
-            raise ValueError(
-                f"{entry}: no row-blocked kernel for rows_per_thread={rows_per_thread} "
-                f"(block_b={block_b}, L={n_layers}, W={width})")
-        path, rows = _BLOCKED, rows_per_thread
-    elif row_thread_rows is not None:
-        if (entry != "lstm_stack_wavefront" or block_b is not None
-                or width not in ROW_THREAD_WIDTHS or row_thread_rows % 32
-                or not 0 < row_thread_rows <= ROW_THREAD_MAX_ROWS):
-            raise ValueError(
-                f"{entry}: no row-thread kernel for block_b={block_b}, L={n_layers}, "
-                f"W={width}, {row_thread_rows} rows a CTA (widths {ROW_THREAD_WIDTHS}, "
-                f"32-{ROW_THREAD_MAX_ROWS} rows in steps of 32, wavefront only)")
-        path, rows = _ROW_THREAD, row_thread_rows
+    kind, rows = path
+    wavefront = entry == "lstm_stack_wavefront"
+    if not {"one_row": rows >= 1,
+            "blocked": wavefront and rows == BLOCKED_ROWS
+            and weights_in_registers(n_layers, width),
+            "row_thread": wavefront and width in ROW_THREAD_WIDTHS and rows % 32 == 0
+            and 0 < rows <= ROW_THREAD_MAX_ROWS}.get(kind, False):
+        raise ValueError(
+            f"{entry}: no kernel for path {kind!r} with {rows} rows at L={n_layers}, W={width} "
+            f"(blocked and row_thread: wavefront only, {BLOCKED_ROWS} rows on the register "
+            f"path, and 32-{ROW_THREAD_MAX_ROWS} rows in steps of 32 at W in {ROW_THREAD_WIDTHS})")
     built = library()
     smem = (built.lib.lstm_stack_row_thread_smem_bytes(n_layers, width, rows)
-            if path == _ROW_THREAD
+            if kind == "row_thread"
             else built.lib.lstm_stack_smem_bytes(n_layers, width, rows, _WEIGHT[w_h.dtype],
-                                                 int(entry == "lstm_stack_step")))
+                                                 int(not wavefront)))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{entry}: L={n_layers}, W={width} at {w_h.dtype} storage needs "
@@ -290,14 +288,13 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
     # the kernel reads whole 4-byte words, so every operand is contiguous
     # and 16-byte aligned (a fresh allocation is; an offset view is copied),
     # but for the wavefront kernel's stream repeated over time, read in place
-    wavefront = entry == "lstm_stack_wavefront"
     repeated = wavefront and repeated_stream(x)
     ops = [t if t is None or (t is x and repeated)
            or (t.is_contiguous() and t.data_ptr() % 16 == 0)
            else t.clone(memory_format=torch.contiguous_format) for t in ops]
     # floats between timesteps of the stream (wavefront only)
     x_tstride = [0 if repeated else batch * 4 * width] if wavefront else []
-    last = path if wavefront else int(fuse_gates)
+    last = PATH_CODES[kind] if wavefront else int(fuse_gates)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         err = getattr(built.lib, entry)(
@@ -330,8 +327,7 @@ def lstm_stack(
     Returns (hs of the last layer (T, B, W), h_final (L, B, W), c_final
     fp32 (L, B, W)), freshly allocated; the initial state is not written.
     ``block_b`` is the number of batch rows one CTA runs one after another;
-    without it the kernel runs one row a CTA, or ``rows_per_thread`` rows
-    through every thread at once, by the batch.
+    without it ``kernel_path`` chooses the path by the shape and the batch.
     Weight storage may be narrower than the compute dtype; int8 codes need
     ``scales``, applied per gate to the fp32 accumulators.
     """
@@ -355,24 +351,20 @@ def lstm_stack(
     hs = torch.empty(t_len, batch, width, dtype=h0.dtype, device=h0.device)
     h_f = torch.empty_like(h0)
     c_f = torch.empty_like(c0)
-    sms = sm_count(h0.device.index)
-    rows = rows_per_thread(batch, w_h.shape[0], width, sms, block_b)
-    by_thread = row_thread(batch, w_h.shape[0], width, sms, block_b)
+    path = kernel_path(batch, w_h.shape[0], width, sm_count(h0.device.index), block_b)
     launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, hs, h_f,
-           c_f, t_len=t_len, acts=acts, act_bits=act_bits, block_b=block_b,
-           rows_per_thread=rows, row_thread_rows=ROW_THREAD_ROWS if by_thread else None)
+           c_f, t_len=t_len, acts=acts, act_bits=act_bits, path=path)
     lstm_stack.launches += 1
-    lstm_stack.blocked_launches += rows > 1
-    lstm_stack.row_thread_launches += by_thread
+    lstm_stack.launches_by_path[path.kind] += 1
     lstm_stack.repeated_input_launches += repeated_stream(xw0)
     return hs, h_f, c_f
 
 
 #: kernel launches since the count was last set to 0 (plain-version calls
-#: on CPU tensors do not count), those of them that ran row-blocked, those
-#: that ran one row a thread, and those whose layer-0 stream repeated one
+#: on CPU tensors do not count), and those whose layer-0 stream repeated one
 #: block over time (time stride 0)
 lstm_stack.launches = 0
-lstm_stack.blocked_launches = 0
-lstm_stack.row_thread_launches = 0
 lstm_stack.repeated_input_launches = 0
+#: the same launches by the kind of their ``KernelPath``; cleared with
+#: ``lstm_stack.launches_by_path.clear()``
+lstm_stack.launches_by_path = collections.Counter()

@@ -42,7 +42,7 @@ from repro_torch.core.quant import (
 )
 from repro_torch.kernels import refuse_grad
 
-from .lstm_stack import check_operands, kernel_act_id, launch
+from .lstm_stack import KernelPath, check_operands, kernel_act_id, launch
 from .ops import check_packed_weight_dtype
 from .ref import apply_gate_scales, cell_tail, normalize_scales, seq_dot
 
@@ -161,7 +161,8 @@ def lstm_stack_step(
     h_f = torch.empty_like(h0)
     c_f = torch.empty_like(c0)
     launch("lstm_stack_step", xs, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f,
-           t_len=t_len, acts=acts, act_bits=act_bits, block_b=block_b,
+           t_len=t_len, acts=acts, act_bits=act_bits,
+           path=KernelPath("one_row", 1 if block_b is None else int(block_b)),
            fuse_gates=fuse_gates)
     lstm_stack_step.launches += 1
     return hs, h_f, c_f

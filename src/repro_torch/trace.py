@@ -36,11 +36,11 @@ wavefront kernel (``fused_step``, ``mixed``, sharded, streaming) open them
 too.  Opened while a CUDA graph is captured, a span is on the host alone.
 
 Beside the spans, the kernel wrappers count their launches on the card:
-``lstm_stack.launches`` (the wavefront kernel, 2 a batch score), of them
-``lstm_stack.blocked_launches`` (row-blocked: gw_nominal's 2 at a large
-batch), ``lstm_stack.row_thread_launches`` (one row a thread: gw_small's 2
-at a large batch) and ``lstm_stack.repeated_input_launches`` (layer 0's
-stream of time stride 0: the decoder's, 1 a batch score),
+``lstm_stack.launches`` (the wavefront kernel, 2 a batch score), the same
+by path in ``lstm_stack.launches_by_path`` (keyed by ``kernel_path``'s
+kind: at a large batch gw_nominal's 2 are ``"blocked"``, gw_small's 2
+``"row_thread"``), of them ``lstm_stack.repeated_input_launches`` (layer
+0's stream of time stride 0: the decoder's, 1 a batch score),
 ``lstm_stack_step.launches`` and
 ``rowwise_matmul.launches`` (4 a batch score).
 """

@@ -229,15 +229,14 @@ def _k1_module():
     return sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
 
 
-def _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, rows_per_thread):
-    """One wavefront launch through the wrapper's ``launch``, with the rows
-    every thread carries forced (1: one row a CTA)."""
+def _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, path):
+    """One wavefront launch through the wrapper's ``launch`` on the path
+    forced (a ``KernelPath``)."""
     t_len, batch, width = xw0.shape[0], h0.shape[1], h0.shape[2]
     out = (torch.empty(t_len, batch, width, dtype=h0.dtype, device=h0.device),
            torch.empty_like(h0), torch.empty_like(c0))
     _k1_module().launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, *out,
-                        t_len=t_len, acts=acts, act_bits=act_bits, block_b=None,
-                        rows_per_thread=rows_per_thread)
+                        t_len=t_len, acts=acts, act_bits=act_bits, path=path)
     return out
 
 
@@ -251,7 +250,7 @@ def test_blocked_wavefront_is_bitwise(cuda, n_layers, wd, compute, acts, act_bit
     k1 = _k1_module()
     sms = k1.sm_count(cuda.index or 0)
     rows = k1.BLOCKED_ROWS
-    assert k1.rows_per_thread(sms + 1, n_layers, 32, sms) == rows
+    assert k1.kernel_path(sms + 1, n_layers, 32, sms) == ("blocked", rows)
     for batch in (rows + 1, sms + 1, 2 * sms * rows + 3):
         seed = 100 * rows + batch + n_layers
         w_x, w_h, b, h0, c0, scales = (
@@ -259,8 +258,10 @@ def test_blocked_wavefront_is_bitwise(cuda, n_layers, wd, compute, acts, act_bit
             for t in _random_stack(n_layers, 32, batch, wd, compute, seed))
         g = torch.Generator().manual_seed(seed)
         xw0 = torch.randn(100, batch, 128, generator=g).to(cuda)
-        blocked = _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, rows)
-        one = _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits, 1)
+        blocked = _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits,
+                             k1.KernelPath("blocked", rows))
+        one = _wavefront(xw0, w_x, w_h, b, h0, c0, scales, acts, act_bits,
+                         k1.KernelPath("one_row", 1))
         plain = lstm_stack_ref(xw0, w_x, w_h, b, h0, c0, scales=scales, sigma=acts.sigma,
                                tanh=acts.tanh,
                                act_quant=make_act_quant(act_bits) if act_bits else None)
@@ -277,20 +278,21 @@ def test_blocked_rows_are_independent_of_batch_grouping(cuda):
     enc, _ = _packs(cuda, "fp32")
     s = enc.stacked
     batch = 2 * k1.sm_count(cuda.index or 0) * k1.BLOCKED_ROWS + 3
-    assert k1.rows_per_thread(batch, enc.n_layers, enc.width_p, k1.sm_count(cuda.index or 0)) > 1
+    assert k1.kernel_path(batch, enc.n_layers, enc.width_p,
+                          k1.sm_count(cuda.index or 0)).kind == "blocked"
     g = torch.Generator().manual_seed(5)
     xw0 = torch.randn(100, batch, 4 * enc.width_p, generator=g).to(cuda)
     h0, c0 = _state(enc, batch, cuda, 2)
-    before = lstm_stack.blocked_launches
+    before = lstm_stack.launches_by_path["blocked"]
     whole = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0)
-    assert lstm_stack.blocked_launches == before + 1
+    assert lstm_stack.launches_by_path["blocked"] == before + 1
     for i in (0, 1, batch // 2, batch - 1):
         row = lstm_stack(xw0[:, i : i + 1].contiguous(), s["w_x"], s["w_h"], s["b"],
                          h0[:, i : i + 1].contiguous(), c0[:, i : i + 1].contiguous())
         assert torch.equal(row[0], whole[0][:, i : i + 1]), i
         assert torch.equal(row[1], whole[1][:, i : i + 1]), i
         assert torch.equal(row[2], whole[2][:, i : i + 1]), i
-    assert lstm_stack.blocked_launches == before + 1
+    assert lstm_stack.launches_by_path["blocked"] == before + 1
 
 
 def test_batch_score_blocks_rows_and_keeps_their_bits(cuda):
@@ -304,11 +306,12 @@ def test_batch_score_blocks_rows_and_keeps_their_bits(cuda):
     eng = AnomalyStreamEngine(init_autoencoder(cfg, seed=4, device=cuda), cfg)
     batch = 2 * k1.sm_count(cuda.index or 0) * k1.BLOCKED_ROWS + 3
     x = np.random.RandomState(1).randn(batch, cfg.timesteps, 1).astype(np.float32)
-    lstm_stack.launches = lstm_stack.blocked_launches = 0
+    lstm_stack.launches = 0
+    lstm_stack.launches_by_path.clear()
     whole = eng.score(x)
-    assert (lstm_stack.launches, lstm_stack.blocked_launches) == (2, 2)
+    assert (lstm_stack.launches, lstm_stack.launches_by_path) == (2, {"blocked": 2})
     parts = np.concatenate([eng.score(x[i : i + 64]) for i in range(0, batch, 64)])
-    assert lstm_stack.blocked_launches == 2
+    assert lstm_stack.launches_by_path["blocked"] == 2
     np.testing.assert_array_equal(whole, parts)
 
 

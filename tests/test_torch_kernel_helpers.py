@@ -1,8 +1,9 @@
 """Host-side helpers of the port's K3 and K4 kernels, on the CPU.
 
-* ``chip_smoke.ptxas_report`` reads registers, stack and spills from an
-  ``nvcc -Xptxas -v`` log: ``chip_smoke.py`` fails when K3's warp-cell
-  kernels spill, so the parser is held to a log of the form ptxas prints.
+* ``_build.ptxas_report`` reads registers, stack and spills from an
+  ``nvcc -Xptxas -v`` log (a build's ``Built.log``): ``chip_smoke.py``
+  fails when K3's warp-cell kernels spill, so the parser is held to a log
+  of the form ptxas prints.
 * ``chip_smoke.ssd_bound`` counts K4's products at the peak of the unit the
   model dtype can use (bf16 on the tensor cores, fp32 on the CUDA cores),
   so the bf16 bound is the byte bound at mamba2-130m's prefill shape.
@@ -20,6 +21,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels._build import ptxas_report
 from repro_torch.kernels.lstm_scan import lstm_scan_layer, lstm_scan_layer_ref
 from repro_torch.kernels.lstm_scan.lstm_scan import lstm_scan
 
@@ -44,11 +46,11 @@ ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]
 
 
 def test_ptxas_report_reads_each_kernel():
-    report = chip_smoke.ptxas_report(LOG)
+    report = ptxas_report(LOG)
     assert [(k["registers"], k["stack_frame"], k["spill_stores"], k["spill_loads"])
             for k in report] == [(80, 0, 0, 0), (128, 16, 12, 28)]
     assert "k_one" in report[0]["kernel"] and "k_two" in report[1]["kernel"]
-    assert chip_smoke.ptxas_report("") == []
+    assert ptxas_report("") == []
 
 
 @pytest.mark.parametrize("itemsize,by", [(2, "bytes"), (4, "operations")])

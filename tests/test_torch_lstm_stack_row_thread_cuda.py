@@ -17,9 +17,7 @@ spills.  Marked ``gpu``: each test skips with a reason where
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lstm_stack_row_thread_cuda.py
 """
 
-import importlib.util
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,12 +26,15 @@ import torch
 from repro_torch.configs.gw import GW_MODELS
 from repro_torch.core.autoencoder import init_autoencoder
 from repro_torch.core.quant import EXACT, HARD, PAPER_HW_KERNEL, make_act_quant
+from repro_torch.kernels._build import ptxas_report
 from repro_torch.kernels.lstm_stack import lstm_stack
 from repro_torch.kernels.lstm_stack.ref import lstm_stack_ref
 
 pytestmark = pytest.mark.gpu
 
 k1 = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
+ROW_THREAD = k1.KernelPath("row_thread", k1.ROW_THREAD_ROWS)
+ONE_ROW = k1.KernelPath("one_row", 1)
 T_LEN = 100
 SHAPES = [(1, 9), (2, 9)]
 # (storage, compute, activation set, act_bits): the five dtype pairs
@@ -69,15 +70,14 @@ def _stack(n_layers, width, batch, wd, compute, seed, device):
     return [None if t is None else t.to(device) for t in (xw0, w_x, w_h, b, h0, c0, scales)]
 
 
-def _launch(ops, acts, act_bits, row_thread):
+def _launch(ops, acts, act_bits, path):
     """One wavefront launch through the wrapper's ``launch``, on the path
-    forced: one row a thread, or one row a CTA."""
+    forced: ``ROW_THREAD`` or ``ONE_ROW``."""
     xw0, w_x, w_h, b, h0, c0, scales = ops
     out = (torch.empty(xw0.shape[0], h0.shape[1], h0.shape[2], dtype=h0.dtype,
                        device=h0.device), torch.empty_like(h0), torch.empty_like(c0))
     k1.launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, *out,
-              t_len=xw0.shape[0], acts=acts, act_bits=act_bits, block_b=None,
-              row_thread_rows=k1.ROW_THREAD_ROWS if row_thread else None)
+              t_len=xw0.shape[0], acts=acts, act_bits=act_bits, path=path)
     return out
 
 
@@ -110,14 +110,14 @@ def test_row_thread_is_bitwise(cuda, n_layers, width, wd, compute, acts, act_bit
     cut = k1.row_thread_threshold(sms)
     for batch in (37, cut, cut + 1):
         ops = _stack(n_layers, width, batch, wd, compute, 1000 * width + batch + n_layers, cuda)
-        by_thread = _launch(ops, acts, act_bits, True)
-        one = _launch(ops, acts, act_bits, False)
+        by_thread = _launch(ops, acts, act_bits, ROW_THREAD)
+        one = _launch(ops, acts, act_bits, ONE_ROW)
         _assert_equal(by_thread, one, _plain(ops, acts, act_bits), what=(batch, wd))
         if batch >= cut:
-            before = (lstm_stack.launches, lstm_stack.row_thread_launches)
+            before = (lstm_stack.launches, lstm_stack.launches_by_path["row_thread"])
             wrapped = _wrapper(ops, acts, act_bits)
             counts = (lstm_stack.launches - before[0],
-                      lstm_stack.row_thread_launches - before[1])
+                      lstm_stack.launches_by_path["row_thread"] - before[1])
             assert counts == (1, int(batch > cut)), batch
             _assert_equal(wrapped, by_thread, what=(batch, wd))
 
@@ -131,8 +131,8 @@ def test_cta_size_leaves_the_bits(cuda, cta_rows):
     out = (torch.empty(T_LEN, batch, 9, device=cuda), torch.empty_like(h0),
            torch.empty_like(c0))
     k1.launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, *out, t_len=T_LEN,
-              acts=HARD, act_bits=16, block_b=None, row_thread_rows=cta_rows)
-    _assert_equal(out, _launch(ops, HARD, 16, True), what=cta_rows)
+              acts=HARD, act_bits=16, path=k1.KernelPath("row_thread", cta_rows))
+    _assert_equal(out, _launch(ops, HARD, 16, ROW_THREAD), what=cta_rows)
 
 
 @pytest.mark.parametrize("wd,compute,acts,act_bits", STORAGE)
@@ -143,9 +143,10 @@ def test_other_narrow_widths_keep_one_row_a_cta(cuda, n_layers, width, wd, compu
     one row a CTA, with the plain version's bits."""
     batch = k1.row_thread_threshold(k1.sm_count(cuda.index or 0)) + 1
     ops = _stack(n_layers, width, batch, wd, compute, 10 * width + n_layers, cuda)
-    before = (lstm_stack.launches, lstm_stack.row_thread_launches)
+    before = (lstm_stack.launches, lstm_stack.launches_by_path["row_thread"])
     got = _wrapper(ops, acts, act_bits)
-    assert (lstm_stack.launches - before[0], lstm_stack.row_thread_launches - before[1]) == (1, 0)
+    assert (lstm_stack.launches - before[0],
+            lstm_stack.launches_by_path["row_thread"] - before[1]) == (1, 0)
     _assert_equal(got, _plain(ops, acts, act_bits), what=(width, wd))
 
 
@@ -158,12 +159,12 @@ def test_row_thread_on_a_repeated_stream(cuda, n_layers, width, wd, compute, act
     ops = _stack(n_layers, width, batch, wd, compute, 7 * width + n_layers, cuda)
     rep = ops[0][:1].expand(T_LEN, batch, 4 * width)
     assert k1.repeated_stream(rep)
-    before = (lstm_stack.row_thread_launches, lstm_stack.repeated_input_launches)
+    before = (lstm_stack.launches_by_path["row_thread"], lstm_stack.repeated_input_launches)
     got = _wrapper([rep] + ops[1:], acts, act_bits)
-    assert (lstm_stack.row_thread_launches - before[0],
+    assert (lstm_stack.launches_by_path["row_thread"] - before[0],
             lstm_stack.repeated_input_launches - before[1]) == (1, 1)
     dense = [rep.contiguous()] + ops[1:]
-    _assert_equal(got, _launch(dense, acts, act_bits, False), _plain(dense, acts, act_bits),
+    _assert_equal(got, _launch(dense, acts, act_bits, ONE_ROW), _plain(dense, acts, act_bits),
                   what=wd)
 
 
@@ -178,9 +179,8 @@ def test_rows_are_independent_of_grouping(cuda):
         alone = [xw0[:, i : i + 1].contiguous(), w_x, w_h, b, h0[:, i : i + 1].contiguous(),
                  c0[:, i : i + 1].contiguous(), scales]
         part = [whole[0][:, i : i + 1], whole[1][:, i : i + 1], whole[2][:, i : i + 1]]
-        for row_thread in (True, False):
-            _assert_equal(_launch(alone, PAPER_HW_KERNEL, 16, row_thread), part,
-                          what=(i, row_thread))
+        for path in (ROW_THREAD, ONE_ROW):
+            _assert_equal(_launch(alone, PAPER_HW_KERNEL, 16, path), part, what=(i, path))
 
 
 @pytest.mark.parametrize("weight_dtype", ["fp32", "int8"])
@@ -198,13 +198,14 @@ def test_gw_small_batch_score_takes_it_with_the_same_bits(cuda, weight_dtype, mo
     batch = k1.row_thread_threshold(k1.sm_count(cuda.index or 0)) + 101
     x = np.random.RandomState(2).randn(batch, cfg.timesteps, 1).astype(np.float32)
     eng.score(x[:64])
-    before = (lstm_stack.launches, lstm_stack.row_thread_launches)
+    before = (lstm_stack.launches, lstm_stack.launches_by_path["row_thread"])
     got = eng.score(x)
-    assert (lstm_stack.launches - before[0], lstm_stack.row_thread_launches - before[1]) == (2, 2)
-    monkeypatch.setattr(k1, "row_thread", lambda *args, **kwargs: False)
-    before = lstm_stack.row_thread_launches
+    assert (lstm_stack.launches - before[0],
+            lstm_stack.launches_by_path["row_thread"] - before[1]) == (2, 2)
+    monkeypatch.setattr(k1, "kernel_path", lambda *args, **kwargs: ONE_ROW)
+    before = lstm_stack.launches_by_path["row_thread"]
     want = eng.score(x)
-    assert lstm_stack.row_thread_launches == before
+    assert lstm_stack.launches_by_path["row_thread"] == before
     np.testing.assert_array_equal(got, want)
 
 
@@ -214,31 +215,28 @@ def test_library_layout_and_occupancy(cuda):
     of ``ROW_THREAD_WIDTHS`` that an SM holds; other widths, a CTA that is
     not whole warps or more than 128 rows have none."""
     lib = k1.library().lib
+    code = k1.PATH_CODES["row_thread"]
     for n_layers in (1, 2, 3, 9):
         for width in (8, 9, 16, 32):
             for rows in (32, 64, 128, 256):
                 assert (lib.lstm_stack_row_thread_smem_bytes(n_layers, width, rows)
                         == k1.row_thread_smem_bytes(n_layers, width, rows))
-    for compute, code in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2)):
+    for compute, wd in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2)):
         for width in k1.ROW_THREAD_WIDTHS:
             for n_layers in (1, 2):
-                assert lib.lstm_stack_ctas_per_sm(n_layers, width, k1.ROW_THREAD_ROWS, 2,
-                                                  compute, code) >= 1
-            assert lib.lstm_stack_ctas_per_sm(1, width, 48, 2, compute, code) == -1
-            assert lib.lstm_stack_ctas_per_sm(1, width, 256, 2, compute, code) == -1
+                assert lib.lstm_stack_ctas_per_sm(n_layers, width, k1.ROW_THREAD_ROWS, code,
+                                                  compute, wd) >= 1
+            assert lib.lstm_stack_ctas_per_sm(1, width, 48, code, compute, wd) == -1
+            assert lib.lstm_stack_ctas_per_sm(1, width, 256, code, compute, wd) == -1
         for width in (8, 10, 16, 32):
-            assert lib.lstm_stack_ctas_per_sm(1, width, k1.ROW_THREAD_ROWS, 2,
-                                              compute, code) == -1
+            assert lib.lstm_stack_ctas_per_sm(1, width, k1.ROW_THREAD_ROWS, code,
+                                              compute, wd) == -1
 
 
 def test_row_thread_kernels_do_not_spill(cuda):
     """ptxas's report: every row-thread instantiation keeps its row's
     state and sums in registers (no stack frame, no spills)."""
-    root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    report = [k for k in chip_smoke.ptxas_report(k1.library().log)
+    report = [k for k in ptxas_report(k1.library().log)
               if "lstm_stack_kernel_row_thread" in k["kernel"]]
     # five dtype pairs, three activation sets
     assert len(report) == 5 * 3 * len(k1.ROW_THREAD_WIDTHS)

@@ -66,13 +66,14 @@ def test_smem_twin_equals_the_library(cuda):
     # every storage and compute dtype on the register path, and holds the
     # two CTAs an SM its launch bounds ask for; other shapes and other row
     # counts have none
-    rows = k1.BLOCKED_ROWS
+    rows, blocked = k1.BLOCKED_ROWS, k1.PATH_CODES["blocked"]
     for compute, code in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2)):
         for n_layers in (1, 2):
-            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows, 1, compute, code) >= 2
-            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows // 2, 1, compute, code) == -1
-        assert lib.lstm_stack_ctas_per_sm(2, 9, rows, 1, compute, code) == -1
-        assert lib.lstm_stack_ctas_per_sm(3, 32, rows, 1, compute, code) == -1
+            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows, blocked, compute, code) >= 2
+            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows // 2, blocked, compute,
+                                              code) == -1
+        assert lib.lstm_stack_ctas_per_sm(2, 9, rows, blocked, compute, code) == -1
+        assert lib.lstm_stack_ctas_per_sm(3, 32, rows, blocked, compute, code) == -1
 
 
 @pytest.mark.parametrize("split", [1, 2])

@@ -116,13 +116,13 @@ def test_the_plain_wavefront_reads_a_repeated_stream(pack):
     xw0 = project_layer0(pk.pad_input(_repeat(4, pk.in_dims[0])), s, pk.weight_dtype)
     assert xw0.stride(0) == 0
     h0, c0 = pk.zero_state(4)
-    counts = (lstm_stack.launches, lstm_stack.blocked_launches,
+    counts = (lstm_stack.launches, dict(lstm_stack.launches_by_path),
               lstm_stack.repeated_input_launches)
     scales = s.get("scales")
     got = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0, scales=scales)
     want = lstm_stack_ref(xw0.contiguous(), s["w_x"], s["w_h"], s["b"], h0, c0,
                           scales=scales)
-    assert counts == (lstm_stack.launches, lstm_stack.blocked_launches,
+    assert counts == (lstm_stack.launches, dict(lstm_stack.launches_by_path),
                       lstm_stack.repeated_input_launches)
     for a, b in zip(got, want):
         assert torch.equal(a, b)

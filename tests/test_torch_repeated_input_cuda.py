@@ -71,7 +71,7 @@ def _run(xw0, ops_, acts, act_bits):
 
 
 def _counts():
-    return (lstm_stack.launches, lstm_stack.blocked_launches,
+    return (lstm_stack.launches, lstm_stack.launches_by_path["blocked"],
             lstm_stack.repeated_input_launches)
 
 
@@ -91,7 +91,7 @@ def test_k1_on_a_repeated_stream_is_bitwise(cuda, path, width, wd, compute, acts
     batch = _batch(cuda, path)
     blocked = path == "blocked"
     sms = k1.sm_count(cuda.index or 0)
-    assert (k1.rows_per_thread(batch, 2, width, sms) > 1) == blocked
+    assert (k1.kernel_path(batch, 2, width, sms).kind == "blocked") == blocked
     assert k1.weights_in_registers(2, width) == (path != "run_time")
     seed = 10 * batch + width
     stack = _stack(2, width, batch, wd, compute, seed, cuda)

@@ -3,31 +3,30 @@
 Times ``lstm_stack``'s wavefront launch (fp32, T=100, random weights and
 state from a seed) at several batch sizes on one of two packs.
 
-``--pack gw_nominal``: its encoder pack (L=2, W=32, the register path), in
-three modes:
+Each mode is a ``KernelPath`` (kind and rows) passed to ``launch``.
+``--pack gw_nominal``: its encoder pack (L=2, W=32, the register path):
 
-* ``one``: one row a CTA (the launch below the row-blocking threshold);
+* ``one_row 1``: one row a CTA (the launch below the row-blocking threshold);
 * ``blocked 8``: the row-blocked instantiation, every thread carrying
   ``BLOCKED_ROWS`` = 8 rows through each step;
-* ``seq R``: an explicit ``block_b`` = R (2, 4, 8), the R rows of a CTA
+* ``one_row R``: an explicit ``block_b`` = R (2, 4, 8), the R rows of a CTA
   one after another inside each step (the control: a mere change of the
   default).
 
-``--pack gw_small``: its pack (L=1, W=9, the run-time-width path), in two:
+``--pack gw_small``: its pack (L=1, W=9, the run-time-width path):
 
-* ``one``: one row a CTA of 4W threads (the launch below the row-thread
-  threshold);
+* ``one_row 1``: one row a CTA of 4W threads (the launch below the
+  row-thread threshold);
 * ``row_thread R``: the row-thread instantiation, one row a thread and R
   rows (32, 64, 128) a CTA (``ROW_THREAD_ROWS`` is the one the wrapper
   launches).
 
-Each mode's output is held bit for bit against ``one``'s at every batch.
-Prints one JSON line: the card and its power limit, each K1 instantiation's
-registers and spills from the build's ptxas log, the CTAs an SM holds of
-each mode (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), what
-``rows_per_thread`` and ``row_thread`` pick at each batch, and per (batch,
-mode) the median CUDA-event ms of one launch over rounds that take the
-modes in turn:
+Each mode's output is held bit for bit against ``one_row 1``'s at every
+batch.  Prints one JSON line: the card and its power limit, each K1
+instantiation's registers and spills from the build's ptxas log, the CTAs
+an SM holds of each mode (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+the path ``kernel_path`` picks at each batch, and per (batch, mode) the
+median CUDA-event ms of one launch over rounds that take the modes in turn:
 
     PYTHONPATH=src:. python3 tools/k1_rows.py
     PYTHONPATH=src:. python3 tools/k1_rows.py --pack gw_small
@@ -47,8 +46,8 @@ import sys
 
 import torch
 
-from chip_smoke import ptxas_report
 from repro_torch.core.quant import EXACT
+from repro_torch.kernels._build import ptxas_report
 from repro_torch.kernels.lstm_stack import lstm_stack  # noqa: F401  (binds the module)
 
 k1 = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
@@ -59,16 +58,18 @@ PACKS = {"gw_nominal": (2, 32), "gw_small": (1, 9)}
 BATCHES = {"gw_nominal": "64,256,512,4096,73728", "gw_small": "64,512,4096,32768,294912"}
 SEQ_ROWS = (2, 4, 8)
 ROW_THREAD_CTAS = (32, 64, 128)
+ONE_ROW = k1.KernelPath("one_row", 1)
 
 
 def modes(pack: str) -> list:
     if pack == "gw_small":
-        return [("one", 1)] + [("row_thread", r) for r in ROW_THREAD_CTAS]
-    return [("one", 1), ("blocked", k1.BLOCKED_ROWS)] + [("seq", r) for r in SEQ_ROWS]
+        return [ONE_ROW] + [k1.KernelPath("row_thread", r) for r in ROW_THREAD_CTAS]
+    return ([ONE_ROW, k1.KernelPath("blocked", k1.BLOCKED_ROWS)]
+            + [k1.KernelPath("one_row", r) for r in SEQ_ROWS])
 
 
-def path_code(kind: str) -> int:
-    return {"one": 0, "seq": 0, "blocked": 1, "row_thread": 2}[kind]
+def label(mode) -> str:
+    return f"{mode.kind} {mode.rows}"
 
 
 def operands(batch: int, seed: int, dev, n_layers: int, width: int) -> dict:
@@ -85,14 +86,10 @@ def operands(batch: int, seed: int, dev, n_layers: int, width: int) -> dict:
 
 
 def run(mode, o) -> tuple:
-    kind, r = mode
     out = (torch.empty(T, *o["h0"].shape[1:], device=o["h0"].device),
            torch.empty_like(o["h0"]), torch.empty_like(o["c0"]))
     k1.launch("lstm_stack_wavefront", o["xw0"], o["w_x"], o["w_h"], o["b"], o["h0"], o["c0"],
-              None, *out, t_len=T, acts=EXACT, act_bits=None,
-              block_b=r if kind == "seq" else None,
-              rows_per_thread=r if kind == "blocked" else 1,
-              row_thread_rows=r if kind == "row_thread" else None)
+              None, *out, t_len=T, acts=EXACT, act_bits=None, path=mode)
     return out
 
 
@@ -120,27 +117,26 @@ def main() -> int:
     built = k1.library()
     ptxas = [k for k in ptxas_report(built.log) if "lstm_stack_kernel" in k["kernel"]]
     lib = built.lib
-    occupancy = {f"{kind} {r}": lib.lstm_stack_ctas_per_sm(L, W, r, path_code(kind), 0, 0)
-                 for kind, r in modes(args.pack)}
+    occupancy = {label(m): lib.lstm_stack_ctas_per_sm(L, W, m.rows, k1.PATH_CODES[m.kind], 0, 0)
+                 for m in modes(args.pack)}
     sms = k1.sm_count(0)
     rows = []
     for batch in (int(b) for b in (args.batches or BATCHES[args.pack]).split(",")):
         o = operands(batch, args.seed + batch, dev, L, W)
-        want = run(("one", 1), o)
+        want = run(ONE_ROW, o)
         equal = {}
         for mode in modes(args.pack):
             got = run(mode, o)
-            equal[f"{mode[0]} {mode[1]}"] = all(torch.equal(a, b) for a, b in zip(got, want))
+            equal[label(mode)] = all(torch.equal(a, b) for a, b in zip(got, want))
         # about 200 ms of launches a measurement
-        reps = max(1, min(50, int(200 / max(event_ms(lambda: run(("one", 1), o), 1), 1e-3))))
-        times = {f"{kind} {r}": [] for kind, r in modes(args.pack)}
+        reps = max(1, min(50, int(200 / max(event_ms(lambda: run(ONE_ROW, o), 1), 1e-3))))
+        times = {label(m): [] for m in modes(args.pack)}
         for i in range(args.rounds):
             order = modes(args.pack) if i % 2 == 0 else modes(args.pack)[::-1]
             for mode in order:
-                times[f"{mode[0]} {mode[1]}"].append(event_ms(lambda: run(mode, o), reps))
+                times[label(mode)].append(event_ms(lambda: run(mode, o), reps))
         rows.append({"B": batch, "reps": reps,
-                     "rows_per_thread": k1.rows_per_thread(batch, L, W, sms),
-                     "row_thread": k1.row_thread(batch, L, W, sms),
+                     "kernel_path": label(k1.kernel_path(batch, L, W, sms)),
                      "bit_equal_to_one": equal,
                      "ms": {k: statistics.median(v) for k, v in times.items()},
                      "ms_min_max": {k: [min(v), max(v)] for k, v in times.items()}})
