@@ -3569,6 +3569,62 @@ def main() -> int:
     log(f"phase 3 K1 ok: {n} cases (fp32 and bf16 compute; B {k1_batches}, {n_blocked} of them "
         f"row-blocked, {k1_mod.BLOCKED_ROWS} rows a thread), bit-equal to the plain version "
         f"({time.perf_counter() - t0:.1f} s)")
+    # the same packs at the layers' own widths, as every pack's caller
+    # launches them: the row-blocked batches and the nominal cell's 73,728
+    # rows, on the zero state and on a state packed from the real widths,
+    # each held in all of hs, h_f and c_f (their bits: signed zeros count)
+    # against the plain version at the real widths and the padded one
+    def bit_view(t):
+        return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+    def real_state(pk, batch):
+        return pk.pack_state([((torch.randn(batch, h, generator=gen) * 0.3).to(dev),
+                               (torch.randn(batch, h, generator=gen) * 0.3).to(dev))
+                              for h in pk.hidden])
+
+    trim_batches = tuple(b for b in k1_batches if k1_blocked[b]) + (73_728,)
+    t0, n_trim = time.perf_counter(), 0
+    lstm_stack.trimmed_launches = 0
+    for key, acts, bits in matrix:
+        for seg, pk in all_packs[key].items():
+            s = pk.stacked
+            if not k1_mod.trims(pk.widths, pk.width_p):
+                raise AssertionError(f"phase 3: {seg} {pk.widths} is not trimmed at W={pk.width_p}")
+            for batch in trim_batches:
+                xw0 = project_layer0(segment_input(seg, pk, batch, T), s, key[0])
+                for state_kind in ("zero", "real"):
+                    h0, c0 = pk.zero_state(batch) if state_kind == "zero" else real_state(pk, batch)
+                    got = lstm_stack(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
+                                     scales=s.get("scales"), acts=acts, act_bits=bits,
+                                     widths=pk.widths)
+                    for widths in (pk.widths, None):
+                        want = lstm_stack_ref(xw0, s["w_x"], s["w_h"], s["b"], h0, c0,
+                                              widths=widths, **plain_kw(pk, acts, bits))
+                        torch.cuda.synchronize()
+                        for a, b in zip(got, want, strict=True):
+                            if not torch.equal(bit_view(a), bit_view(b)):
+                                raise AssertionError(
+                                    f"phase 3: K1 at the layers' own widths {key} {acts.name} "
+                                    f"{bits} {seg} B={batch} {state_kind} state: differs from "
+                                    f"the plain version at {'real' if widths else 'padded'} "
+                                    f"widths")
+                        del want
+                    n_trim += 1
+                    del h0, c0, got
+                del xw0
+    torch.cuda.empty_cache()
+    if lstm_stack.trimmed_launches != n_trim:
+        raise AssertionError(f"phase 3: {lstm_stack.trimmed_launches} trimmed K1 launches, "
+                             f"want {n_trim}")
+    n_blocked += n_trim
+    if lstm_stack.launches_by_path["blocked"] != n_blocked:
+        raise AssertionError(f"phase 3: K1 launches by path {dict(lstm_stack.launches_by_path)}, "
+                             f"want {n_blocked} blocked")
+    log(f"phase 3 K1 at the layers' own widths ok: {n_trim} cases (gw_nominal's packs, five "
+        f"dtype pairs, {len(matrix) // len(all_packs)} activation and act_bits cases, B "
+        f"{trim_batches}, zero and real-width states), every launch trimmed, bit-equal to the "
+        f"plain version at the real widths and to the padded one "
+        f"({time.perf_counter() - t0:.1f} s)")
     # gw_small's packs over the same matrix: the encoder's and the decoder's
     # (L=1, W=9; the decoder's stream of time stride 0) and both layers as one
     # pack (L=2, W=9), at the row-thread threshold (one row a CTA), one above
@@ -3713,9 +3769,9 @@ def main() -> int:
     per_window[f"score_call_B{len(windows)}"] = (lstm_stack.launches, lstm_stack_step.launches,
                                                  rowwise_matmul.launches)
     # a batch score at the benchmark's gw_nominal batch: both segments' K1
-    # launches row-blocked, the decoder's reading its repeated stream in
-    # place (time stride 0), and the windows' scores those of a batch of 64,
-    # where K1 runs one row a CTA
+    # launches row-blocked at the layers' own widths (trimmed), the
+    # decoder's reading its repeated stream in place (time stride 0), and
+    # the windows' scores those of a batch of 64, where K1 runs one row a CTA
     big = np.resize(windows, (73_728,) + windows.shape[1:])
     big = big + np.random.RandomState(3).randn(*big.shape).astype(np.float32) * 0.01
     batch_eng = AnomalyStreamEngine(params, cfg, impl="fused_stack")
@@ -3724,11 +3780,13 @@ def main() -> int:
         and last 64 windows must score as in a batch of 64."""
         with block_plain():
             lstm_stack.launches = lstm_stack.repeated_input_launches = 0
+            lstm_stack.trimmed_launches = 0
             lstm_stack.launches_by_path.clear()
             whole = eng.score(big)
             counts = {"B": len(big), "launches": lstm_stack.launches,
                       "launches_by_path": dict(lstm_stack.launches_by_path),
-                      "repeated_input_launches": lstm_stack.repeated_input_launches}
+                      "repeated_input_launches": lstm_stack.repeated_input_launches,
+                      "trimmed_launches": lstm_stack.trimmed_launches}
             for part in (slice(0, 64), slice(len(big) - 64, len(big))):
                 np.testing.assert_array_equal(whole[part], eng.score(big[part]),
                                               err_msg=f"score at B={len(big)} vs B=64, {part}")
@@ -3738,11 +3796,12 @@ def main() -> int:
     del big, batch_eng
     torch.cuda.empty_cache()
     if (blocked_score["launches"], blocked_score["launches_by_path"],
-            blocked_score["repeated_input_launches"]) != (2, {"blocked": 2}, 1):
+            blocked_score["repeated_input_launches"],
+            blocked_score["trimmed_launches"]) != (2, {"blocked": 2}, 1, 2):
         raise AssertionError(f"phase 5: a batch score's K1 launches {blocked_score}")
     log(f"phase 5 batch score at B={blocked_score['B']} ok: K1 launches {blocked_score} "
-        f"(both row-blocked, the decoder's on its repeated stream), the first and last 64 "
-        f"windows bit-equal to a score of 64")
+        f"(both row-blocked at the layers' own widths, the decoder's on its repeated stream), "
+        f"the first and last 64 windows bit-equal to a score of 64")
     # gw_small at its benchmark batch: both K1 launches one row a thread (W=9)
     small = GW_MODELS["gw_small"]
     big = np.resize(windows, (294_912,) + windows.shape[1:])
@@ -3753,7 +3812,8 @@ def main() -> int:
     del big, small_eng
     torch.cuda.empty_cache()
     if (row_thread_score["launches"], row_thread_score["launches_by_path"],
-            row_thread_score["repeated_input_launches"]) != (2, {"row_thread": 2}, 1):
+            row_thread_score["repeated_input_launches"],
+            row_thread_score["trimmed_launches"]) != (2, {"row_thread": 2}, 1, 0):
         raise AssertionError(f"phase 5: a gw_small batch score's K1 launches {row_thread_score}")
     log(f"phase 5 gw_small batch score at B={row_thread_score['B']} ok: K1 launches "
         f"{row_thread_score} (both one row a thread), the first and last 64 windows bit-equal "
@@ -3953,11 +4013,43 @@ def main() -> int:
             "library_call_ms": lib_ms, "library_max_abs_err_c": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
         })
+    del xs, xw0, x_tb, h0, c0, ours, kernel, plain, lib_call
+    torch.cuda.empty_cache()
+    # K1 at the nominal cell's batch from the zero state, both segments (the
+    # decoder's on its repeated stream), at the layers' own widths (the
+    # batch score's launch) and padded, timed in turns in this call; each
+    # trimmed launch bit-equal to the padded one
+    trim_rows = []
+    for seg in ("enc", "dec"):
+        pk = all_packs[("fp32", "fp32")][seg]
+        ps, batch, widths = pk.stacked, 73_728, pk.widths
+        xw0 = project_layer0(segment_input(seg, pk, batch, T), ps, "fp32")
+        h0, c0 = pk.zero_state(batch)
+        runs = {"padded": lambda: lstm_stack(xw0, ps["w_x"], ps["w_h"], ps["b"], h0, c0),
+                "trimmed": lambda: lstm_stack(xw0, ps["w_x"], ps["w_h"], ps["b"], h0, c0,
+                                              widths=widths)}
+        lstm_stack.trimmed_launches = 0
+        with torch.no_grad():
+            compare(runs["trimmed"](), runs["padded"](), f"phase 9: K1 at B={batch}, {seg}, "
+                    f"trimmed against padded")
+        if lstm_stack.trimmed_launches != 1:
+            raise AssertionError(f"phase 9: K1 at B={batch}, {seg}: the widths' launch was "
+                                 f"not trimmed")
+        ms = {name: [] for name in runs}
+        for order in (("padded", "trimmed"), ("trimmed", "padded")):
+            for name in order:
+                ms[name].append(graph_ms(runs[name], n_calls=5))
+                torch.cuda.empty_cache()
+        trim_rows.append({"segment": seg, "L": pk.n_layers, "W": pk.width_p, "T": T, "B": batch,
+                          "in_dims": list(pk.in_dims), "hidden": list(pk.hidden),
+                          "padded_ms": statistics.median(ms["padded"]),
+                          "trimmed_ms": statistics.median(ms["trimmed"]), "ms_runs": ms})
+        del xw0, h0, c0, runs
+        torch.cuda.empty_cache()
+    rows["lstm_stack_wavefront_trimmed"] = trim_rows
     # K1 at the gw_small benchmark cell's shape (T=100, B=294,912, L=1, W=9,
     # fp32: one row a thread) against its plain version and cuDNN's LSTM on
     # the same weights
-    del xs, xw0, x_tb, h0, c0, ours, kernel, plain, lib_call
-    torch.cuda.empty_cache()
     sm_enc = small_packs("fp32")["enc"]
     ss = sm_enc.stacked
     sL, sW, batch = sm_enc.n_layers, sm_enc.width_p, 294_912
@@ -4070,6 +4162,10 @@ def main() -> int:
                         f"{r['ms'] / (r['T'] + L - 1) * 1e3:.3g} us x {r['T'] + L - 1} steps "
                         f"(cuDNN {r['library_ms']:.4g} ms)"
                         for r in rows[name] if r["W"] == W))
+    for r in rows["lstm_stack_wavefront_trimmed"]:
+        log(f"phase 9 lstm_stack_wavefront {r['segment']} (L={r['L']}, W={r['W']}, widths "
+            f"{r['in_dims']} -> {r['hidden']}, row-blocked): T={r['T']} B={r['B']} at the "
+            f"layers' own widths {r['trimmed_ms']:.4g} ms, padded {r['padded_ms']:.4g} ms")
     r = small_row
     log(f"phase 9 lstm_stack_wavefront (L={r['L']}, W={r['W']}, one row a thread, "
         f"{r['rows_a_cta']} a CTA): T={r['T']} B={r['B']} {r['ms']:.4g} ms (call "
@@ -4148,7 +4244,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/lstm_stack/csrc/lstm_stack.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
             **({"launches_per_score": {"gw_nominal": blocked_score,
-                                       "gw_small": row_thread_score}}
+                                       "gw_small": row_thread_score},
+                "shapes_at_real_widths": rows["lstm_stack_wavefront_trimmed"]}
                if name == "lstm_stack_wavefront" else {}),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -862,7 +862,7 @@ def _fused_seq_call(ex: StackExecutor, xs, state):
                                   fuse_gates=plan.fuse_gates, **kw)
     from repro_torch.kernels.lstm_stack.ops import lstm_stack_op
 
-    return lstm_stack_op(packed.pad_input(xs), packed.stacked, h, c, **kw)
+    return lstm_stack_op(packed.pad_input(xs), packed.stacked, h, c, widths=packed.widths, **kw)
 
 
 def _resolve_n_chunks(ex: StackExecutor, t_len: int) -> int:

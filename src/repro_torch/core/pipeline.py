@@ -273,11 +273,13 @@ class StagedStack:
     """A ``PackedStack`` placed on a stage mesh, made once (at bind): its
     contiguous sub-stacks (weights, biases and an int8 pack's per-layer
     scales, split along the layer axis), each on its stage's device (views
-    of the one pack where a stage shares its device), and one stream per
+    of the one pack where a stage shares its device), their real widths
+    (``PackedStack.widths`` split the same way), and one stream per
     stage."""
 
     mesh: Mesh
     stages: tuple
+    widths: tuple
     streams: tuple
 
     @classmethod
@@ -288,9 +290,11 @@ class StagedStack:
             raise ValueError(f"the {n_layers}-layer stack does not split into whole "
                              f"sub-stacks across {n_stages} stages")
         per = n_layers // n_stages
-        stages = tuple({k: v[s * per : (s + 1) * per].to(dev) for k, v in packed.stacked.items()}
-                       for s, dev in enumerate(mesh))
-        return cls(mesh, stages, stage_streams(mesh))
+        cuts = [slice(s * per, (s + 1) * per) for s in range(n_stages)]
+        stages = tuple({k: v[cut].to(dev) for k, v in packed.stacked.items()}
+                       for cut, dev in zip(cuts, mesh))
+        widths = tuple((packed.in_dims[cut], packed.hidden[cut]) for cut in cuts)
+        return cls(mesh, stages, widths, stage_streams(mesh))
 
 
 def wavefront_shard_map_fused(packed, staged: StagedStack, xs_p: torch.Tensor,
@@ -336,7 +340,7 @@ def wavefront_shard_map_fused(packed, staged: StagedStack, xs_p: torch.Tensor,
 
     def body(s, x):
         hs, h_f, c_f = lstm_stack_op(x, staged.stages[s], *state[s], acts=packed.acts,
-                                     weight_dtype=packed.weight_dtype)
+                                     weight_dtype=packed.weight_dtype, widths=staged.widths[s])
         state[s] = (h_f, c_f)
         return hs
 

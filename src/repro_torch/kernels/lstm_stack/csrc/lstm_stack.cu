@@ -79,11 +79,34 @@
 //     runs sigma while its neighbour runs tanh); one barrier a step serves all
 //     rows.  Layer 0's stream rows of the next step, contiguous in (T, B, 4W),
 //     arrive as one copy of kRows * 4W floats by 16-byte cp.async.cg.
-//     __launch_bounds__ asks for two CTAs (16 warps) per SM (122-128
-//     registers, no spills).  The last CTA's rows past B are computed on zeros
+//     __launch_bounds__ asks for two 256-thread CTAs (16 warps) per SM (128
+//     registers, no spills; an SM holds three of the 160-thread CTAs below).
+//     The last CTA's rows past B are computed on zeros
 //     and never stored.  The wrapper launches it above one wave of one-row
-//     CTAs (`rows_per_thread` in lstm_stack.py); the step kernel, whose
+//     CTAs (`kernel_path` in lstm_stack.py); the step kernel, whose
 //     batches are small, has no blocked instantiation.
+//   * The layers' own widths (row-blocked path).  A pack pads every layer to
+//     W = 32, so gw_nominal's 32-8-8-32 stack does 12,288 multiply-adds a
+//     row-step where its widths need 5,376.  Given each layer's real input
+//     and hidden width (Args::warps, x_len, h_len; the wrapper passes a
+//     pack's), the kTrim instantiation runs only the warps that hold real
+//     elements (ceil(h_l / 8) for layer l: 160 threads at both nominal
+//     segments, three CTAs an SM where 256 took two), and each chain ends
+//     at its layer's width rounded up to 4 (the x chain of layer l >= 1 at
+//     in_l, the h chain at h_l): the k loops stay unrolled to 32, each group
+//     of 4 terms behind a warp-uniform test, so the weights stay in
+//     registers.  The dropped terms are a trailing run of products of the
+//     pack's zero rows with finite h, each +0 or -0, and a chain from +0 is
+//     never -0 (in round to nearest a sum is -0 only if both addends are),
+//     so adding them changed nothing: every real output keeps its bits,
+//     whatever the state holds at its padded positions.  Where it holds +0
+//     there (a zero state, or one packed from the real widths) the padded
+//     elements stay +0 under every activation set (sigma(0) * tanh(0) from
+//     c = +0): the skipped warps' h and c keep the state in shared memory,
+//     and the last layer's warps write +0 into hs for its padded elements,
+//     so whole tensors equal the padded launch's.  (A state with other
+//     values there keeps them in h_f and c_f, at positions every caller
+//     slices away.)
 //   * Every operation is a single IEEE fp32 operation (__fmul_rn and
 //     __fadd_rn never contract into FMAs) in the order of the plain
 //     PyTorch versions (ref.py, step.py), so kernel and plain version agree
@@ -133,6 +156,23 @@
 
 namespace {
 
+constexpr int kMaxThreads = 1024;  // per CTA, weights in shared memory
+constexpr int kRegThreads = 256;   // per CTA, weights and h in registers (<= 255 each)
+constexpr int kPrefetch = 2;       // bf16 layer-0 inputs of the next step a thread loads ahead
+
+constexpr int kRegW = 32;          // the width whose weights live in registers
+// the wavefront kernel's paths (Args::path): one row a CTA (or an explicit
+// block of rows one after another), the row-blocked instantiation, one row a
+// thread
+enum Path { kOneRow = 0, kBlocked = 1, kRowThread = 2 };
+constexpr int kRowThreadMax = 128;  // rows (threads) of one row-thread CTA, at most
+// rows every thread of the row-blocked wavefront kernel carries through a
+// step (BLOCKED_ROWS in lstm_stack.py)
+constexpr int kBlockedRows = 8;
+// layers of the register path at most (L * 4W <= kRegThreads at W = kRegW):
+// the length of Args' per-layer geometry
+constexpr int kRegLayers = kRegThreads / (4 * kRegW);
+
 struct Args {
   const void* x;        // wavefront: xw0 (T, B, 4W) fp32; step: xs (B, T, W) compute dtype
   const void* w_x;      // (L, W, 4W) storage dtype
@@ -148,21 +188,12 @@ struct Args {
   int fuse;             // step only: each gate's sum one 2W-long chain over [x; h]
   int path;             // wavefront only: kOneRow, kBlocked (kRows = rows) or kRowThread
   long long x_tstride;  // wavefront only: floats between timesteps of xw0, B * 4W or 0
+  // row-blocked path at the layers' own widths (trim): layer l's warps
+  // (those of its real elements) and the lengths of its x and h chains
+  // (multiples of 4); W / 8 and W at the padded geometry
+  bool trim;
+  int warps[kRegLayers], x_len[kRegLayers], h_len[kRegLayers];
 };
-
-constexpr int kMaxThreads = 1024;  // per CTA, weights in shared memory
-constexpr int kRegThreads = 256;   // per CTA, weights and h in registers (<= 255 each)
-constexpr int kPrefetch = 2;       // bf16 layer-0 inputs of the next step a thread loads ahead
-
-constexpr int kRegW = 32;          // the width whose weights live in registers
-// the wavefront kernel's paths (Args::path): one row a CTA (or an explicit
-// block of rows one after another), the row-blocked instantiation, one row a
-// thread
-enum Path { kOneRow = 0, kBlocked = 1, kRowThread = 2 };
-constexpr int kRowThreadMax = 128;  // rows (threads) of one row-thread CTA, at most
-// rows every thread of the row-blocked wavefront kernel carries through a
-// step (BLOCKED_ROWS in lstm_stack.py)
-constexpr int kBlockedRows = 8;
 
 // Whether a thread's columns of W_x and W_h live in registers (the width the
 // GW configs pack to, all layers at once) or in shared memory.
@@ -258,51 +289,54 @@ __device__ __forceinline__ float dotcat_regs(const float* x, const float (&wx)[k
   return acc;
 }
 
-// The sums of kRows rows with one thread's column, interleaved: k
+// The sums of kRows rows with one thread's column over k < n (n a
+// multiple of 4, at most kW; the row-blocked path's layer width), k
 // outermost, the rows inside, each row's chain in dot_regs's order (from
 // 0, one rounded multiply and one rounded add per term, k ascending), so
-// each row's bits are dot_regs's.  Row r starts at v + r * kW; each row is
-// read four floats at a time by broadcast.  dot2_rows runs x . w_x and
-// h . w_h the same way, 2 * kRows independent chains.
+// each row's bits are dot_regs's wherever the terms from n on are +0.  Row
+// r starts at v + r * kW; each row is read four floats at a time by
+// broadcast.  dot2_rows runs x . w_x over k < nx and h . w_h over k < nh
+// the same way, 2 * kRows independent chains.  The k loop stays unrolled
+// (w's indices are compile-time, so w stays in registers), and with kTrim
+// each group of four terms runs behind a test of n, uniform across the
+// warp.  Those tests cost a launch at the padded geometry 4% (13.56 against
+// 13.03 ms at B = 73,728 on the H100), so it runs the instantiation
+// without them (kTrim false, n = kW); a second copy of the loop inside one
+// instantiation spilled registers and slowed the trimmed launches by 3-5%.
 template <int kW, int kRows>
-__device__ __forceinline__ void dot_rows(const float* v, const float (&w)[kW],
+__device__ __forceinline__ void rows_terms(const float* v, const float (&w)[kW], int k,
+                                           float (&acc)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float4 q = *reinterpret_cast<const float4*>(v + r * kW + k);
+    acc[r] = add(acc[r], mul(q.x, w[k]));
+    acc[r] = add(acc[r], mul(q.y, w[k + 1]));
+    acc[r] = add(acc[r], mul(q.z, w[k + 2]));
+    acc[r] = add(acc[r], mul(q.w, w[k + 3]));
+  }
+}
+
+template <int kW, int kRows, bool kTrim>
+__device__ __forceinline__ void dot_rows(const float* v, const float (&w)[kW], int n,
                                          float (&acc)[kRows]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
 #pragma unroll
   for (int k = 0; k < kW; k += 4) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 q = *reinterpret_cast<const float4*>(v + r * kW + k);
-      acc[r] = add(acc[r], mul(q.x, w[k]));
-      acc[r] = add(acc[r], mul(q.y, w[k + 1]));
-      acc[r] = add(acc[r], mul(q.z, w[k + 2]));
-      acc[r] = add(acc[r], mul(q.w, w[k + 3]));
-    }
+    if (!kTrim || k < n) rows_terms<kW, kRows>(v, w, k, acc);
   }
 }
 
-template <int kW, int kRows>
-__device__ __forceinline__ void dot2_rows(const float* x, const float (&wx)[kW], const float* h,
-                                          const float (&wh)[kW], float (&gx)[kRows],
-                                          float (&hh)[kRows]) {
+template <int kW, int kRows, bool kTrim>
+__device__ __forceinline__ void dot2_rows(const float* x, const float (&wx)[kW], int nx,
+                                          const float* h, const float (&wh)[kW], int nh,
+                                          float (&gx)[kRows], float (&hh)[kRows]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) gx[r] = hh[r] = 0.0f;
 #pragma unroll
   for (int k = 0; k < kW; k += 4) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 p = *reinterpret_cast<const float4*>(x + r * kW + k);
-      const float4 q = *reinterpret_cast<const float4*>(h + r * kW + k);
-      gx[r] = add(gx[r], mul(p.x, wx[k]));
-      hh[r] = add(hh[r], mul(q.x, wh[k]));
-      gx[r] = add(gx[r], mul(p.y, wx[k + 1]));
-      hh[r] = add(hh[r], mul(q.y, wh[k + 1]));
-      gx[r] = add(gx[r], mul(p.z, wx[k + 2]));
-      hh[r] = add(hh[r], mul(q.z, wh[k + 2]));
-      gx[r] = add(gx[r], mul(p.w, wx[k + 3]));
-      hh[r] = add(hh[r], mul(q.w, wh[k + 3]));
-    }
+    if (!kTrim || k < nx) rows_terms<kW, kRows>(x, wx, k, gx);
+    if (!kTrim || k < nh) rows_terms<kW, kRows>(h, wh, k, hh);
   }
 }
 
@@ -356,10 +390,13 @@ __device__ __forceinline__ void col_dots(const float* x, const float (&wxr)[kR],
 // kRows: 1 (a.rows rows per CTA, one after another), or kBlockedRows, the
 // rows every thread carries through each step (wavefront kernel, register
 // path).
-template <typename CT, typename WT, bool kStep, int kW, int kRows>
+// kTrim (row-blocked only): the layers' real widths in Args (warps, x_len,
+// h_len) set the warps and the chains; false runs the padded geometry.
+template <typename CT, typename WT, bool kStep, int kW, int kRows, bool kTrim = false>
 __global__ void __launch_bounds__(kW > 0 ? kRegThreads : kMaxThreads, kRows > 1 ? 2 : 1)
 lstm_stack_kernel(const Args a) {
   static_assert(kRows == 1 || (kW > 0 && !kStep), "row blocking: wavefront, register path");
+  static_assert(!kTrim || kRows > 1, "the layers' own widths: row-blocked path only");
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = a.L, W = kW > 0 ? kW : a.W, W4 = 4 * W, T = a.T, B = a.B;
   const int R = kRows > 1 ? kRows : a.rows;
@@ -380,14 +417,22 @@ lstm_stack_kernel(const Args a) {
   const int row0 = blockIdx.x * R;
   const int nrows = min(R, B - row0);
   const int nl = nthreads / W4;  // layers whose threads run at once
-  const int lt = tid / W4;       // this thread's (first) layer
+  // this thread's (first) layer, and its warp within the layer: 4W / 32
+  // warps a layer, but at the layers' own widths a.warps[l] (those of the
+  // layer's real elements, uniform across each warp)
+  int lt = tid / W4, wl = (tid - lt * W4) >> 5;
+  if constexpr (kTrim) {
+    lt = 0;
+    wl = tid >> 5;
+    while (wl >= a.warps[lt]) wl -= a.warps[lt++];
+  }
   // the gate column j this thread owns.  On the register path a warp
   // holds all four gates of 8 elements: lane = 8 * gate + element % 8, so
   // the gates of one element meet by shuffles; at run-time widths column j
   // is thread j of the layer and the gates meet in shared memory
   constexpr bool kWarpCell = kW > 0;
   const int lane = tid & 31;
-  const int kq = kWarpCell ? ((tid - lt * W4) >> 5) * 8 + (lane & 7) : 0;  // element
+  const int kq = kWarpCell ? wl * 8 + (lane & 7) : 0;  // element
   const int gate = kWarpCell ? lane >> 3 : (tid - lt * W4) / W;
   const int j = kWarpCell ? gate * W + kq : tid - lt * W4;
 
@@ -531,12 +576,16 @@ lstm_stack_kernel(const Args a) {
         const float* h_own = h_rd + size_t(lt) * kRows * kW;
         float pre[kRows], hh[kRows];
         if (lt == 0) {
-          dot_rows<kW, kRows>(h_own, whr, hh);
+          dot_rows<kW, kRows, kTrim>(h_own, whr, a.h_len[0], hh);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) pre[r] = add(in_rd[r * W4 + j], mul(hh[r], s_h0));
         } else {
           float gx[kRows];
-          dot2_rows<kW, kRows>(h_own - kRows * kW, wxr, h_own, whr, gx, hh);
+          // the layer past layer 0 (L <= kRegLayers = 2 here): its chain
+          // lengths read at fixed offsets, with no register held for them
+          static_assert(kRegLayers == 2, "one layer past layer 0 on the register path");
+          dot2_rows<kW, kRows, kTrim>(h_own - kRows * kW, wxr, a.x_len[1], h_own, whr,
+                                      a.h_len[1], gx, hh);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
             pre[r] = add(add(mul(gx[r], s_x0), bias0), mul(hh[r], s_h0));
@@ -609,6 +658,21 @@ lstm_stack_kernel(const Args a) {
     __syncthreads();
   }
 
+  // the last layer's elements past its warps' are padding, +0 at every
+  // step: its warps write them into hs once the time loop is done
+  if constexpr (kTrim) {
+    const int e0 = 8 * a.warps[lt], step = 32 * a.warps[lt];
+    if (lt == L - 1 && e0 < kW) {
+      const int first = e0 + (kq >> 3) * 32 + lane;  // kq >> 3: the warp within the layer
+      for (int t = 0; t < T; ++t) {
+        CT* out = hs + (size_t(t) * B + row0) * kW;
+        for (int e = first; e < kW; e += step) {
+          for (int r = 0; r < nrows; ++r) out[size_t(r) * kW + e] = from_f<CT>(0.0f);
+        }
+      }
+    }
+  }
+
   // layer l's last write went to buffer (l + T) & 1
   CT* h_f = static_cast<CT*>(a.h_f);
   for (int i = tid; i < L * nrows * W; i += nthreads) {
@@ -620,19 +684,23 @@ lstm_stack_kernel(const Args a) {
   }
 }
 
-template <typename CT, typename WT, bool kStep, int kW, int kRows>
+template <typename CT, typename WT, bool kStep, int kW, int kRows, bool kTrim>
 struct Instance {};  // one shared-memory table each
 
 // Launches the instantiation, or, where ctas_per_sm is given, writes the
 // CTAs of it one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 // and launches nothing.
-template <typename CT, typename WT, bool kStep, int kW, int kRows>
+template <typename CT, typename WT, bool kStep, int kW, int kRows, bool kTrim = false>
 cudaError_t launch(const Args& a, cudaStream_t stream, int* ctas_per_sm) {
   const size_t smem = smem_layout(a.L, a.W, a.rows, sizeof(WT), kStep).total;
-  auto kernel = lstm_stack_kernel<CT, WT, kStep, kW, kRows>;
-  cudaError_t err = set_smem_once<Instance<CT, WT, kStep, kW, kRows>>(kernel, smem);
+  auto kernel = lstm_stack_kernel<CT, WT, kStep, kW, kRows, kTrim>;
+  cudaError_t err = set_smem_once<Instance<CT, WT, kStep, kW, kRows, kTrim>>(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int threads = layers_at_once(a.L, a.W) * 4 * a.W;
+  int threads = layers_at_once(a.L, a.W) * 4 * a.W;
+  if constexpr (kTrim) {  // the warps of the layers' real elements
+    threads = 0;
+    for (int l = 0; l < a.L; ++l) threads += 32 * a.warps[l];
+  }
   if (ctas_per_sm != nullptr) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, threads, smem);
   }
@@ -882,7 +950,8 @@ cudaError_t by_width(const Args& a, cudaStream_t s, int* ctas_per_sm) {
   if (a.path == kBlocked) {
     if constexpr (!kStep) {
       if (regs && a.rows == kBlockedRows) {
-        return launch<CT, WT, kStep, kRegW, kBlockedRows>(a, s, ctas_per_sm);
+        return a.trim ? launch<CT, WT, kStep, kRegW, kBlockedRows, true>(a, s, ctas_per_sm)
+                      : launch<CT, WT, kStep, kRegW, kBlockedRows>(a, s, ctas_per_sm);
       }
     }
     return cudaErrorInvalidValue;
@@ -922,7 +991,7 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
                const void* scales, const void* h0, const void* c0, void* hs,
                void* h_f, void* c_f, int T, int B, int L, int W, int rows,
                int act, int act_bits, int fuse, int path, long long x_tstride) {
-  Args a;
+  Args a = {};
   a.x = x;
   a.w_x = w_x;
   a.w_h = w_h;
@@ -943,7 +1012,29 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
   a.fuse = fuse;
   a.path = path;
   a.x_tstride = x_tstride;
+  for (int l = 0; l < kRegLayers; ++l) {  // the padded geometry
+    a.warps[l] = W / 8;
+    a.x_len[l] = a.h_len[l] = W;
+  }
   return a;
+}
+
+// Sets the row-blocked path's geometry from `widths`, layer l's real input
+// width at widths[l] and hidden width at widths[L + l] (null: the padded
+// geometry, kept).  False where widths is given off that path, or a width
+// lies outside [1, W].
+bool set_widths(Args& a, const int* widths) {
+  if (widths == nullptr) return true;
+  if (a.path != kBlocked || !in_regs(a.L, a.W)) return false;
+  a.trim = true;
+  for (int l = 0; l < a.L; ++l) {
+    const int in = widths[l], h = widths[a.L + l];
+    if (in < 1 || in > a.W || h < 1 || h > a.W) return false;
+    a.warps[l] = (h + 7) / 8;
+    a.x_len[l] = (in + 3) / 4 * 4;  // read from layer 1 on; layer 0's x is streamed
+    a.h_len[l] = (h + 3) / 4 * 4;
+  }
+  return true;
 }
 
 }  // namespace
@@ -956,15 +1047,19 @@ Args make_args(const void* x, const void* w_x, const void* w_h, const void* b,
 // rows a CTA, W = 9.  x_tstride: floats between timesteps of xw0,
 // B * 4W for a dense stream or 0 for one (B, 4W) block repeated over the
 // window; the (B, 4W) rows of a timestep are contiguous and 16-byte aligned.
+// widths (row-blocked path only; null elsewhere, or for the padded work):
+// 2L ints, the layers' real input widths then their hidden widths, of a
+// pack whose weights are zero past them.
 extern "C" int lstm_stack_wavefront(
     const void* xw0, const void* w_x, const void* w_h, const void* b,
     const void* scales, const void* h0, const void* c0, void* hs, void* h_f,
     void* c_f, int T, int B, int L, int W, int rows, int compute_dtype,
     int weight_dtype, int act, int act_bits, int path, long long x_tstride,
-    void* stream) {
+    const int* widths, void* stream) {
   if (x_tstride != 0 && x_tstride != 4LL * B * W) return cudaErrorInvalidValue;
-  const Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
-                           L, W, rows, act, act_bits, 0, path, x_tstride);
+  Args a = make_args(xw0, w_x, w_h, b, scales, h0, c0, hs, h_f, c_f, T, B,
+                     L, W, rows, act, act_bits, 0, path, x_tstride);
+  if (!set_widths(a, widths)) return cudaErrorInvalidValue;
   return dispatch<false>(a, compute_dtype, weight_dtype, stream);
 }
 
@@ -1002,11 +1097,13 @@ extern "C" long long lstm_stack_row_thread_smem_bytes(int L, int W, int rows) {
 
 // CTAs of the wavefront kernel's instantiation for (L, W, rows, path) and
 // the dtypes that one SM holds at once (-1 where it has none; on the
-// row-thread path, the exact activation set's instantiation).
+// row-thread path, the exact activation set's instantiation), at the
+// layers' real widths where `widths` is given (as lstm_stack_wavefront's).
 extern "C" int lstm_stack_ctas_per_sm(int L, int W, int rows, int path, int compute_dtype,
-                                      int weight_dtype) {
+                                      int weight_dtype, const int* widths) {
   Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                      nullptr, nullptr, 1, rows, L, W, rows, 0, 0, 0, path, 0);
+  if (!set_widths(a, widths)) return -1;
   int n = -1;
   return dispatch<false>(a, compute_dtype, weight_dtype, nullptr, &n) == cudaSuccess ? n : -1;
 }

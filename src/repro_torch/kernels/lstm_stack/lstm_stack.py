@@ -18,7 +18,10 @@ register path (``"blocked"``), or one batch row a thread at a narrow width
 (``"row_thread"``), each row's bits unchanged whichever it takes.  A gate
 stream that repeats one (B, 4W) block over the window
 (time stride 0: the decoder's RepeatVector input, ``ops.project_layer0``)
-is read in place, every step from the same rows.
+is read in place, every step from the same rows.  Given the layers' real
+widths (``widths``: a pack's ``in_dims`` and ``hidden``), the row-blocked
+launch runs only the warps of real elements and ends each chain at its
+layer's width (``trims``), with the padded launch's bits.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from repro_torch.core.quant import (
 )
 from repro_torch.kernels import refuse_grad
 
-from .ref import lstm_stack_ref, normalize_scales
+from .ref import Widths, lstm_stack_ref, normalize_scales
 
 SOURCE = Path(__file__).parent / "csrc" / "lstm_stack.cu"
 
@@ -170,7 +173,7 @@ def library():
 
     built = build(SOURCE, split=True)  # the row-thread kernels unroll whole rows
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, ints in (("lstm_stack_wavefront", [i32] * 10 + [i64]),
+    for name, ints in (("lstm_stack_wavefront", [i32] * 10 + [i64, ptr]),  # ..., widths
                        ("lstm_stack_step", [i32] * 10)):
         fn = getattr(built.lib, name)
         fn.argtypes = [ptr] * 10 + ints + [ptr]
@@ -182,7 +185,7 @@ def library():
     for name in ("lstm_stack_threads", "lstm_stack_weights_in_registers"):
         getattr(built.lib, name).argtypes = [i32] * 2
         getattr(built.lib, name).restype = i32
-    built.lib.lstm_stack_ctas_per_sm.argtypes = [i32] * 6
+    built.lib.lstm_stack_ctas_per_sm.argtypes = [i32] * 6 + [ptr]
     built.lib.lstm_stack_ctas_per_sm.restype = i32
     return built
 
@@ -248,14 +251,43 @@ def repeated_stream(x: torch.Tensor) -> bool:
 PATH_CODES = {"one_row": 0, "blocked": 1, "row_thread": 2}
 
 
+def trims(widths: Widths | None, width: int) -> bool:
+    """Whether real widths ``(in_dims, hidden)`` run a layer narrower than
+    the pack width on the row-blocked path: a hidden width, or an inner
+    layer's input width, under ``width`` (layer 0's input product is
+    streamed in, so its input width does not count)."""
+    if widths is None:
+        return False
+    in_dims, hidden = widths
+    return any(h < width for h in hidden) or any(i < width for i in in_dims[1:])
+
+
+def widths_arg(widths: Widths | None, n_layers: int, width: int):
+    """``widths`` as the library takes them: 2L C ints, the input widths
+    then the hidden widths (None: the padded work).  Refuses a geometry
+    that is not the pack's: the wrong number of layers, or a width outside
+    [1, ``width``]."""
+    if widths is None:
+        return None
+    in_dims, hidden = (tuple(int(w) for w in ws) for ws in widths)
+    if len(in_dims) != n_layers or len(hidden) != n_layers or not all(
+            1 <= w <= width for w in in_dims + hidden):
+        raise ValueError(f"widths {widths} are not the real widths of an L={n_layers}, "
+                         f"W={width} pack")
+    return (ctypes.c_int * (2 * n_layers))(*in_dims, *hidden)
+
+
 def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
            t_len: int, acts: ActivationSet, act_bits: int | None,
-           path: KernelPath, fuse_gates: bool = False) -> None:
+           path: KernelPath, fuse_gates: bool = False, widths: Widths | None = None) -> None:
     """Launch one of the two kernels on ``path`` (a ``KernelPath``; the step
-    kernel's is one row a CTA) on the current stream.  A path with no
-    instantiation for ``entry`` at (L, W) is refused before the library
-    loads; raise also if the launch is refused (``cudaGetLastError`` of the
-    launch is non-zero)."""
+    kernel's is one row a CTA) on the current stream.  ``widths`` (the
+    row-blocked path only): the layers' real ``(in_dims, hidden)`` of a
+    pack; the launch then runs only the warps of real elements and ends
+    each chain at its layer's width.  A path with no instantiation for ``entry`` at
+    (L, W), or widths off the row-blocked path, is refused before the
+    library loads; raise also if the launch is refused
+    (``cudaGetLastError`` of the launch is non-zero)."""
     n_layers, width, batch = w_h.shape[0], w_h.shape[1], h0.shape[1]
     if 4 * width > 1024:
         raise ValueError(f"width {width} needs {4 * width} threads per block (> 1024)")
@@ -270,6 +302,9 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
             f"{entry}: no kernel for path {kind!r} with {rows} rows at L={n_layers}, W={width} "
             f"(blocked and row_thread: wavefront only, {BLOCKED_ROWS} rows on the register "
             f"path, and 32-{ROW_THREAD_MAX_ROWS} rows in steps of 32 at W in {ROW_THREAD_WIDTHS})")
+    if widths is not None and kind != "blocked":
+        raise ValueError(f"{entry}: real widths are taken on the blocked path only, not {kind!r}")
+    c_widths = widths_arg(widths, n_layers, width)
     built = library()
     smem = (built.lib.lstm_stack_row_thread_smem_bytes(n_layers, width, rows)
             if kind == "row_thread"
@@ -292,8 +327,8 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
     ops = [t if t is None or (t is x and repeated)
            or (t.is_contiguous() and t.data_ptr() % 16 == 0)
            else t.clone(memory_format=torch.contiguous_format) for t in ops]
-    # floats between timesteps of the stream (wavefront only)
-    x_tstride = [0 if repeated else batch * 4 * width] if wavefront else []
+    # floats between timesteps of the stream, and the real widths (wavefront only)
+    tail = [0 if repeated else batch * 4 * width, c_widths] if wavefront else []
     last = PATH_CODES[kind] if wavefront else int(fuse_gates)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream(h0.device).cuda_stream
@@ -301,7 +336,7 @@ def launch(entry: str, x, w_x, w_h, b, h0, c0, scales, hs, h_f, c_f, *,
             *[None if t is None else t.data_ptr() for t in ops],
             hs.data_ptr(), h_f.data_ptr(), c_f.data_ptr(),
             t_len, batch, n_layers, width, rows, _COMPUTE[h0.dtype],
-            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, last, *x_tstride,
+            _WEIGHT[w_h.dtype], kernel_act_id(acts), act_bits or 0, last, *tail,
             stream,
         )
     if err != 0:
@@ -321,6 +356,7 @@ def lstm_stack(
     acts: ActivationSet = EXACT,
     act_bits: int | None = None,
     block_b: int | None = None,
+    widths: Widths | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the fused L-layer stack over a window.
 
@@ -329,7 +365,13 @@ def lstm_stack(
     ``block_b`` is the number of batch rows one CTA runs one after another;
     without it ``kernel_path`` chooses the path by the shape and the batch.
     Weight storage may be narrower than the compute dtype; int8 codes need
-    ``scales``, applied per gate to the fp32 accumulators.
+    ``scales``, applied per gate to the fp32 accumulators.  ``widths``: the
+    real ``(in_dims, hidden)`` of a pack (weights zero past each layer's
+    widths); the row-blocked launch and the plain version then skip the
+    padding's work.  Every real output keeps the padded work's bits, and so
+    does every padded one where ``h0`` and ``c0`` hold +0 at the padded
+    positions (a zero state, or one packed from the real widths); a state
+    with other values there is not read by a real output.
     """
     refuse_grad("lstm_stack", xw0, w_x, w_h, b, h0, c0, scales)
     t_len, batch, w4 = xw0.shape
@@ -345,6 +387,7 @@ def lstm_stack(
             xw0, w_x, w_h, b, h0, c0, scales=scales, sigma=acts.sigma,
             tanh=acts.tanh,
             act_quant=make_act_quant(act_bits) if act_bits is not None else None,
+            widths=widths,
         )
     if xw0.device.type != "cuda":
         raise ValueError(f"lstm_stack: unsupported device {xw0.device}")
@@ -352,19 +395,24 @@ def lstm_stack(
     h_f = torch.empty_like(h0)
     c_f = torch.empty_like(c0)
     path = kernel_path(batch, w_h.shape[0], width, sm_count(h0.device.index), block_b)
+    trimmed = path.kind == "blocked" and trims(widths, width)
     launch("lstm_stack_wavefront", xw0, w_x, w_h, b, h0, c0, scales, hs, h_f,
-           c_f, t_len=t_len, acts=acts, act_bits=act_bits, path=path)
+           c_f, t_len=t_len, acts=acts, act_bits=act_bits, path=path,
+           widths=widths if trimmed else None)
     lstm_stack.launches += 1
     lstm_stack.launches_by_path[path.kind] += 1
     lstm_stack.repeated_input_launches += repeated_stream(xw0)
+    lstm_stack.trimmed_launches += trimmed
     return hs, h_f, c_f
 
 
 #: kernel launches since the count was last set to 0 (plain-version calls
-#: on CPU tensors do not count), and those whose layer-0 stream repeated one
-#: block over time (time stride 0)
+#: on CPU tensors do not count), those whose layer-0 stream repeated one
+#: block over time (time stride 0), and those that ran at least one layer
+#: narrower than the pack (``trims``)
 lstm_stack.launches = 0
 lstm_stack.repeated_input_launches = 0
+lstm_stack.trimmed_launches = 0
 #: the same launches by the kind of their ``KernelPath``; cleared with
 #: ``lstm_stack.launches_by_path.clear()``
 lstm_stack.launches_by_path = collections.Counter()

@@ -16,8 +16,9 @@ Public entry points:
   ``pack_stack_cached`` memoizes it on the identity (and in-place version)
   of the parameter tensors, so engines pack once.
 * ``lstm_stack_forward_fused(params_list, xs, cfgs, initial_state)``: the
-  ``fused_stack`` backend; packs, runs ONE kernel for the whole segment,
-  and slices per-layer real widths back out.
+  ``fused_stack`` backend; packs, runs ONE kernel for the whole segment
+  (handing it the pack's real widths, so that the row-blocked launch skips
+  the padding's work), and slices per-layer real widths back out.
 
 The pack width is the stack's exact widest dimension (W=32 for the GW
 nominal segments): shared memory has no 128-lane tiling to pad to, so the
@@ -43,7 +44,7 @@ from repro_torch.core.quant import (
 from repro_torch.trace import span
 
 from .lstm_stack import lstm_stack
-from .ref import apply_gate_scales, normalize_scales  # noqa: F401  (public here)
+from .ref import Widths, apply_gate_scales, normalize_scales  # noqa: F401  (public here)
 
 #: weight storage dtype -> the torch dtype the packed arrays hold
 _WEIGHT_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
@@ -146,8 +147,11 @@ def lstm_stack_op(
     acts: ActivationSet = EXACT,
     weight_dtype: str = "fp32",
     act_bits: int | None = None,
+    widths: Widths | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (hs_last (B, T, W), h_final (L, B, W), c_final fp32)."""
+    """Returns (hs_last (B, T, W), h_final (L, B, W), c_final fp32).
+    ``widths``: the real ``(in_dims, hidden)`` of the pack ``stacked``
+    came from (``PackedStack.widths``; ``lstm_stack``'s contract)."""
     width = xs.shape[2]
     if stacked["w_h"].shape[1] != width:
         raise ValueError(
@@ -161,7 +165,7 @@ def lstm_stack_op(
             xw0, stacked["w_x"], stacked["w_h"],
             stacked["b"].to(torch.float32), h0, c0.to(torch.float32),
             scales=stacked["scales"] if weight_dtype == "int8" else None,
-            acts=kernel_safe(acts), act_bits=act_bits, block_b=block_b,
+            acts=kernel_safe(acts), act_bits=act_bits, block_b=block_b, widths=widths,
         )
         return hs.transpose(0, 1), h_f, c_f
 
@@ -200,6 +204,11 @@ class PackedStack:
     @property
     def device(self) -> torch.device:
         return self.stacked["w_h"].device
+
+    @property
+    def widths(self) -> Widths:
+        """The real ``(in_dims, hidden)``, as the fused kernel takes them."""
+        return self.in_dims, self.hidden
 
     @property
     def packed_bytes(self) -> int:
@@ -399,5 +408,6 @@ def lstm_stack_forward_fused(
     hs, h_f, c_f = lstm_stack_op(
         xs, packed.stacked, h0, c0, acts=packed.acts,
         weight_dtype=packed.weight_dtype, block_b=block_b, act_bits=act_bits,
+        widths=packed.widths,
     )
     return hs[..., : packed.hidden[-1]], packed.unpack_state(h_f, c_f)

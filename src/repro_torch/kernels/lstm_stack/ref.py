@@ -18,6 +18,14 @@ Arithmetic is written to match the CUDA kernels operation for operation:
 On the card the kernel and this version therefore agree bit for bit, which
 an ``act_bits`` or bf16 rounding of h needs: a one-ulp difference before a
 rounding step would become a whole grid step after it.
+
+Given a pack's real widths (``widths``), this version does what the
+row-blocked kernel does with them: each layer computes only its real gate
+columns, each chain ends at its layer's width rounded up to 4, and the
+padded positions of every output are +0.  The terms it drops are products
+of the pack's zero rows with finite h, each +0 or -0, added to a chain from
++0 that is never -0, so every real output keeps the padded version's bits
+whatever the state holds at its padded positions.
 """
 
 from __future__ import annotations
@@ -27,6 +35,10 @@ from typing import Callable
 import torch
 
 from repro_torch.core.quant import sigmoid_exact, tanh_exact
+
+#: a pack's real layer widths, ``(in_dims, hidden)``: one input and one
+#: hidden width a layer (``PackedStack.in_dims``, ``.hidden``)
+Widths = tuple[tuple[int, ...], tuple[int, ...]]
 
 
 def normalize_scales(scales: torch.Tensor, n_layers: int) -> torch.Tensor:
@@ -89,32 +101,52 @@ def lstm_stack_ref(
     sigma: Callable = sigmoid_exact,
     tanh: Callable = tanh_exact,
     act_quant: Callable | None = None,
+    widths: Widths | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (hs of the last layer (T, B, W), h_final (L, B, W), c_final)."""
-    n_layers = w_h.shape[0]
+    """Returns (hs of the last layer (T, B, W), h_final (L, B, W), c_final).
+
+    ``widths``: the real ``(in_dims, hidden)`` of a pack, whose weights are
+    zero past each layer's widths (``lstm_stack``'s contract); the padded
+    positions of ``h0`` and ``c0`` are then not read."""
+    n_layers, width = w_h.shape[0], w_h.shape[1]
     compute = h0.dtype
     if scales is not None:
         scales = normalize_scales(scales, n_layers)
+    in_dims, hidden = widths if widths is not None else ((width,) * n_layers,) * 2
 
     def matmul_w(x, w, scale):
         out = seq_dot(x.to(torch.float32), w.to(compute).to(torch.float32))
         return out if scales is None else apply_gate_scales(out, scale)
 
+    def chain(n):  # a chain's length: the real width rounded up to 4
+        return min(width, -(-n // 4) * 4)
+
+    def pad(v):  # (..., h) -> (..., W), +0 at the padded positions
+        return v if v.shape[-1] == width else torch.nn.functional.pad(v, (0, width - v.shape[-1]))
+
     hs, h_fs, c_fs = None, [], []
-    xw = xw0
     for layer in range(n_layers):
         s_x, s_h = (None, None) if scales is None else (
             scales[layer, 0], scales[layer, 1]
         )
+        hid = hidden[layer]
+        # the layer's real gate columns: [i | f | g | o], hid of each
+        cols = (slice(None) if hid == width
+                else (torch.arange(4)[:, None] * width + torch.arange(hid)).reshape(-1))
         if layer > 0:
-            xw = matmul_w(hs, w_x[layer], s_x) + b[layer]
-        h, c = h0[layer], c0[layer].to(torch.float32)
+            nx = chain(in_dims[layer])
+            xw = matmul_w(hs[..., :nx], w_x[layer][:nx, cols], s_x) + b[layer][cols]
+        else:
+            xw = xw0[..., cols]
+        nh, w_hl = chain(hid), w_h[layer][:, cols]
+        h, c = pad(h0[layer][:, :hid]), c0[layer][:, :hid].to(torch.float32)
         out = []
         for t in range(xw.shape[0]):
-            h, c = cell_tail(xw[t] + matmul_w(h, w_h[layer], s_h), c,
+            h, c = cell_tail(xw[t] + matmul_w(h[:, :nh], w_hl[:nh], s_h), c,
                              sigma, tanh, act_quant, compute)
+            h = pad(h)
             out.append(h)
         hs = torch.stack(out)
         h_fs.append(h)
-        c_fs.append(c)
+        c_fs.append(pad(c))
     return hs, torch.stack(h_fs), torch.stack(c_fs)

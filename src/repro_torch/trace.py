@@ -40,8 +40,9 @@ Beside the spans, the kernel wrappers count their launches on the card:
 by path in ``lstm_stack.launches_by_path`` (keyed by ``kernel_path``'s
 kind: at a large batch gw_nominal's 2 are ``"blocked"``, gw_small's 2
 ``"row_thread"``), of them ``lstm_stack.repeated_input_launches`` (layer
-0's stream of time stride 0: the decoder's, 1 a batch score),
-``lstm_stack_step.launches`` and
+0's stream of time stride 0: the decoder's, 1 a batch score) and
+``lstm_stack.trimmed_launches`` (row-blocked at the layers' own widths:
+gw_nominal's 2 a batch score, gw_small's none), ``lstm_stack_step.launches`` and
 ``rowwise_matmul.launches`` (4 a batch score).
 """
 

@@ -225,12 +225,12 @@ def test_library_layout_and_occupancy(cuda):
         for width in k1.ROW_THREAD_WIDTHS:
             for n_layers in (1, 2):
                 assert lib.lstm_stack_ctas_per_sm(n_layers, width, k1.ROW_THREAD_ROWS, code,
-                                                  compute, wd) >= 1
-            assert lib.lstm_stack_ctas_per_sm(1, width, 48, code, compute, wd) == -1
-            assert lib.lstm_stack_ctas_per_sm(1, width, 256, code, compute, wd) == -1
+                                                  compute, wd, None) >= 1
+            assert lib.lstm_stack_ctas_per_sm(1, width, 48, code, compute, wd, None) == -1
+            assert lib.lstm_stack_ctas_per_sm(1, width, 256, code, compute, wd, None) == -1
         for width in (8, 10, 16, 32):
             assert lib.lstm_stack_ctas_per_sm(1, width, k1.ROW_THREAD_ROWS, code,
-                                              compute, wd) == -1
+                                              compute, wd, None) == -1
 
 
 def test_row_thread_kernels_do_not_spill(cuda):

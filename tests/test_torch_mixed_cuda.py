@@ -69,11 +69,12 @@ def test_smem_twin_equals_the_library(cuda):
     rows, blocked = k1.BLOCKED_ROWS, k1.PATH_CODES["blocked"]
     for compute, code in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2)):
         for n_layers in (1, 2):
-            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows, blocked, compute, code) >= 2
+            assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows, blocked, compute, code,
+                                              None) >= 2
             assert lib.lstm_stack_ctas_per_sm(n_layers, 32, rows // 2, blocked, compute,
-                                              code) == -1
-        assert lib.lstm_stack_ctas_per_sm(2, 9, rows, blocked, compute, code) == -1
-        assert lib.lstm_stack_ctas_per_sm(3, 32, rows, blocked, compute, code) == -1
+                                              code, None) == -1
+        assert lib.lstm_stack_ctas_per_sm(2, 9, rows, blocked, compute, code, None) == -1
+        assert lib.lstm_stack_ctas_per_sm(3, 32, rows, blocked, compute, code, None) == -1
 
 
 @pytest.mark.parametrize("split", [1, 2])

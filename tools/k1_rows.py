@@ -4,11 +4,16 @@ Times ``lstm_stack``'s wavefront launch (fp32, T=100, random weights and
 state from a seed) at several batch sizes on one of two packs.
 
 Each mode is a ``KernelPath`` (kind and rows) passed to ``launch``.
-``--pack gw_nominal``: its encoder pack (L=2, W=32, the register path):
+``--pack gw_nominal``: its encoder pack (L=2, W=32, the register path; the
+layers' real widths 1 -> 32 -> 8, weights and state zero past them, as a
+pack and its zero state are):
 
 * ``one_row 1``: one row a CTA (the launch below the row-blocking threshold);
 * ``blocked 8``: the row-blocked instantiation, every thread carrying
   ``BLOCKED_ROWS`` = 8 rows through each step;
+* ``blocked 8 trimmed``: the same given the layers' real widths (the batch
+  score's launch): only the warps of real elements, each chain ended at its
+  layer's width;
 * ``one_row R``: an explicit ``block_b`` = R (2, 4, 8), the R rows of a CTA
   one after another inside each step (the control: a mere change of the
   default).
@@ -31,7 +36,7 @@ median CUDA-event ms of one launch over rounds that take the modes in turn:
     PYTHONPATH=src:. python3 tools/k1_rows.py
     PYTHONPATH=src:. python3 tools/k1_rows.py --pack gw_small
 
-(``--batches`` 64,256,512,4096,73728 and 64,512,4096,32768,294912 by
+(``--batches`` 64,512,4096,73728,294912 and 64,512,4096,32768,294912 by
 default; ``row_thread_threshold`` cites a run at more batches around the
 crossover.)
 """
@@ -43,6 +48,7 @@ import json
 import statistics
 import subprocess
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -53,43 +59,71 @@ from repro_torch.kernels.lstm_stack import lstm_stack  # noqa: F401  (binds the 
 k1 = sys.modules["repro_torch.kernels.lstm_stack.lstm_stack"]
 
 T = 100
-#: (L, W) of each pack, and the batches it is timed at by default
+#: (L, W) of each pack, the layers' real (input, hidden) widths, and the
+#: batches it is timed at by default
 PACKS = {"gw_nominal": (2, 32), "gw_small": (1, 9)}
-BATCHES = {"gw_nominal": "64,256,512,4096,73728", "gw_small": "64,512,4096,32768,294912"}
+WIDTHS = {"gw_nominal": ((1, 32), (32, 8)), "gw_small": ((1,), (9,))}
+BATCHES = {"gw_nominal": "64,512,4096,73728,294912", "gw_small": "64,512,4096,32768,294912"}
 SEQ_ROWS = (2, 4, 8)
 ROW_THREAD_CTAS = (32, 64, 128)
 ONE_ROW = k1.KernelPath("one_row", 1)
 
 
+class Mode(NamedTuple):
+    """A launch's path, and whether it is given the layers' real widths."""
+
+    path: k1.KernelPath
+    trimmed: bool = False
+
+
 def modes(pack: str) -> list:
     if pack == "gw_small":
-        return [ONE_ROW] + [k1.KernelPath("row_thread", r) for r in ROW_THREAD_CTAS]
-    return ([ONE_ROW, k1.KernelPath("blocked", k1.BLOCKED_ROWS)]
-            + [k1.KernelPath("one_row", r) for r in SEQ_ROWS])
+        return [Mode(ONE_ROW)] + [Mode(k1.KernelPath("row_thread", r)) for r in ROW_THREAD_CTAS]
+    blocked = k1.KernelPath("blocked", k1.BLOCKED_ROWS)
+    return ([Mode(ONE_ROW), Mode(blocked), Mode(blocked, True)]
+            + [Mode(k1.KernelPath("one_row", r)) for r in SEQ_ROWS])
 
 
-def label(mode) -> str:
-    return f"{mode.kind} {mode.rows}"
+def label(mode: Mode) -> str:
+    return f"{mode.path.kind} {mode.path.rows}" + (" trimmed" if mode.trimmed else "")
 
 
-def operands(batch: int, seed: int, dev, n_layers: int, width: int) -> dict:
+def operands(batch: int, seed: int, dev, n_layers: int, width: int, widths) -> dict:
+    """Random operands, zero past the layers' real widths: each layer's
+    weight rows past its input (W_x) and hidden (W_h) width, its gate
+    columns and bias past its hidden width, and the state there."""
     g = torch.Generator().manual_seed(seed)
     w4 = 4 * width
-    return {
-        "xw0": torch.randn(T, batch, w4, generator=g).to(dev),
-        "w_x": (torch.randn(n_layers, width, w4, generator=g) * width**-0.5).to(dev),
-        "w_h": (torch.randn(n_layers, width, w4, generator=g) * width**-0.5).to(dev),
-        "b": (torch.randn(n_layers, w4, generator=g) * 0.1).to(dev),
-        "h0": (torch.randn(n_layers, batch, width, generator=g) * 0.3).to(dev),
-        "c0": (torch.randn(n_layers, batch, width, generator=g) * 0.3).to(dev),
+    in_dims, hidden = widths
+    o = {
+        "xw0": torch.randn(T, batch, w4, generator=g),
+        "w_x": torch.randn(n_layers, width, w4, generator=g) * width**-0.5,
+        "w_h": torch.randn(n_layers, width, w4, generator=g) * width**-0.5,
+        "b": torch.randn(n_layers, w4, generator=g) * 0.1,
+        "h0": torch.randn(n_layers, batch, width, generator=g) * 0.3,
+        "c0": torch.randn(n_layers, batch, width, generator=g) * 0.3,
     }
+    for l, (i, h) in enumerate(zip(in_dims, hidden)):
+        for gate in range(4):  # the gate columns past the hidden width
+            cols = slice(gate * width + h, (gate + 1) * width)
+            for key in ("w_x", "w_h"):
+                o[key][l, :, cols] = 0.0
+            o["b"][l, cols] = 0.0
+            if l == 0:
+                o["xw0"][..., cols] = 0.0
+        o["w_x"][l, i:] = 0.0
+        o["w_h"][l, h:] = 0.0
+        o["h0"][l, :, h:] = 0.0
+        o["c0"][l, :, h:] = 0.0
+    return {k: v.to(dev) for k, v in o.items()}
 
 
-def run(mode, o) -> tuple:
+def run(mode: Mode, o, widths) -> tuple:
     out = (torch.empty(T, *o["h0"].shape[1:], device=o["h0"].device),
            torch.empty_like(o["h0"]), torch.empty_like(o["c0"]))
     k1.launch("lstm_stack_wavefront", o["xw0"], o["w_x"], o["w_h"], o["b"], o["h0"], o["c0"],
-              None, *out, t_len=T, acts=EXACT, act_bits=None, path=mode)
+              None, *out, t_len=T, acts=EXACT, act_bits=None, path=mode.path,
+              widths=widths if mode.trimmed else None)
     return out
 
 
@@ -113,30 +147,33 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("k1_rows: needs a CUDA device")
     L, W = PACKS[args.pack]
+    widths = WIDTHS[args.pack]
     dev = torch.device("cuda")
     built = k1.library()
     ptxas = [k for k in ptxas_report(built.log) if "lstm_stack_kernel" in k["kernel"]]
     lib = built.lib
-    occupancy = {label(m): lib.lstm_stack_ctas_per_sm(L, W, m.rows, k1.PATH_CODES[m.kind], 0, 0)
-                 for m in modes(args.pack)}
+    occupancy = {label(m): lib.lstm_stack_ctas_per_sm(
+        L, W, m.path.rows, k1.PATH_CODES[m.path.kind], 0, 0,
+        k1.widths_arg(widths, L, W) if m.trimmed else None) for m in modes(args.pack)}
     sms = k1.sm_count(0)
     rows = []
     for batch in (int(b) for b in (args.batches or BATCHES[args.pack]).split(",")):
-        o = operands(batch, args.seed + batch, dev, L, W)
-        want = run(ONE_ROW, o)
+        o = operands(batch, args.seed + batch, dev, L, W, widths)
+        want = run(Mode(ONE_ROW), o, widths)
         equal = {}
         for mode in modes(args.pack):
-            got = run(mode, o)
+            got = run(mode, o, widths)
             equal[label(mode)] = all(torch.equal(a, b) for a, b in zip(got, want))
         # about 200 ms of launches a measurement
-        reps = max(1, min(50, int(200 / max(event_ms(lambda: run(ONE_ROW, o), 1), 1e-3))))
+        reps = max(1, min(50, int(200 / max(event_ms(lambda: run(Mode(ONE_ROW), o, widths), 1),
+                                            1e-3))))
         times = {label(m): [] for m in modes(args.pack)}
         for i in range(args.rounds):
             order = modes(args.pack) if i % 2 == 0 else modes(args.pack)[::-1]
             for mode in order:
-                times[label(mode)].append(event_ms(lambda: run(mode, o), reps))
+                times[label(mode)].append(event_ms(lambda: run(mode, o, widths), reps))
         rows.append({"B": batch, "reps": reps,
-                     "kernel_path": label(k1.kernel_path(batch, L, W, sms)),
+                     "kernel_path": label(Mode(k1.kernel_path(batch, L, W, sms))),
                      "bit_equal_to_one": equal,
                      "ms": {k: statistics.median(v) for k, v in times.items()},
                      "ms_min_max": {k: [min(v), max(v)] for k, v in times.items()}})
